@@ -1,0 +1,11 @@
+"""``python -m fenicssolver_tpu_torch case.json`` (port of
+``fenicssolver_tpu/__main__.py``).
+
+Runs on ``FST_DEVICE`` (default ``cpu``) in float64 unless ``FST_X32=1``.
+"""
+
+import sys
+
+from .main import main
+
+main(sys.argv)

@@ -1,0 +1,44 @@
+"""Numeric and device policy (port of ``fenicssolver_tpu/config.py``).
+
+Dtype: float64 by default, the accuracy the verification cases need
+(1e-8 rel-L2); ``FST_X32=1`` opts into float32.  Nothing here changes a
+torch global default: every function that allocates takes ``dtype=`` and
+``device=`` explicitly and resolves them through this module.
+
+Device: ``FST_DEVICE`` names the default device (``cpu`` unless set).
+Solver classes also take ``device=``.  Asking for ``cuda`` on a machine
+without a usable card raises; nothing carries on quietly on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def default_float():
+    return torch.float32 if os.environ.get("FST_X32", "0") == "1" else torch.float64
+
+
+def resolve_device(device=None):
+    """``device`` (or ``FST_DEVICE``, default ``cpu``) as a ``torch.device``.
+
+    Raises ``RuntimeError`` for a CUDA device when no card is available."""
+    if device is None:
+        device = os.environ.get("FST_DEVICE", "cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; set FST_DEVICE=cpu (or device='cpu') to run on the CPU"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cpu' or 'cuda'")
+    return dev
+
+
+def synchronize(device):
+    """Wait for queued work on ``device`` (phase timers read a host clock)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -17,8 +17,18 @@ setup(
         "capabilities of qingfengxia/FenicsSolver"
     ),
     license="LGPL-2.1",
-    packages=find_packages(include=["fenicssolver_tpu", "fenicssolver_tpu.*"]),
-    package_data={"": ["../native/fst_native.cpp"]},
+    packages=find_packages(
+        include=[
+            "fenicssolver_tpu",
+            "fenicssolver_tpu.*",
+            "fenicssolver_tpu_torch",
+            "fenicssolver_tpu_torch.*",
+        ]
+    ),
+    package_data={
+        "": ["../native/fst_native.cpp"],
+        "fenicssolver_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
     extras_require={"io": ["h5py"], "plot": ["matplotlib"]},

@@ -1,0 +1,116 @@
+"""Mesh, element, space and XML-reader parity: fenicssolver_tpu_torch against
+the JAX package (host numpy in both, so the arrays must be equal)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import fenicssolver_tpu.core as jcore  # noqa: E402
+import fenicssolver_tpu_torch.core as tcore  # noqa: E402
+from fenicssolver_tpu.core import elements as jel  # noqa: E402
+from fenicssolver_tpu.solvers import solver_base as jsb  # noqa: E402
+from fenicssolver_tpu_torch.core import elements as tel  # noqa: E402
+from fenicssolver_tpu_torch.solvers import solver_base as tsb  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH_XML = os.path.join(REPO, "data", "mesh.xml")
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    assert np.array_equal(a, b)
+
+
+def test_boxmesh_topology_and_space_match():
+    jm = jcore.BoxMesh((0, 0, 0), (1.0, 0.8, 0.6), 5, 4, 3)
+    tm = tcore.BoxMesh((0, 0, 0), (1.0, 0.8, 0.6), 5, 4, 3)
+    _same(tm.coords, jm.coords)
+    _same(tm.cells_array, jm.cells_array)
+    assert tm.lattice_info == jm.lattice_info
+    _same(tm.facets(), jm.facets())
+    _same(tm.exterior_facets(), jm.exterior_facets())
+    _same(tm.facet_cells(), jm.facet_cells())
+    _same(tm.facet_local_index(), jm.facet_local_index())
+    np.testing.assert_allclose(tm.facet_normals(), jm.facet_normals(), rtol=0, atol=0)
+    jV = jcore.FunctionSpace(jm, "CG", 1)
+    tV = tcore.FunctionSpace(tm, "CG", 1)
+    assert tV.ndof == jV.ndof
+    _same(tV.cell_dofs, jV.cell_dofs)
+    _same(tV.dof_coords, jV.dof_coords)
+    ext = jm.exterior_facets()
+    _same(tV.facet_dofs(ext), jV.facet_dofs(ext))
+    _same(tV.facet_dofs(ext[::3]), jV.facet_dofs(ext[::3]))
+
+
+@pytest.mark.parametrize("diagonal", ["right", "left", "crossed"])
+def test_rectangle_mesh_and_marking_match(diagonal):
+    jm = jcore.UnitSquareMesh(4, 3, diagonal=diagonal)
+    tm = tcore.UnitSquareMesh(4, 3, diagonal=diagonal)
+    _same(tm.coords, jm.coords)
+    _same(tm.cells_array, jm.cells_array)
+    _same(tm.facets(), jm.facets())
+    jf = jcore.MeshFunction("size_t", jm, 1)
+    tf = tcore.MeshFunction("size_t", tm, 1)
+    jcore.AutoSubDomain(lambda x: jcore.near(x[1], 0.0)).mark(jf, 2)
+    tcore.AutoSubDomain(lambda x: tcore.near(x[1], 0.0)).mark(tf, 2)
+    jcore.CompiledSubDomain("near(x[0], 1.0) && on_boundary").mark(jf, 3)
+    tcore.CompiledSubDomain("near(x[0], 1.0) && on_boundary").mark(tf, 3)
+    _same(tf.values, jf.values)
+
+
+@pytest.mark.parametrize("tdim,degree", [(1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 4)])
+def test_quadrature_and_tabulation_match(tdim, degree):
+    jp, jw = jel.quadrature(tdim, degree)
+    tp, tw = tel.quadrature(tdim, degree)
+    _same(tp, jp)
+    _same(tw, jw)
+    for deg in (1, 2):
+        jphi, jdphi = jel.tabulate(tdim, deg, jp)
+        tphi, tdphi = tel.tabulate(tdim, deg, tp)
+        _same(tphi, jphi)
+        _same(tdphi, jdphi)
+    if tdim > 1:
+        for a, b in zip(tel.facet_quadrature_in_cell(tdim, degree),
+                        jel.facet_quadrature_in_cell(tdim, degree)):
+            _same(a, b)
+
+
+def test_dolfin_xml_mesh_and_regions_match():
+    jm = jcore.Mesh(filename=MESH_XML)
+    tm = tcore.Mesh(filename=MESH_XML)
+    _same(tm.coords, jm.coords)
+    _same(tm.cells_array, jm.cells_array)
+    _same(tm.facets(), jm.facets())
+    for suffix, dim in (("_facet_region.xml", 2), ("_physical_region.xml", 3)):
+        fn = MESH_XML[:-4] + suffix
+        jf = jcore.MeshFunction("size_t", jm, fn)
+        tf = tcore.MeshFunction("size_t", tm, fn)
+        assert tf.dim == jf.dim == dim
+        _same(tf.values, jf.values)
+    # the solver layer reads the same sidecars and marks the same facets
+    settings = {"mesh": MESH_XML, "scalar_name": "temperature",
+                "solver_settings": {"transient_settings": {"transient": False}},
+                "report_settings": {"logging_level": 40}}
+    js = jsb.SolverBase(dict(settings))
+    ts = tsb.SolverBase(dict(settings))
+    for bid in (1, 2):
+        _same(ts.boundary_facet_ids(bid), js.boundary_facet_ids(bid))
+    _same(ts.function_space.dof_coords, js.function_space.dof_coords)
+
+
+def test_expression_and_interpolation_match():
+    jm = jcore.UnitCubeMesh(3, 2, 2)
+    tm = tcore.UnitCubeMesh(3, 2, 2)
+    code = "x[0] > 0.5 ? sin(pi*x[1]) + a : exp(x[2]) * a"
+    je = jcore.Expression(code, degree=1, a=2.5)
+    te = tcore.Expression(code, degree=1, a=2.5)
+    jf = jcore.interpolate(je, jcore.FunctionSpace(jm, "CG", 1))
+    tf = tcore.interpolate(te, tcore.FunctionSpace(tm, "CG", 1))
+    _same(tf.values, jf.values)
+    tc = tcore.interpolate(tcore.Constant(3.0), tcore.FunctionSpace(tm, "CG", 1))
+    assert np.all(tc.values == 3.0)

@@ -1,0 +1,198 @@
+"""fenicssolver_tpu_torch package rules: no JAX in the port, the device and
+dtype policy, and loud failures for what the first slice does not port."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+from fenicssolver_tpu_torch import config  # noqa: E402
+from fenicssolver_tpu_torch.core import (  # noqa: E402
+    FunctionSpace,
+    UnitCubeMesh,
+    UnitSquareMesh,
+    VectorFunctionSpace,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "fenicssolver_tpu_torch")
+
+SLICE_MODULES = [
+    "fenicssolver_tpu_torch",
+    "fenicssolver_tpu_torch.config",
+    "fenicssolver_tpu_torch.native",
+    "fenicssolver_tpu_torch.interop",
+    "fenicssolver_tpu_torch.main",
+    "fenicssolver_tpu_torch.core",
+    "fenicssolver_tpu_torch.io.meshio",
+    "fenicssolver_tpu_torch.ops.structured",
+    "fenicssolver_tpu_torch.ops.geometry",
+    "fenicssolver_tpu_torch.ops.assembly",
+    "fenicssolver_tpu_torch.ops.cuda_kernels",
+    "fenicssolver_tpu_torch.la.sparse",
+    "fenicssolver_tpu_torch.la.direct",
+    "fenicssolver_tpu_torch.la.krylov",
+    "fenicssolver_tpu_torch.la.gmg",
+    "fenicssolver_tpu_torch.utils.timers",
+    "fenicssolver_tpu_torch.solvers.solver_base",
+    "fenicssolver_tpu_torch.solvers.scalar_transport",
+]
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'fenicssolver_tpu' or m.startswith('fenicssolver_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FST_")}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    pat = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+fenicssolver_tpu\b(?!_torch)"
+        r"|from\s+fenicssolver_tpu\b(?!_torch))",
+        re.M,
+    )
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                with open(path, encoding="utf-8") as f:
+                    if pat.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders
+
+
+def test_cuda_device_raises_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card rule does not apply")
+    monkeypatch.setenv("FST_DEVICE", "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        config.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        config.resolve_device("cuda:0")
+    from fenicssolver_tpu_torch.main import load_settings, main
+
+    settings = load_settings(os.path.join(REPO, "data", "TestHeatTransfer.json"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(settings)
+
+
+def test_device_and_dtype_policy(monkeypatch):
+    monkeypatch.delenv("FST_DEVICE", raising=False)
+    monkeypatch.delenv("FST_X32", raising=False)
+    assert config.resolve_device() == torch.device("cpu")
+    assert config.default_float() == torch.float64
+    monkeypatch.setenv("FST_X32", "1")
+    assert config.default_float() == torch.float32
+    with pytest.raises(ValueError):
+        config.resolve_device("meta")
+
+
+def _settings(V, **extra):
+    s = {
+        "scalar_name": "temperature", "function_space": V, "mesh": None,
+        "boundary_conditions": {},
+        "material": {"density": 1000, "specific_heat_capacity": 4200,
+                     "thermal_conductivity": 0.6},
+        "solver_settings": {
+            "transient_settings": {"transient": False},
+            "reference_values": {},
+            "solver_parameters": {"relative_tolerance": 1e-10},
+        },
+        "report_settings": {"logging_level": 40},
+    }
+    s.update(extra)
+    return s
+
+
+@pytest.mark.parametrize(
+    "change",
+    ["transient", "advection", "radiation", "nonlinear", "amg", "distributed",
+     "point_source"],
+)
+def test_unported_features_raise(change):
+    from fenicssolver_tpu_torch.core import AutoSubDomain, near
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    V = FunctionSpace(UnitSquareMesh(4, 4), "CG", 1)
+    bottom = AutoSubDomain(lambda x: near(x[1], 0.0))
+    s = _settings(V, boundary_conditions={
+        "cold": {"boundary": bottom, "boundary_id": 1, "type": "Dirichlet",
+                 "value": 300.0}})
+    sp = s["solver_settings"]["solver_parameters"]
+    if change == "transient":
+        s["solver_settings"]["transient_settings"] = {
+            "transient": True, "starting_time": 0, "time_step": 0.1,
+            "ending_time": 0.3}
+    elif change == "advection":
+        s["convective_velocity"] = (1.0, 0.0)
+    elif change == "radiation":
+        s["radiation_settings"] = {"ambient_temperature": 300.0}
+    elif change == "nonlinear":
+        s["material"]["thermal_conductivity"] = lambda T: 1.0 + 0.0 * T
+    elif change == "amg":
+        sp["preconditioner"] = "amg"
+    elif change == "distributed":
+        sp["distributed"] = True
+    elif change == "point_source":
+        s["point_source"] = [((0.5, 0.5), 1.0)]
+    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
+        ScalarTransportSolver(s).solve()
+
+
+@pytest.mark.parametrize("what", ["P2", "DG", "vector", "xdmf"])
+def test_unported_spaces_and_readers_raise(what, tmp_path):
+    mesh = UnitCubeMesh(2, 2, 2)
+    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
+        if what == "P2":
+            FunctionSpace(mesh, "CG", 2)
+        elif what == "DG":
+            FunctionSpace(mesh, "DG", 1)
+        elif what == "vector":
+            VectorFunctionSpace(mesh, "CG", 1)
+        else:
+            from fenicssolver_tpu_torch.io import meshio
+
+            meshio.read_mesh(str(tmp_path / "m.xdmf"))
+
+
+def test_lazy_exports():
+    import fenicssolver_tpu_torch as fst
+
+    assert fst.ScalarTransportSolver.__name__ == "ScalarTransportSolver"
+    assert issubclass(fst.SolverError, Exception)
+    with pytest.raises(AttributeError):
+        fst.NoSuchSolver  # noqa: B018
+    assert fst.__version__
+
+
+def test_chip_smoke_fails_without_a_card():
+    """The GPU smoke script exits non-zero and prints no result line when
+    no CUDA device is present."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
