@@ -7,8 +7,12 @@ It imports ``torch``, numpy and scipy only: never ``jax`` and never
 scalar-transport (heat-conduction) solve: mesh and space setup, per-element
 autodiff assembly into CSR, and dense-LU / Jacobi-CG / geometric-multigrid
 CG solves whose level operator is a hand-written CUDA kernel
-(``ops/cuda_kernels.py``, ``csrc/stencil.cu``).  Features the slice does not
-port raise ``NotImplementedError`` naming the module that will bring them.
+(``ops/cuda_kernels.py``, ``csrc/stencil.cu``).  The second slice adds the
+JAX package's benchmark workload, P1 Poisson on a Kuhn lattice
+(``lattice_poisson.py``): element stiffness and stencil operator kernels
+(``csrc/p1_stiffness.cu``, ``csrc/stencil.cu``), stencil assembly
+(``ops/stencil_assembly.py``) and GMG-CG.  Features not ported yet raise
+``NotImplementedError`` naming the module that will bring them.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,15 @@
-// Constant-coefficient 15-tap Freudenthal stencil apply: the geometric
-// multigrid level operator of fenicssolver_tpu_torch/la/gmg.py (_a_free).
+// 15-tap Freudenthal stencil applies on a P1 vertex lattice.
 //
-// Replaces fenicssolver_tpu/ops/pallas_kernels.py:363
-// (stencil_flat_apply_const).
+// K2, constant coefficients: the geometric multigrid level operator of
+// fenicssolver_tpu_torch/la/gmg.py (_a_free).  Replaces
+// fenicssolver_tpu/ops/pallas_kernels.py:363 (stencil_flat_apply_const).
+//
+// K1, variable coefficients: the PCG operator of the structured-lattice
+// Poisson path (fenicssolver_tpu_torch/lattice_poisson.py), whose 15
+// per-vertex tap fields come from ops/stencil_assembly.py.  Replaces
+// fenicssolver_tpu/ops/pallas_kernels.py:308 (stencil_flat_apply).  Below,
+// K2 first; K1 follows the same design with c[t] read per output vertex
+// from coef[t][v] (coef indexed by the row vertex v).
 //
 // What it computes, on an (Nx, Ny, Nz) vertex lattice stored C-order
 // (k fastest):
@@ -107,6 +114,67 @@ int launch(const void* x, const void* f, void* y, int64_t nx, int64_t ny,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kMasked>
+__global__ void stencil_var_kernel(const T* __restrict__ x,
+                                   const T* __restrict__ f,
+                                   const T* __restrict__ coef,
+                                   T* __restrict__ y, int nx, int ny, int nz) {
+  const int64_t total = (int64_t)nx * ny * nz;
+  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= total) return;
+  const int k = (int)(v % nz);
+  const int64_t ij = v / nz;
+  const int j = (int)(ij % ny);
+  const int i = (int)(ij / ny);
+  // K1 moves 15 tap fields plus x, f and y per vertex (18 arrays, 144 B in
+  // f64): the coefficient reads are coalesced streams, one per tap, and
+  // dominate the traffic; x and f are read as in K2.
+  T acc;
+  if (kMasked) {
+    acc = __ldg(coef + kCenter * total + v) * (__ldg(f + v) * __ldg(x + v));
+  } else {
+    acc = __ldg(coef + kCenter * total + v) * __ldg(x + v);
+  }
+#pragma unroll
+  for (int t = 0; t < 15; ++t) {
+    if (t == kCenter) continue;
+    const int ii = i + kOff[t][0];
+    const int jj = j + kOff[t][1];
+    const int kk = k + kOff[t][2];
+    if (ii < 0 || ii >= nx || jj < 0 || jj >= ny || kk < 0 || kk >= nz)
+      continue;
+    const int64_t u = ((int64_t)ii * ny + jj) * nz + kk;
+    const T c = __ldg(coef + t * total + v);
+    if (kMasked) {
+      acc += c * (__ldg(f + u) * __ldg(x + u));
+    } else {
+      acc += c * __ldg(x + u);
+    }
+  }
+  if (kMasked) acc = __ldg(f + v) * acc;
+  y[v] = acc;
+}
+
+template <typename T>
+int launch_var(const void* x, const void* f, const void* coef, void* y,
+               int64_t nx, int64_t ny, int64_t nz, void* stream) {
+  const int64_t total = nx * ny * nz;
+  if (total == 0) return 0;
+  const int block = 256;
+  const int64_t grid = (total + block - 1) / block;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (f != nullptr) {
+    stencil_var_kernel<T, true><<<(unsigned)grid, block, 0, s>>>(
+        (const T*)x, (const T*)f, (const T*)coef, (T*)y, (int)nx, (int)ny,
+        (int)nz);
+  } else {
+    stencil_var_kernel<T, false><<<(unsigned)grid, block, 0, s>>>(
+        (const T*)x, nullptr, (const T*)coef, (T*)y, (int)nx, (int)ny,
+        (int)nz);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,6 +199,22 @@ int fst_stencil_apply_const_f32(const void* x, const void* f, void* y,
                                 int64_t nx, int64_t ny, int64_t nz,
                                 const double* taps, void* stream) {
   return launch<float>(x, f, y, nx, ny, nz, taps, stream);
+}
+
+// K1.  x, f (nullable), y: device pointers to nx*ny*nz contiguous values;
+// coef: device pointer to 15*nx*ny*nz contiguous values, tap-major and
+// aligned with the offsets; stream: a cudaStream_t.  Returns
+// cudaGetLastError() after the launch (0 on success).
+int fst_stencil_apply_var_f64(const void* x, const void* f, const void* coef,
+                              void* y, int64_t nx, int64_t ny, int64_t nz,
+                              void* stream) {
+  return launch_var<double>(x, f, coef, y, nx, ny, nz, stream);
+}
+
+int fst_stencil_apply_var_f32(const void* x, const void* f, const void* coef,
+                              void* y, int64_t nx, int64_t ny, int64_t nz,
+                              void* stream) {
+  return launch_var<float>(x, f, coef, y, nx, ny, nz, stream);
 }
 
 }  // extern "C"

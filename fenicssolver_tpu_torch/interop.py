@@ -27,6 +27,11 @@ def mesh(coords, cells, lattice_info=None):
     return m
 
 
+def _tensor(a, device, dtype):
+    return torch.tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
+                        device=device)
+
+
 def csr_matrix(indptr, indices, data, device=None, dtype=None):
     """A ``CSRMatrix`` from CSR arrays (columns sorted within each row)."""
     device = config.resolve_device(device)
@@ -43,9 +48,7 @@ def csr_matrix(indptr, indices, data, device=None, dtype=None):
         indptr=_i(indptr), indices=_i(indices), rows=_i(rows), n=n,
         nnz=int(indices.shape[0]),
     )
-    data = torch.tensor(np.asarray(data, dtype=np.float64), dtype=dtype,
-                        device=device)
-    return CSRMatrix(pattern=pattern, data=data)
+    return CSRMatrix(pattern=pattern, data=_tensor(data, device, dtype))
 
 
 def gmg_hierarchy(levels, coarse_inv, shape3, nu=2, omega=0.8, fine_free=None,
@@ -57,8 +60,7 @@ def gmg_hierarchy(levels, coarse_inv, shape3, nu=2, omega=0.8, fine_free=None,
     dtype = dtype or config.default_float()
 
     def _t(a):
-        return torch.tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
-                            device=device)
+        return _tensor(a, device, dtype)
 
     lv = tuple(
         GMGLevel(
@@ -76,6 +78,24 @@ def gmg_hierarchy(levels, coarse_inv, shape3, nu=2, omega=0.8, fine_free=None,
         omega=float(omega),
         fine_free=None if fine_free is None else _t(fine_free).reshape(-1),
     )
+
+
+def lattice_geometry(JinvT, detJ, device=None, dtype=None):
+    """Per-cell ``JinvT`` (tdim, gdim, nc) and ``detJ`` (nc,) as the port's
+    tensors: the inputs of ``ops/stencil_assembly.assemble_stencil`` and of
+    the stiffness kernels."""
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    return _tensor(JinvT, device, dtype), _tensor(detJ, device, dtype)
+
+
+def stencil_fields(coef, b3, device=None, dtype=None):
+    """Stencil tap fields ``coef`` (15, NX, NY, NZ) and load ``b3``
+    (NX, NY, NZ) as the port's tensors: the operands of
+    ``cuda_kernels.stencil_apply_var`` and of the lattice solve."""
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    return _tensor(coef, device, dtype), _tensor(b3, device, dtype)
 
 
 def function(space, values):

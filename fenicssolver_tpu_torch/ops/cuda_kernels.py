@@ -12,11 +12,21 @@ loaded with ``ctypes``.  The library goes into ``_build/`` (listed in
 ``.gitignore``) under a name keyed on the source's hash; it is written to a
 temporary name and renamed, so parallel workers cannot race.
 
-Kernels:
+Kernels (ids of the table in ``PERF.md``):
 
-- ``stencil_apply_const`` (``csrc/stencil.cu``): the constant-coefficient
+- K2 ``stencil_apply_const`` (``csrc/stencil.cu``): the constant-coefficient
   15-tap stencil, the GMG level operator.  Replaces
   ``fenicssolver_tpu/ops/pallas_kernels.py:363``.
+- K1 ``stencil_apply_var`` (``csrc/stencil.cu``): the variable-coefficient
+  15-tap stencil, the PCG operator of the structured-lattice Poisson path.
+  Replaces ``fenicssolver_tpu/ops/pallas_kernels.py:308``.
+- K3 ``p1_stiffness_sym`` (``csrc/p1_stiffness.cu``): packed symmetric 3-D
+  P1 element stiffness, slots ``SYM10``.  Replaces
+  ``fenicssolver_tpu/ops/pallas_kernels.py:144``.
+- K4 ``p1_stiffness`` (``csrc/p1_stiffness.cu``): generic P1 element
+  stiffness.  Replaces ``fenicssolver_tpu/ops/pallas_kernels.py:74``.
+
+Every kernel takes tensors of fewer than 2^31 elements (raises otherwise).
 """
 
 from __future__ import annotations
@@ -39,7 +49,29 @@ CSRC_DIR = os.path.normpath(os.path.join(_HERE, "..", "csrc"))
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
 #: launches per kernel since the last ``reset_launch_counts()``
-LAUNCHES = {"stencil_apply_const": 0}
+LAUNCHES = {
+    "stencil_apply_const": 0,
+    "stencil_apply_var": 0,
+    "p1_stiffness_sym": 0,
+    "p1_stiffness": 0,
+}
+
+#: the CUDA sources under ``csrc/``, one shared library each
+SOURCES = ("stencil", "p1_stiffness")
+
+#: row-major upper-triangle index of the symmetric P1 element matrix:
+#: SYM10[a][b] gives the slot of Ae[a, b] in the (10, nc) packed output of
+#: ``p1_stiffness_sym`` (the slot order of the reference's ``SYM10``)
+SYM10 = tuple(
+    tuple(
+        {(0, 0): 0, (0, 1): 1, (0, 2): 2, (0, 3): 3, (1, 1): 4,
+         (1, 2): 5, (1, 3): 6, (2, 2): 7, (2, 3): 8, (3, 3): 9}[
+            (min(a, b), max(a, b))
+        ]
+        for b in range(4)
+    )
+    for a in range(4)
+)
 
 #: what the last build of each library did: {name: {"seconds", "log", "path"}}
 BUILD_INFO = {}
@@ -111,6 +143,10 @@ def _stencil_lib():
         f = getattr(lib, fn)
         f.restype = ctypes.c_int
         f.argtypes = [vp, vp, vp, i64, i64, i64, ctypes.POINTER(ctypes.c_double), vp]
+    for fn in ("fst_stencil_apply_var_f64", "fst_stencil_apply_var_f32"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
     lib.fst_stencil_offsets.restype = None
     lib.fst_stencil_offsets.argtypes = [ctypes.POINTER(ctypes.c_int)]
     table = (ctypes.c_int * 45)()
@@ -119,6 +155,73 @@ def _stencil_lib():
         raise RuntimeError("csrc/stencil.cu offset table differs from OFFSETS")
     _libs["stencil"] = lib
     return lib
+
+
+def _p1_stiffness_lib():
+    lib = _libs.get("p1_stiffness")
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(build("p1_stiffness"))
+    vp = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    ci = ctypes.c_int
+    for fn in ("fst_p1_stiffness_sym_f64", "fst_p1_stiffness_sym_f32"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [vp, vp, vp, i64, vp]
+    for fn in ("fst_p1_stiffness_f64", "fst_p1_stiffness_f32"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [vp, vp, vp, i64, ci, ci, ci,
+                      ctypes.POINTER(ctypes.c_double), ctypes.c_double, vp]
+    _libs["p1_stiffness"] = lib
+    return lib
+
+
+def _device_kind(name, t):
+    """"cpu" or "cuda" for the device of ``t``; raises on anything else."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _check_like(name, ref, **tensors):
+    """Each of ``tensors`` is on the device of ``ref`` and of its dtype
+    (float32 or float64), with fewer than 2^31 elements; on a CUDA device,
+    also contiguous (the kernels take dense C-order arrays)."""
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: unsupported dtype {ref.dtype}")
+    for arg, t in tensors.items():
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(
+                f"{name}: {arg} is {t.dtype} on {t.device}, expected "
+                f"{ref.dtype} on {ref.device}"
+            )
+        if t.numel() >= 2**31:
+            raise ValueError(f"{name}: {arg} has 2^31 or more elements")
+        if t.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _check_lattice(name, x3, free3, **more):
+    """The checks of the stencil wrappers: ``x3`` (Nx, Ny, Nz), ``free3``
+    (optional) of its shape, ``more`` tensors alike (``_check_like``).
+    Returns "cpu" or "cuda"."""
+    kind = _device_kind(name, x3)
+    if x3.dim() != 3:
+        raise ValueError(f"{name}: x3 must be (Nx, Ny, Nz), got {tuple(x3.shape)}")
+    if free3 is not None:
+        if free3.shape != x3.shape:
+            raise ValueError(f"{name}: free3 must have the shape of x3")
+        more["free3"] = free3
+    _check_like(name, x3, x3=x3, **more)
+    return kind
+
+
+def _launch(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 def _taps(coefs):
@@ -166,29 +269,8 @@ def stencil_apply_const(x3, coefs, free3=None):
     ``coefs``: 15 taps aligned with ``ops/structured.OFFSETS``.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel of
     ``csrc/stencil.cu`` on the current stream."""
-    if x3.device.type == "cpu":
+    if _check_lattice("stencil_apply_const", x3, free3) == "cpu":
         return stencil_apply_const_reference(x3, coefs, free3)
-    if x3.device.type != "cuda":
-        raise ValueError(f"stencil_apply_const: unsupported device {x3.device}")
-    if x3.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"stencil_apply_const: unsupported dtype {x3.dtype}")
-    if x3.dim() != 3 or not x3.is_contiguous():
-        raise ValueError(
-            "stencil_apply_const: x3 must be a contiguous (Nx, Ny, Nz) tensor, "
-            f"got shape {tuple(x3.shape)}"
-        )
-    if x3.numel() >= 2**31:
-        raise ValueError("stencil_apply_const: lattice too large for the kernel")
-    if free3 is not None and (
-        free3.shape != x3.shape
-        or free3.dtype != x3.dtype
-        or free3.device != x3.device
-        or not free3.is_contiguous()
-    ):
-        raise ValueError(
-            "stencil_apply_const: free3 must be a contiguous tensor of the "
-            "shape, dtype and device of x3"
-        )
     taps = _taps(coefs)
     lib = _stencil_lib()
     fn = (
@@ -208,9 +290,218 @@ def stencil_apply_const(x3, coefs, free3=None):
             taps.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"stencil_apply_const: kernel launch failed with CUDA error {rc}"
-        )
-    LAUNCHES["stencil_apply_const"] += 1
+    _launch("stencil_apply_const", rc)
     return y
+
+
+# ---------------------------------------------------------------------------
+# K1: variable-coefficient 15-tap stencil (lattice PCG operator)
+# ---------------------------------------------------------------------------
+
+
+def stencil_apply_var_reference(x3, coef, free3=None):
+    """Plain PyTorch version: ``y[v] = sum_t coef[t, v] * x[v + d_t]`` with
+    zero reads outside the lattice, or ``free3 * A(free3 * x3)`` with a
+    mask.  Centre tap first, then the other taps in offset order, as the
+    reference's lattice operator (``bench.py:587-592``) sums them."""
+    xm = x3 if free3 is None else free3 * x3
+    nx, ny, nz = xm.shape
+    xp = F.pad(xm, (1, 1, 1, 1, 1, 1))
+    y = coef[_CENTER_IDX] * xm
+    for oi, (di, dj, dk) in enumerate(OFFSETS):
+        if oi == _CENTER_IDX:
+            continue
+        y = y + coef[oi] * xp[
+            1 + di : 1 + di + nx, 1 + dj : 1 + dj + ny, 1 + dk : 1 + dk + nz
+        ]
+    return y if free3 is None else free3 * y
+
+
+def stencil_apply_var(x3, coef, free3=None):
+    """Variable-coefficient 15-tap stencil, ``free3 * A(free3 * x3)`` (or
+    ``A(x3)`` without a mask), ``A`` with per-vertex taps ``coef[t, v]``
+    indexed by the output (row) vertex.
+
+    ``x3``, ``free3``: (Nx, Ny, Nz); ``coef``: (15, Nx, Ny, Nz) aligned with
+    ``ops/structured.OFFSETS``; one dtype, one device.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel of
+    ``csrc/stencil.cu`` on the current stream.  Exact for any operand and
+    mask (no zero-shell condition)."""
+    if tuple(coef.shape) != (15,) + tuple(x3.shape):
+        raise ValueError(
+            "stencil_apply_var: coef must be (15, Nx, Ny, Nz) for x3 of shape "
+            f"{tuple(x3.shape)}, got {tuple(coef.shape)}"
+        )
+    if _check_lattice("stencil_apply_var", x3, free3, coef=coef) == "cpu":
+        return stencil_apply_var_reference(x3, coef, free3)
+    lib = _stencil_lib()
+    fn = (
+        lib.fst_stencil_apply_var_f64
+        if x3.dtype == torch.float64
+        else lib.fst_stencil_apply_var_f32
+    )
+    y = torch.empty_like(x3)
+    nx, ny, nz = x3.shape
+    with torch.cuda.device(x3.device):
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        rc = fn(
+            x3.data_ptr(),
+            None if free3 is None else free3.data_ptr(),
+            coef.data_ptr(),
+            y.data_ptr(),
+            nx, ny, nz,
+            stream,
+        )
+    _launch("stencil_apply_var", rc)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: closed-form P1 element stiffness (structure of arrays)
+# ---------------------------------------------------------------------------
+
+
+def _check_stiffness(name, JinvT, detJ):
+    kind = _device_kind(name, JinvT)
+    if JinvT.dim() != 3 or tuple(detJ.shape) != (JinvT.shape[2],):
+        raise ValueError(
+            f"{name}: expected JinvT (tdim, gdim, nc) and detJ (nc,), got "
+            f"{tuple(JinvT.shape)} and {tuple(detJ.shape)}"
+        )
+    _check_like(name, JinvT, JinvT=JinvT, detJ=detJ)
+    return kind
+
+
+def p1_stiffness_sym_reference(JinvT, detJ):
+    """Plain PyTorch version of ``p1_stiffness_sym``: the scaled Gram of the
+    Jinv rows and the zero row-sum identity, packed by ``SYM10``."""
+    s = detJ * (1.0 / 6.0)
+    r = JinvT
+    g = {}
+    for i in range(3):
+        for j in range(i, 3):
+            g[(i, j)] = (
+                r[i, 0] * r[j, 0] + r[i, 1] * r[j, 1] + r[i, 2] * r[j, 2]
+            ) * s
+    rowsum = [
+        g[(min(i, 0), max(i, 0))] + g[(min(i, 1), max(i, 1))]
+        + g[(min(i, 2), max(i, 2))]
+        for i in range(3)
+    ]
+    return torch.stack([
+        rowsum[0] + rowsum[1] + rowsum[2],  # (0,0)
+        -rowsum[0], -rowsum[1], -rowsum[2],  # (0,1) (0,2) (0,3)
+        g[(0, 0)], g[(0, 1)], g[(0, 2)],  # (1,1) (1,2) (1,3)
+        g[(1, 1)], g[(1, 2)], g[(2, 2)],  # (2,2) (2,3) (3,3)
+    ])
+
+
+def p1_stiffness_sym(JinvT, detJ):
+    """Packed symmetric 3-D P1 stiffness: JinvT (3, 3, nc), detJ (nc,) ->
+    (10, nc); ``SYM10[a][b]`` is the slot of Ae[a, b].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    of ``csrc/p1_stiffness.cu`` on the current stream."""
+    kind = _check_stiffness("p1_stiffness_sym", JinvT, detJ)
+    if tuple(JinvT.shape[:2]) != (3, 3):
+        raise ValueError(
+            f"p1_stiffness_sym: JinvT must be (3, 3, nc), got {tuple(JinvT.shape)}"
+        )
+    if kind == "cpu":
+        return p1_stiffness_sym_reference(JinvT, detJ)
+    nc = JinvT.shape[2]
+    if 10 * nc >= 2**31:
+        raise ValueError("p1_stiffness_sym: output has 2^31 or more elements")
+    out = torch.empty((10, nc), dtype=JinvT.dtype, device=JinvT.device)
+    lib = _p1_stiffness_lib()
+    fn = (
+        lib.fst_p1_stiffness_sym_f64
+        if JinvT.dtype == torch.float64
+        else lib.fst_p1_stiffness_sym_f32
+    )
+    with torch.cuda.device(JinvT.device):
+        stream = torch.cuda.current_stream(JinvT.device).cuda_stream
+        rc = fn(JinvT.data_ptr(), detJ.data_ptr(), out.data_ptr(), nc, stream)
+    _launch("p1_stiffness_sym", rc)
+    return out
+
+
+_VOL_FACT = {1: 1.0, 2: 2.0, 3: 6.0}
+
+
+def _gref_host(JinvT, gref):
+    g = np.ascontiguousarray(
+        np.asarray(
+            gref.detach().cpu().numpy() if torch.is_tensor(gref) else gref,
+            dtype=np.float64,
+        )
+    )
+    tdim, gdim = JinvT.shape[0], JinvT.shape[1]
+    if not (1 <= tdim <= gdim <= 3):
+        raise ValueError(
+            f"p1_stiffness: needs 1 <= tdim <= gdim <= 3, got JinvT "
+            f"{tuple(JinvT.shape)}"
+        )
+    if g.ndim != 2 or g.shape[1] != tdim or not 1 <= g.shape[0] <= 4:
+        raise ValueError(
+            f"p1_stiffness: gref must be (k, tdim) with k <= 4 and tdim = "
+            f"{tdim}, got shape {g.shape}"
+        )
+    return g
+
+
+def p1_stiffness_reference(JinvT, detJ, gref):
+    """Plain PyTorch version of ``p1_stiffness``."""
+    g_ref = _gref_host(JinvT, gref)
+    k, tdim = g_ref.shape
+    gdim = JinvT.shape[1]
+    g = [
+        [
+            sum(float(g_ref[a, t]) * JinvT[t, d] for t in range(tdim))
+            for d in range(gdim)
+        ]
+        for a in range(k)
+    ]
+    scale = detJ * (1.0 / _VOL_FACT[tdim])
+    rows = []
+    for a in range(k):
+        for b in range(k):
+            acc = g[a][0] * g[b][0]
+            for d in range(1, gdim):
+                acc = acc + g[a][d] * g[b][d]
+            rows.append(acc * scale)
+    return torch.stack(rows).reshape(k, k, -1)
+
+
+def p1_stiffness(JinvT, detJ, gref):
+    """Closed-form P1 stiffness: JinvT (tdim, gdim, nc), detJ (nc,), host
+    reference gradients gref (k, tdim) -> (k, k, nc), with
+    ``Ae[a, b] = (detJ / vol_fact) g[a] . g[b]`` and ``g = gref Jinv``.
+
+    ``k <= 4`` and ``tdim <= gdim <= 3``; anything else raises.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel of
+    ``csrc/p1_stiffness.cu`` on the current stream."""
+    kind = _check_stiffness("p1_stiffness", JinvT, detJ)
+    g_ref = _gref_host(JinvT, gref)
+    if kind == "cpu":
+        return p1_stiffness_reference(JinvT, detJ, g_ref)
+    tdim, gdim, nc = JinvT.shape
+    k = g_ref.shape[0]
+    if k * k * nc >= 2**31:
+        raise ValueError("p1_stiffness: output has 2^31 or more elements")
+    out = torch.empty((k, k, nc), dtype=JinvT.dtype, device=JinvT.device)
+    lib = _p1_stiffness_lib()
+    fn = (
+        lib.fst_p1_stiffness_f64
+        if JinvT.dtype == torch.float64
+        else lib.fst_p1_stiffness_f32
+    )
+    with torch.cuda.device(JinvT.device):
+        stream = torch.cuda.current_stream(JinvT.device).cuda_stream
+        rc = fn(
+            JinvT.data_ptr(), detJ.data_ptr(), out.data_ptr(), nc, k, tdim,
+            gdim, g_ref.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            1.0 / _VOL_FACT[tdim], stream,
+        )
+    _launch("p1_stiffness", rc)
+    return out

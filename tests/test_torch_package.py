@@ -34,6 +34,8 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.ops.geometry",
     "fenicssolver_tpu_torch.ops.assembly",
     "fenicssolver_tpu_torch.ops.cuda_kernels",
+    "fenicssolver_tpu_torch.ops.stencil_assembly",
+    "fenicssolver_tpu_torch.lattice_poisson",
     "fenicssolver_tpu_torch.la.sparse",
     "fenicssolver_tpu_torch.la.direct",
     "fenicssolver_tpu_torch.la.krylov",
