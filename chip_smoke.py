@@ -32,12 +32,23 @@ non-zero and no result line is printed):
 10. CSR path: ``lattice_poisson.run_csr(96)`` (K4 assembly into CSR)
     against ``run_stencil(96)``, in f64: K4's f32 element matrices lose the
     exact zero row sums that K3's packing keeps, which moves the f32
-    solution by ~cond(A) * eps (1.5e-4 relative at n = 64 on the CPU).
+    solution by ~cond(A) * eps (1.5e-4 relative at n = 64 on the CPU);
+11. K5 (``element_matvec``) against its plain version with seeded random
+    operands, f64 and f32, at k = 4, nc = 6 * 128^3 (the Poisson path's
+    size) and k = 12, nc = 6 * 64^3;
+12. sharded path: ``parallel.ShardedEllipticSolver`` (cell-sharded,
+    matrix-free, K5 operator, Jacobi-PCG) on (a) the dry run's
+    ``poisson3d_p1`` at ``UnitCubeMesh(128)`` (2,146,689 dofs), f64, one
+    shard, tol 1e-10, held to ``run_stencil(128, tol=1e-10)`` in f64 (the
+    same discrete problem: the mesh's vertices are the lattice's in
+    C-order); (b) ``elasticity3d_p1`` at ``UnitCubeMesh(32)`` (107,811
+    dofs, k = 12) against the port's assembled CSR Jacobi-CG; (c)
+    ``poisson3d_p1`` at n = 32 on four shards of ``cuda:0`` against one.
 
 Kernel times in the kernels' record are those of the dtype and mask of
 the path that launches the kernel: K2 f64 with free sides (the heat path),
 K1 (all-Dirichlet mask) and K3 f32 (the lattice path, in the bench's
-dtype), K4 f64 (the CSR path).
+dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -66,11 +77,15 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                          "fenicssolver_tpu/ops/pallas_kernels.py:144"),
     "p1_stiffness": ("fenicssolver_tpu_torch/csrc/p1_stiffness.cu",
                      "fenicssolver_tpu/ops/pallas_kernels.py:74"),
+    "element_matvec": ("fenicssolver_tpu_torch/csrc/element_matvec.cu",
+                       "fenicssolver_tpu/ops/pallas_kernels.py:28"),
 }
 #: u_max of the same problem (n = 128, tol 1e-6) from the same-algorithm
 #: f64 CPU mirror of the JAX package's bench (``bench.py:155-156``)
 U_MAX_128 = 0.05620760176173512
 N_CSR = 96  # the JAX bench's size for its assembled-matrix format
+N_ELAS = 32  # sharded elasticity: 107,811 dofs, k = 12
+N_FOUR = 32  # mesh size of the four-shard Poisson check
 
 
 def check(cond, msg):
@@ -421,6 +436,222 @@ def phase_csr(device="cuda", n=N_CSR):
     return {"launches": launches}
 
 
+def phase_k5(device="cuda", sizes=((4, 6 * N_MAIN**3), (12, 6 * 64**3))):
+    """K5 against its plain version at the sharded paths' sizes: k = 4 at
+    the Poisson path's cell count and k = 12 (vector P1 tets)."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    out = {}
+    for k, nc in sizes:
+        gen = torch.Generator(device=device).manual_seed(k)
+        A64 = torch.randn((k, k, nc), generator=gen, dtype=torch.float64,
+                          device=device)
+        x64 = torch.randn((k, nc), generator=gen, dtype=torch.float64,
+                          device=device)
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            A, x = A64.to(dtype), x64.to(dtype)
+            err, ms, plain_ms = _compare(
+                "k5", f"k={k} {name} nc={nc}",
+                lambda: cuda_kernels.element_matvec(A, x),
+                lambda: cuda_kernels.element_matvec_reference(A, x),
+                (k * k + 2 * k) * nc * A.element_size(), TOL[name])
+            if name == "float64" and k == 4:
+                out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            del A, x
+        del A64, x64
+    return out
+
+
+def _tables(device, dtype, tdim=3):
+    """P1 simplex basis values, gradients and weights of the degree-2 rule."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import geometry
+
+    tab = geometry.basis_tables(tdim, 1, 2)
+    return (torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (tab.phi, tab.dphi, tab.qw))
+
+
+def poisson_kernel(device, dtype, tdim=3):
+    """The residual kernel of the dry run's ``poisson3d_p1`` case
+    (``__graft_entry__.py:66-70``): P1 Poisson, f = 1, on simplices of
+    dimension ``tdim``."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import geometry
+
+    phi, dphi, qw = _tables(device, dtype, tdim)
+
+    def kernel(ue, geom, aux):
+        dphig = geometry.phys_grads(dphi, geom.Jinv)
+        g = geometry.interp_grad(dphig, ue)
+        r = torch.einsum("q,qg,qig->i", qw, g, dphig) * geom.detJ
+        return r - torch.einsum("q,qi->i", qw, phi) * geom.detJ
+
+    return kernel
+
+
+def elasticity_kernel(device, dtype):
+    """The residual kernel of the dry run's ``elasticity3d_p1`` case
+    (``__graft_entry__.py:98-111``): small-strain elasticity, mu = 1,
+    lambda = 1.5, body load (0, 0, -1); the trace as ``diagonal().sum()``."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import geometry
+
+    phi, dphi, qw = _tables(device, dtype)
+    d, ks = 3, phi.shape[1]
+    mu, lmbda = 1.0, 1.5
+    eye = torch.eye(d, dtype=dtype, device=device)
+    f = torch.tensor([0.0, 0.0, -1.0], dtype=dtype, device=device)
+
+    def kernel(ue, geom, aux):
+        U = ue.reshape(ks, d)
+        dphig = geometry.phys_grads(dphi, geom.Jinv)
+        gradU = torch.einsum("qkg,kv->qvg", dphig, U)
+        eps = 0.5 * (gradU + gradU.transpose(1, 2))
+        tr = torch.diagonal(eps, dim1=1, dim2=2).sum(-1)
+        sig = 2 * mu * eps + lmbda * tr[:, None, None] * eye
+        wdet = qw * geom.detJ
+        r = torch.einsum("q,qvg,qkg->kv", wdet, sig, dphig)
+        r = r - torch.einsum("q,v,qk->kv", wdet, f, phi)
+        return r.reshape(-1)
+
+    return kernel
+
+
+def sharded_problem(core, kernel_fn, n, vector, device, dtype):
+    """The dry run's case on ``UnitCubeMesh(n)``: the space, the kernel,
+    the load ``b = -R(0)`` and the Dirichlet data (zero on the whole
+    boundary, found from the vertex coordinates of the unit cube)."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+
+    mesh = core.UnitCubeMesh(n, n, n)
+    V = (core.VectorFunctionSpace if vector else core.FunctionSpace)(mesh, "CG", 1)
+    kernel = kernel_fn(device, dtype)
+    ctx = geometry.build_cell_context(V, 2, device=device, dtype=dtype)
+    form = assembly.Form(space=V,
+                         cell_terms=[assembly.CellTerm(kernel=kernel, ctx=ctx)])
+    b = -assembly.assemble_residual(
+        form, torch.zeros(V.ndof, dtype=dtype, device=device))
+    on_shell = np.any((V.dof_coords == 0.0) | (V.dof_coords == 1.0), axis=1)
+    dd = assembly.DirichletData(V.ndof)
+    dd.add(np.nonzero(on_shell)[0], 0.0)
+    dd.finalize(device=device, dtype=dtype)
+    return V, kernel, form, b, dd
+
+
+def _sharded_run(tag, V, kernel, b, dd, devices, tol):
+    """Construct and solve with launch counts reset just before; print the
+    setup and solve times, iterations, K5 launches and peak memory."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.parallel import ShardedEllipticSolver
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver = ShardedEllipticSolver(V, kernel, devices=devices, dtype=b.dtype)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x, iters = solver.solve(b, dd.free_mask, dd.u_bc, tol=tol, maxiter=4000)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = cuda_kernels.LAUNCHES["element_matvec"]
+    print(f"[sharded] {tag}: {V.ndof} dofs, {V.mesh.num_cells()} cells, "
+          f"k = {V.cell_dofs.shape[1]}, {len(devices)} shard(s); setup "
+          f"(partition, geometry, element matrices) {t1 - t0:.3f} s; solve "
+          f"{t2 - t1:.3f} s, {iters} Jacobi-CG iterations, "
+          f"{(t2 - t1) / max(iters, 1) * 1e3:.3f} ms/iteration; K5 launches "
+          f"{launches}; peak device memory {_peak_gib():.2f} GiB")
+    check(launches > 0, f"{tag}: K5 was not launched on the sharded path")
+    check(bool(torch.isfinite(x).all()), f"{tag}: non-finite solution")
+    del solver
+    return x, iters, launches
+
+
+def phase_sharded(device="cuda", n=N_MAIN, n_elas=N_ELAS, n_four=N_FOUR):
+    """The cell-sharded matrix-free solve: (a) Poisson at n against
+    ``run_stencil(n)``, (b) elasticity against the CSR solve, (c) four
+    shards against one."""
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import krylov
+    from fenicssolver_tpu_torch.lattice_poisson import run_stencil
+    from fenicssolver_tpu_torch.ops import assembly
+
+    f64 = torch.float64
+    dev = torch.device(device)
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    # (a) poisson3d_p1 at n, one shard, against the lattice solve
+    t0 = time.perf_counter()
+    V, kernel, form, b, dd = sharded_problem(core, poisson_kernel, n, False,
+                                             dev, f64)
+    del form
+    print(f"[sharded] poisson3d_p1 n={n}: mesh, space, load and boundary "
+          f"{time.perf_counter() - t0:.2f} s")
+    x, iters, launches = _sharded_run(f"poisson3d_p1 n={n}", V, kernel, b, dd,
+                                      [dev], 1e-10)
+    del V, kernel, b, dd
+    r = run_stencil(n, tol=1e-10, dtype=f64, device=dev)
+    u_max = float(x.max())
+    rel_max = abs(u_max - r["u_max"]) / r["u_max"]
+    rel_field = rel_l2(x, r["u"])  # the mesh's dofs are the lattice's, C-order
+    print(f"[sharded] vs run_stencil({n}, tol=1e-10) f64 ({r['iterations']} "
+          f"GMG-CG iterations): u_max {u_max:.12f} vs {r['u_max']:.12f}, rel "
+          f"{rel_max:.3e} (tol 1e-8); field rel-L2 {rel_field:.3e} (tol 1e-8)")
+    check(rel_max <= 1e-8, f"sharded u_max rel {rel_max}")
+    check(rel_field <= 1e-8, f"sharded field rel-L2 {rel_field}")
+    del x, r
+
+    # (b) elasticity3d_p1, one shard, against the assembled CSR Jacobi-CG
+    V, kernel, form, b, dd = sharded_problem(core, elasticity_kernel, n_elas,
+                                             True, dev, f64)
+    x, iters_e, _ = _sharded_run(f"elasticity3d_p1 n={n_elas}", V, kernel, b,
+                                 dd, [dev], 1e-10)
+    form.finalize()
+    A = assembly.assemble_jacobian(form, torch.zeros_like(b))
+    op = assembly.constrained_operator(A.matvec, dd.free_mask)
+    rhs = assembly.constrained_rhs(A.matvec, b, dd.free_mask, dd.u_bc)
+    diag = dd.free_mask * A.diagonal() + (1 - dd.free_mask)
+    x_ref, iters_ref, _ = krylov.cg(op, rhs,
+                                    M=krylov.jacobi_preconditioner(diag),
+                                    tol=1e-10, maxiter=4000)
+    rel = rel_l2(x, x_ref)
+    print(f"[sharded] elasticity3d_p1 vs CSR Jacobi-CG ({iters_ref} "
+          f"iterations): rel-L2 {rel:.3e} (tol 1e-8), |u|_max "
+          f"{float(x.abs().max()):.6e}")
+    check(rel <= 1e-8, f"elasticity rel-L2 {rel}")
+    del V, kernel, form, b, dd, A, x, x_ref
+
+    # (c) poisson3d_p1 at n_four: four shards of one card against one
+    V, kernel, _, b, dd = sharded_problem(core, poisson_kernel, n_four,
+                                          False, dev, f64)
+    x1, i1, _ = _sharded_run(f"poisson3d_p1 n={n_four}", V, kernel, b, dd,
+                             [dev], 1e-10)
+    x4, i4, _ = _sharded_run(f"poisson3d_p1 n={n_four}", V, kernel, b, dd,
+                             [dev] * 4, 1e-10)
+    rel = rel_l2(x4, x1)
+    print(f"[sharded] 4 shards vs 1: rel-L2 {rel:.3e} (tol 1e-10), "
+          f"iterations {i4} vs {i1}")
+    check(rel <= 1e-10, f"4 shards vs 1 rel-L2 {rel}")
+    check(abs(i4 - i1) <= 2, f"iterations {i4} vs {i1}")
+    return {"launches": launches, "iterations": iters}
+
+
 def phase_main_path(device="cuda", n=N_MAIN):
     """main(settings) on UnitCubeMesh(n) with GMG-CG: phase times,
     iterations, K2 launches, peak device memory, and the analytic check."""
@@ -541,12 +772,15 @@ def main():
     phase_cli()
     lat = phase_lattice()
     csr = phase_csr()
+    k5 = phase_k5()
+    shard = phase_sharded()
     measured = {
         "stencil_apply_var": (k1, lat["launches"]["stencil_apply_var"]),
         "stencil_apply_const": (k2, mainp["launches"]),
         "p1_stiffness_sym": (k34["p1_stiffness_sym"],
                              lat["launches"]["p1_stiffness_sym"]),
         "p1_stiffness": (k34["p1_stiffness"], csr["launches"]["p1_stiffness"]),
+        "element_matvec": (k5, shard["launches"]),
     }
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -1,10 +1,11 @@
-"""Function spaces and dof maps (scalar Lagrange only).
+"""Function spaces and dof maps (P1 Lagrange, scalar and vector).
 
 Port of ``fenicssolver_tpu/core/spaces.py`` (host numpy), trimmed to the
-scalar ``FunctionSpace``.  A space is plain host-side index arrays:
-``cell_dofs`` (num_cells, ndof_per_cell) plus nodal dof coordinates.
-Vector and mixed spaces and periodic constraints raise
-``NotImplementedError``.
+scalar P1 ``FunctionSpace`` and the P1 ``VectorFunctionSpace``.  A space is
+plain host-side index arrays: ``cell_dofs`` (num_cells, ndof_per_cell) plus
+nodal dof coordinates; vector spaces interleave components node-major
+(dof = node*vdim + comp).  Mixed spaces, component views (``sub``) and
+periodic constraints raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = [
 
 _NOT_PORTED = (
     "{what} is not ported to fenicssolver_tpu_torch yet; it comes with "
-    "core/spaces.py's vector and mixed spaces (see ROADMAP.md)"
+    "core/spaces.py's mixed spaces (see ROADMAP.md)"
 )
 
 
@@ -41,17 +42,13 @@ class FiniteElement:
 
 class VectorElement(FiniteElement):
     def __init__(self, family, cell=None, degree=1, dim=None):
-        raise NotImplementedError(_NOT_PORTED.format(what="VectorElement"))
+        super().__init__(family, cell, degree)
+        self.dim = dim
 
 
 class MixedElement:
     def __init__(self, elements_):
         raise NotImplementedError(_NOT_PORTED.format(what="MixedElement"))
-
-
-class VectorFunctionSpace:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(what="VectorFunctionSpace"))
 
 
 class MixedFunctionSpace:
@@ -131,3 +128,70 @@ class FunctionSpace:
 
     def __repr__(self):
         return f"<FunctionSpace {self.family}{self.degree} ndof={self.ndof}>"
+
+
+class VectorFunctionSpace:
+    """Vector P1 Lagrange space; components interleaved node-major:
+    ``dof = scalar_dof * vdim + c``."""
+
+    def __init__(self, mesh: Mesh, family="CG", degree=1, dim=None,
+                 constrained_domain=None):
+        # the scalar space raises for P2+, DG and periodic constraints
+        self.scalar_space = FunctionSpace(mesh, family, degree, constrained_domain)
+        s = self.scalar_space
+        self.mesh = mesh
+        self.family = s.family
+        self.degree = s.degree
+        self.vdim = dim if dim is not None else mesh.gdim
+        self.value_shape = (self.vdim,)
+        self.ndof = s.ndof * self.vdim
+        self.ndof_el = s.ndof_el * self.vdim
+        cd = s.cell_dofs  # (nc, k)
+        self.cell_dofs = (
+            (cd[:, :, None] * self.vdim) + np.arange(self.vdim)[None, None, :]
+        ).reshape(cd.shape[0], -1).astype(np.int32)
+        self.dof_coords = np.repeat(s.dof_coords, self.vdim, axis=0)
+        self.constrained_domain = None
+        self._periodic_master = None
+        self.periodic_slaves = np.zeros(0, dtype=np.int64)
+        self.element = VectorElement(
+            self.family, mesh.ufl_cell(), self.degree, dim=self.vdim
+        )
+
+    def num_dofs(self):
+        return self.ndof
+
+    def dim(self):
+        return self.ndof
+
+    def ufl_element(self):
+        return self.element
+
+    def facet_dofs(self, facet_ids, component=None):
+        """The dofs on the given facets: all components, or one."""
+        sd = self.scalar_space.facet_dofs(facet_ids)
+        if component is None:
+            return (
+                (sd[:, None] * self.vdim) + np.arange(self.vdim)[None, :]
+            ).ravel().astype(np.int32)
+        return (sd * self.vdim + component).astype(np.int32)
+
+    def sub(self, i):
+        raise NotImplementedError(
+            "VectorFunctionSpace.sub (component views) is not ported to "
+            "fenicssolver_tpu_torch yet; it comes with core/spaces.py's mixed "
+            "spaces and the elasticity solvers (see ROADMAP.md)"
+        )
+
+    @property
+    def num_sub_spaces(self):
+        return self.vdim
+
+    def tabulate_dof_coordinates(self):
+        return self.dof_coords
+
+    def __repr__(self):
+        return (
+            f"<VectorFunctionSpace {self.family}{self.degree} vdim={self.vdim} "
+            f"ndof={self.ndof}>"
+        )

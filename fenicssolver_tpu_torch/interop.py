@@ -16,6 +16,7 @@ from .core.function import Function
 from .core.mesh import Mesh
 from .la.gmg import GMGData, GMGLevel
 from .la.sparse import CSRMatrix, CSRPattern
+from .ops.geometry import CellContext
 
 
 def mesh(coords, cells, lattice_info=None):
@@ -96,6 +97,20 @@ def stencil_fields(coef, b3, device=None, dtype=None):
     device = config.resolve_device(device)
     dtype = dtype or config.default_float()
     return _tensor(coef, device, dtype), _tensor(b3, device, dtype)
+
+
+def cell_context(ctx, device=None, dtype=None):
+    """A ``CellContext`` from the reference's cell context (any object with
+    the fields ``cell_dofs``, ``Xe``, ``detJ``, ``Jinv`` and ``qpx``): the
+    geometry as ``dtype`` tensors and the dofs as int64, on ``device``."""
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    return CellContext(
+        cell_dofs=torch.as_tensor(np.asarray(ctx.cell_dofs, dtype=np.int64),
+                                  device=device),
+        **{f: _tensor(getattr(ctx, f), device, dtype)
+           for f in ("Xe", "detJ", "Jinv", "qpx")},
+    )
 
 
 def function(space, values):

@@ -25,6 +25,10 @@ Kernels (ids of the table in ``PERF.md``):
   ``fenicssolver_tpu/ops/pallas_kernels.py:144``.
 - K4 ``p1_stiffness`` (``csrc/p1_stiffness.cu``): generic P1 element
   stiffness.  Replaces ``fenicssolver_tpu/ops/pallas_kernels.py:74``.
+- K5 ``element_matvec`` (``csrc/element_matvec.cu``): the batched element
+  matvec ``y_e = A_e x_e`` of the matrix-free operator
+  (``parallel/sharding.py``).  Replaces
+  ``fenicssolver_tpu/ops/pallas_kernels.py:28``.
 
 Every kernel takes tensors of fewer than 2^31 elements (raises otherwise).
 """
@@ -54,10 +58,15 @@ LAUNCHES = {
     "stencil_apply_var": 0,
     "p1_stiffness_sym": 0,
     "p1_stiffness": 0,
+    "element_matvec": 0,
 }
 
 #: the CUDA sources under ``csrc/``, one shared library each
-SOURCES = ("stencil", "p1_stiffness")
+SOURCES = ("stencil", "p1_stiffness", "element_matvec")
+
+#: the element sizes k that K5 is built for (``kBuiltK`` in
+#: ``csrc/element_matvec.cu``; checked when the library loads)
+ELEMENT_MATVEC_K = (3, 4, 6, 10, 12)
 
 #: row-major upper-triangle index of the symmetric P1 element matrix:
 #: SYM10[a][b] gives the slot of Ae[a, b] in the (10, nc) packed output of
@@ -175,6 +184,30 @@ def _p1_stiffness_lib():
         f.argtypes = [vp, vp, vp, i64, ci, ci, ci,
                       ctypes.POINTER(ctypes.c_double), ctypes.c_double, vp]
     _libs["p1_stiffness"] = lib
+    return lib
+
+
+def _element_matvec_lib():
+    lib = _libs.get("element_matvec")
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(build("element_matvec"))
+    vp = ctypes.c_void_p
+    for fn in ("fst_element_matvec_f64", "fst_element_matvec_f32"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int, vp]
+    lib.fst_element_matvec_built_k.restype = ctypes.c_int
+    lib.fst_element_matvec_built_k.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                               ctypes.c_int]
+    table = (ctypes.c_int * 16)()
+    count = lib.fst_element_matvec_built_k(table, 16)
+    if tuple(table[:count]) != ELEMENT_MATVEC_K:
+        raise RuntimeError(
+            f"csrc/element_matvec.cu is built for k in {tuple(table[:count])}, "
+            f"ELEMENT_MATVEC_K says {ELEMENT_MATVEC_K}"
+        )
+    _libs["element_matvec"] = lib
     return lib
 
 
@@ -505,3 +538,54 @@ def p1_stiffness(JinvT, detJ, gref):
         )
     _launch("p1_stiffness", rc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: batched element matvec (matrix-free operator, structure of arrays)
+# ---------------------------------------------------------------------------
+
+
+def element_matvec_reference(Ae_T, xe_T):
+    """Plain PyTorch version of ``element_matvec``."""
+    return torch.einsum("ijc,jc->ic", Ae_T, xe_T)
+
+
+def element_matvec(Ae_T, xe_T):
+    """``y_e = A_e x_e`` over a cell batch: Ae_T (k, k, nc), xe_T (k, nc) ->
+    (k, nc), summed over j = 0..k-1 in order in the operands' dtype.
+
+    ``k`` must be one of ``ELEMENT_MATVEC_K`` (the sizes the kernel is built
+    for); anything else raises.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel of ``csrc/element_matvec.cu`` on the
+    current stream."""
+    kind = _device_kind("element_matvec", Ae_T)
+    if Ae_T.dim() != 3 or Ae_T.shape[0] != Ae_T.shape[1] or (
+        tuple(xe_T.shape) != (Ae_T.shape[0], Ae_T.shape[2])
+    ):
+        raise ValueError(
+            f"element_matvec: expected Ae_T (k, k, nc) and xe_T (k, nc), got "
+            f"{tuple(Ae_T.shape)} and {tuple(xe_T.shape)}"
+        )
+    k, _, nc = Ae_T.shape
+    if k not in ELEMENT_MATVEC_K:
+        raise ValueError(
+            f"element_matvec: k = {k} is not built; the kernel is built for "
+            f"k in {ELEMENT_MATVEC_K}"
+        )
+    _check_like("element_matvec", Ae_T, Ae_T=Ae_T, xe_T=xe_T)
+    if kind == "cpu":
+        return element_matvec_reference(Ae_T, xe_T)
+    y = torch.empty_like(xe_T)
+    if nc == 0:  # an empty shard: nothing to launch
+        return y
+    lib = _element_matvec_lib()
+    fn = (
+        lib.fst_element_matvec_f64
+        if Ae_T.dtype == torch.float64
+        else lib.fst_element_matvec_f32
+    )
+    with torch.cuda.device(Ae_T.device):
+        stream = torch.cuda.current_stream(Ae_T.device).cuda_stream
+        rc = fn(Ae_T.data_ptr(), xe_T.data_ptr(), y.data_ptr(), nc, k, stream)
+    _launch("element_matvec", rc)
+    return y

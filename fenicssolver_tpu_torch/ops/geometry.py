@@ -111,24 +111,28 @@ def _affine_geometry(coords, cells, tdim):
     return Xe, detJ, Jinv
 
 
-def build_cell_context(space, quad_degree, device=None, dtype=None):
-    """The cell batch of a space as tensors on ``device`` (geometry in f64,
-    stored in ``dtype``)."""
+def build_cell_context(space, quad_degree, device=None, dtype=None, cells=None):
+    """The cell batch of a space, or of the cells with the host indices
+    ``cells`` in that order, as tensors on ``device`` (geometry in f64,
+    stored in ``dtype``): geometry from ``mesh.cells_array``, dofs from
+    ``space.cell_dofs``."""
     from .. import config
 
     device = config.resolve_device(device)
     dtype = dtype or config.default_float()
     mesh = space.mesh
     tdim = mesh.tdim
+    rows = slice(None) if cells is None else np.asarray(cells, dtype=np.int64)
     X = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
-    cells = torch.as_tensor(mesh.cells_array, dtype=torch.int64, device=device)
+    cells = torch.as_tensor(mesh.cells_array[rows], dtype=torch.int64, device=device)
     Xe, detJ, Jinv = _affine_geometry(X, cells, tdim)
     qp, _ = elements.quadrature(tdim, quad_degree)
     lam = np.concatenate([1 - qp.sum(axis=1, keepdims=True), qp], axis=1)
     lam_t = torch.as_tensor(lam, dtype=torch.float64, device=device)
     qpx = torch.einsum("qv,cvg->cqg", lam_t, Xe)
     return CellContext(
-        cell_dofs=torch.as_tensor(space.cell_dofs, dtype=torch.int64, device=device),
+        cell_dofs=torch.as_tensor(space.cell_dofs[rows], dtype=torch.int64,
+                                  device=device),
         Xe=Xe.to(dtype),
         detJ=detJ.to(dtype),
         Jinv=Jinv.to(dtype),

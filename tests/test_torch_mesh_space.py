@@ -114,3 +114,57 @@ def test_expression_and_interpolation_match():
     _same(tf.values, jf.values)
     tc = tcore.interpolate(tcore.Constant(3.0), tcore.FunctionSpace(tm, "CG", 1))
     assert np.all(tc.values == 3.0)
+
+
+@pytest.mark.parametrize("mesh", ["cube", "square"])
+def test_vector_space_dof_map_matches(mesh):
+    def make(core):
+        return core.UnitCubeMesh(3) if mesh == "cube" else core.UnitSquareMesh(4)
+
+    jm, tm = make(jcore), make(tcore)
+    jV = jcore.VectorFunctionSpace(jm, "CG", 1)
+    tV = tcore.VectorFunctionSpace(tm, "CG", 1)
+    assert (tV.ndof, tV.ndof_el, tV.vdim) == (jV.ndof, jV.ndof_el, jV.vdim)
+    assert tV.value_shape == jV.value_shape == (jm.gdim,)
+    assert tV.element.dim == jV.element.dim
+    assert tV.scalar_space.ndof == jV.scalar_space.ndof
+    assert tV.cell_dofs.dtype == jV.cell_dofs.dtype
+    _same(tV.cell_dofs, jV.cell_dofs)
+    _same(tV.dof_coords, jV.dof_coords)
+    _same(tV.tabulate_dof_coordinates(), jV.tabulate_dof_coordinates())
+    ext = jm.exterior_facets()
+    for ids in (ext, ext[::3]):
+        _same(tV.facet_dofs(ids), jV.facet_dofs(ids))
+        for c in range(tV.vdim):
+            _same(tV.facet_dofs(ids, component=c), jV.facet_dofs(ids, component=c))
+    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
+        tV.sub(0)
+
+
+def test_vector_space_cell_context_matches_interop():
+    """build_cell_context on the vector space (geometry from the mesh's
+    cells, dofs from the space) equals the JAX package's context carried
+    across by interop.cell_context; a subset of cells gives those rows."""
+    from fenicssolver_tpu.ops import geometry as jgeo
+
+    from fenicssolver_tpu_torch import interop
+    from fenicssolver_tpu_torch.ops import geometry as tgeo
+
+    jV = jcore.VectorFunctionSpace(jcore.BoxMesh((0, 0, 0), (1.0, 0.7, 1.3), 3, 2, 2), "CG", 1)
+    tV = tcore.VectorFunctionSpace(tcore.BoxMesh((0, 0, 0), (1.0, 0.7, 1.3), 3, 2, 2), "CG", 1)
+    carried = interop.cell_context(jgeo.build_cell_context(jV, 2), dtype=torch.float64)
+    tc = tgeo.build_cell_context(tV, 2, dtype=torch.float64)
+    assert tc.cell_dofs.dtype == carried.cell_dofs.dtype == torch.int64
+    assert torch.equal(tc.cell_dofs, carried.cell_dofs)
+    assert tc.cell_dofs.shape == (tV.mesh.num_cells(), 12)
+    for f in ("Xe", "detJ", "Jinv", "qpx"):
+        a, b = getattr(tc, f), getattr(carried, f)
+        assert a.dtype == b.dtype == torch.float64 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-15 * float(b.abs().max()), f
+    ids = np.array([5, 0, 17, 3])
+    sub = tgeo.build_cell_context(tV, 2, dtype=torch.float64, cells=ids)
+    rows = torch.as_tensor(ids)
+    assert torch.equal(sub.cell_dofs, tc.cell_dofs[rows])
+    for f in ("Xe", "detJ", "Jinv", "qpx"):
+        a, b = getattr(sub, f), getattr(tc, f)[rows]
+        assert float((a - b).abs().max()) <= 1e-15 * float(b.abs().max()), f

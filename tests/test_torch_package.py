@@ -1,5 +1,5 @@
 """fenicssolver_tpu_torch package rules: no JAX in the port, the device and
-dtype policy, and loud failures for what the first slice does not port."""
+dtype policy, and loud failures for what the port does not cover yet."""
 
 import os
 import re
@@ -14,6 +14,7 @@ torch.set_num_threads(2)
 from fenicssolver_tpu_torch import config  # noqa: E402
 from fenicssolver_tpu_torch.core import (  # noqa: E402
     FunctionSpace,
+    MixedFunctionSpace,
     UnitCubeMesh,
     UnitSquareMesh,
     VectorFunctionSpace,
@@ -36,6 +37,9 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.ops.cuda_kernels",
     "fenicssolver_tpu_torch.ops.stencil_assembly",
     "fenicssolver_tpu_torch.lattice_poisson",
+    "fenicssolver_tpu_torch.parallel",
+    "fenicssolver_tpu_torch.parallel.partition",
+    "fenicssolver_tpu_torch.parallel.sharding",
     "fenicssolver_tpu_torch.la.sparse",
     "fenicssolver_tpu_torch.la.direct",
     "fenicssolver_tpu_torch.la.krylov",
@@ -161,7 +165,9 @@ def test_unported_features_raise(change):
         ScalarTransportSolver(s).solve()
 
 
-@pytest.mark.parametrize("what", ["P2", "DG", "vector", "xdmf"])
+@pytest.mark.parametrize(
+    "what", ["P2", "DG", "vector", "vector_sub", "vector_periodic", "mixed", "xdmf"]
+)
 def test_unported_spaces_and_readers_raise(what, tmp_path):
     mesh = UnitCubeMesh(2, 2, 2)
     with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
@@ -169,8 +175,14 @@ def test_unported_spaces_and_readers_raise(what, tmp_path):
             FunctionSpace(mesh, "CG", 2)
         elif what == "DG":
             FunctionSpace(mesh, "DG", 1)
-        elif what == "vector":
-            VectorFunctionSpace(mesh, "CG", 1)
+        elif what == "vector":  # P1 is ported; P2 is not
+            VectorFunctionSpace(mesh, "CG", 2)
+        elif what == "vector_sub":
+            VectorFunctionSpace(mesh, "CG", 1).sub(0)
+        elif what == "vector_periodic":
+            VectorFunctionSpace(mesh, "CG", 1, constrained_domain=object())
+        elif what == "mixed":
+            MixedFunctionSpace([FunctionSpace(mesh, "CG", 1)] * 2)
         else:
             from fenicssolver_tpu_torch.io import meshio
 
