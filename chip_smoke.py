@@ -13,16 +13,24 @@ non-zero and no result line is printed):
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA;
 2. build: the CUDA sources under ``fenicssolver_tpu_torch/csrc/`` for
    sm_90a, one nvcc per source, all started together;
-3. K2 (``stencil_apply_const``) against its plain PyTorch version at
-   129^3 in f64 and f32, with two Dirichlet masks, timed with CUDA events;
-4. K1 (``stencil_apply_var``) likewise at 129^3 with random tap fields,
-   without a mask and with two masks;
+3. K2 (``stencil_apply_const``) against its plain PyTorch version over
+   ``STENCIL_SHAPES`` (the GMG level shapes 129^3 .. 17^3 and shapes that
+   end mid-tile and mid-chunk), each of no mask, free sides,
+   all-Dirichlet and a random mask, f64 and f32, at ``TOL``; then timed
+   at 129^3 with CUDA events, L2 flushed and warm, beside its bound and
+   ``F.conv3d`` (the unmasked apply, the library yardstick);
+4. K1 (``stencil_apply_var``) likewise with random tap fields (no single
+   PyTorch call computes it);
 5. K3 (``p1_stiffness_sym``) and K4 (``p1_stiffness``) likewise at
    6 * 128^3 = 12,582,912 cells with random well-conditioned Jacobians,
    K4 also with the 2-D reference gradients (k = 3);
+5b. default device: with ``FST_DEVICE`` unset, ``run_stencil(16)`` and
+   the lattice CLI run on ``cuda:0`` through K1;
 6. main path: ``main(settings)`` on ``UnitCubeMesh(128)`` (2,146,689 dofs),
    f64, GMG-preconditioned CG at rtol 1e-10, with phase times, iterations,
-   the K2 launch count and the peak device memory;
+   the K2 launch count and the peak device memory; then the solve's
+   V-cycle: wall and device-busy time a cycle, K2's part, and per level
+   K2's device time a launch and host time a call;
 7. a body-source case at n=32 whose CUDA solve must match the CPU solve;
 8. the bundled JSON case ``data/TestHeatTransfer.json`` on the card;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
@@ -49,13 +57,25 @@ Kernel times in the kernels' record are those of the dtype and mask of
 the path that launches the kernel: K2 f64 with free sides (the heat path),
 K1 (all-Dirichlet mask) and K3 f32 (the lattice path, in the bench's
 dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path).
+``ms``, ``plain_ms`` and ``library_ms`` are medians with the L2 flushed
+before each run; ``bound_ms`` is the larger of the modelled bytes (each
+input read once, each output written once: ``k1_bytes`` .. ``k5_bytes``)
+over ``HBM_BYTES_PER_S`` and the operations over ``PEAK_FLOPS``.
+``library_case`` says what ``library_ms`` times and ``library_kernel_ms``
+is the kernel on that same case: for K2, ``F.conv3d`` on the same x,
+which computes the unmasked apply (so it stands beside the unmasked
+kernel, not the masked ``ms``); for K5, the ``einsum`` of its plain
+version on the same case; K1, K3 and K4 have no single PyTorch call
+(null, with the reason).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +88,18 @@ N_MAIN = 128
 RTOL = 1e-10
 #: kernel vs plain version: max abs error over the plain version's max abs
 TOL = {"float64": 1e-12, "float32": 1e-5}
+#: H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+#: scratch written before each flushed timing: 5x the 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
+#: device busy-wait before each warm timing: ~0.1 ms at the H100's clock
+SLEEP_CYCLES = 200_000
+_l2_scratch = None
+#: K1/K2 sweep: the GMG level shapes at n = 128, and shapes that end
+#: mid-tile in every axis and mid-chunk in i
+STENCIL_SHAPES = ((129, 129, 129), (65, 65, 65), (33, 33, 33), (17, 17, 17),
+                  (5, 7, 300), (2, 2, 2), (130, 3, 33))
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "stencil_apply_var": ("fenicssolver_tpu_torch/csrc/stencil.cu",
                           "fenicssolver_tpu/ops/pallas_kernels.py:308"),
@@ -123,15 +155,34 @@ def heat_settings(core, V, body_source=None):
     return s
 
 
-def time_ms(fn, reps=25, warmup=3):
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+def time_ms(fn, reps=25, warmup=3, flush=False):
+    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events).
+
+    Before each timed run, outside the events, the device is kept busy
+    while the host enqueues ``fn`` (so the time is the device's, not the
+    launch overhead's): with ``flush``, by writing and then reading a
+    scratch tensor of ``L2_FLUSH_BYTES``, so that ``fn`` finds its operands
+    in device memory and not in the 50 MB L2, and the L2 holds clean lines
+    (no write-back of the scratch inside the timed run); else by a
+    busy-wait that leaves L2 warm."""
     import torch
 
+    global _l2_scratch
+    if flush and _l2_scratch is None:
+        _l2_scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        # keep the device busy while the host enqueues fn, so the events
+        # time the device's work and not the launch overhead
+        if flush:
+            _l2_scratch.fill_(1)
+            _l2_scratch.max()  # leaves L2 holding clean lines of the scratch
+        else:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -140,6 +191,65 @@ def time_ms(fn, reps=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# -- byte and operation models: each input byte read once, each output
+# -- byte written once, and the operations on those inputs
+
+
+def k2_bytes(shape, itemsize, masked=True):
+    """K2: x (and the mask f) read, y written."""
+    return (3 if masked else 2) * math.prod(shape) * itemsize
+
+
+def k1_bytes(shape, itemsize, masked=True):
+    """K1: the 15 coefficient fields and x (and f) read, y written."""
+    return (15 + (3 if masked else 2)) * math.prod(shape) * itemsize
+
+
+def stencil_flops(shape, masked=True):
+    """K1/K2 per vertex: 15 products and 14 sums, and with a mask f * x
+    once and the final f * sum."""
+    return (31 if masked else 29) * math.prod(shape)
+
+
+def k3_bytes(nc, itemsize):
+    """K3: JinvT (9) and detJ (1) read, the 10 packed entries written."""
+    return (9 + 1 + 10) * nc * itemsize
+
+
+def k3_flops(nc):
+    """K3 per cell: 6 scaled dot products of 3, the scale, 3 row sums of 3
+    and their sum."""
+    return (6 * 6 + 1 + 3 * 2 + 2) * nc
+
+
+def k4_bytes(nc, itemsize, dim=3, k=4):
+    """K4: JinvT (dim^2) and detJ (1) read, the k^2 entries written."""
+    return (dim * dim + 1 + k * k) * nc * itemsize
+
+
+def k4_flops(nc, dim=3, k=4):
+    """K4 per cell: g = gref Jinv (k * dim dot products of dim), the k^2
+    scaled dot products of dim, the scale."""
+    return (k * dim * (2 * dim - 1) + k * k * 2 * dim + 1) * nc
+
+
+def k5_bytes(nc, itemsize, k=4):
+    """K5: A (k^2) and x (k) read, y (k) written."""
+    return (k * k + 2 * k) * nc * itemsize
+
+
+def k5_flops(nc, k=4):
+    return (2 * k * k - k) * nc
+
+
+def bound(nbytes, flops, dtype_name):
+    """(ms, "bytes" or "operations"): the larger of bytes over the HBM rate
+    and operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_device():
@@ -159,6 +269,19 @@ def phase_device():
     return card
 
 
+def _ptxas_lines(log):
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: entry function,
+    registers, spills, shared memory."""
+    name, out = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def phase_build():
     from fenicssolver_tpu_torch.ops import cuda_kernels
 
@@ -169,115 +292,271 @@ def phase_build():
     for name, path in zip(cuda_kernels.SOURCES, paths):
         info = cuda_kernels.BUILD_INFO[name]
         print(f"[build] {os.path.relpath(path, HERE)} (nvcc {info['seconds']:.2f} s)")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+        for line in _ptxas_lines(info["log"]):
+            print(f"[build] {line}")
     from fenicssolver_tpu_torch import native
 
     print("[build] host helpers native/fst_native.cpp: "
           + ("built with g++" if native.available() else "numpy fallbacks"))
 
 
-def phase_k2(device="cuda"):
-    """K2 against its plain version at the main path's finest shape."""
+def stencil_masks(shape, seed=0):
+    """(name, 0/1 mask or None) of the stencil sweep: no mask, free sides
+    (Dirichlet on the two k faces only, the heat path's kind), all-Dirichlet
+    (the whole shell, the lattice path's), and a random mask."""
     import numpy as np
+
+    sides = np.ones(shape)
+    sides[:, :, 0] = sides[:, :, -1] = 0.0
+    closed = np.zeros(shape)
+    closed[1:-1, 1:-1, 1:-1] = 1.0
+    rand = (np.random.default_rng(seed).random(shape) < 0.5).astype(np.float64)
+    return (("no mask", None), ("free-sides", sides),
+            ("all-dirichlet", closed), ("random", rand))
+
+
+def _agree(tag, what, kernel, plain, tol):
+    """Kernel against plain version on the same inputs; returns the max abs
+    error.  The kernel's output is allocated right after a NaN-filled block
+    of its size is freed, so an output the kernel misses most likely shows
+    as NaN (and fails)."""
     import torch
 
-    from fenicssolver_tpu_torch.la import gmg
-    from fenicssolver_tpu_torch.ops import cuda_kernels
+    y_p = plain()
+    poison = torch.full_like(y_p, float("nan"))
+    del poison
+    y_k = kernel()
+    torch.cuda.synchronize()
+    abs_err = float((y_k - y_p).abs().max())
+    scale = float(y_p.abs().max())
+    rel = abs_err / scale if scale > 0 else abs_err
+    check(rel <= tol, f"{tag} {what}: max abs err {abs_err}, rel {rel} > {tol}")
+    return abs_err, rel
 
-    shape = (N_MAIN + 1,) * 3
-    coefs = gmg.p1_box_stencil(1.0 / N_MAIN, 1.0 / N_MAIN, 1.0 / N_MAIN)
-    rng = np.random.default_rng(0)
-    x_np = rng.standard_normal(shape)
-    sides = np.ones(shape)
-    sides[:, :, 0] = sides[:, :, -1] = 0.0  # top/bottom Dirichlet, free sides
-    closed = np.zeros(shape)
-    closed[1:-1, 1:-1, 1:-1] = 1.0  # all-Dirichlet
-    out = {"max_abs_err": 0.0}
-    for dtype in (torch.float64, torch.float32):
-        name = str(dtype).replace("torch.", "")
-        x = torch.as_tensor(x_np, dtype=dtype, device=device)
-        for mname, m_np in (("free-sides", sides), ("all-dirichlet", closed)):
-            f = torch.as_tensor(m_np, dtype=dtype, device=device)
-            y_k = cuda_kernels.stencil_apply_const(x, coefs, f)
-            y_p = cuda_kernels.stencil_apply_const_reference(x, coefs, f)
-            torch.cuda.synchronize()
-            abs_err = float((y_k - y_p).abs().max())
-            rel_err = abs_err / float(y_p.abs().max())
-            ms = time_ms(lambda: cuda_kernels.stencil_apply_const(x, coefs, f))
-            plain_ms = time_ms(
-                lambda: cuda_kernels.stencil_apply_const_reference(x, coefs, f)
-            )
-            gbs = 3 * x.numel() * x.element_size() / (ms * 1e-3) / 1e9
-            print(f"[k2] {name} {mname} {shape}: max abs err {abs_err:.3e}, "
-                  f"rel {rel_err:.3e} (tol {TOL[name]:g}); kernel "
-                  f"{ms:.4f} ms ({gbs:.0f} GB/s modelled), plain {plain_ms:.4f} ms")
-            check(rel_err <= TOL[name], f"K2 {name} {mname} rel err {rel_err}")
-            if name == "float64":
-                out["max_abs_err"] = max(out["max_abs_err"], abs_err)
-                if mname == "free-sides":
-                    out["ms"], out["plain_ms"] = ms, plain_ms
+
+def _timed(tag, what, kernel, plain, nbytes, flops, dtype_name, library=None):
+    """CUDA-event times of the kernel (L2 flushed and warm), its plain
+    version and, where given, the library call (both flushed), beside the
+    bound; printed and returned."""
+    ms = time_ms(kernel, flush=True)
+    warm = time_ms(kernel)
+    plain_ms = time_ms(plain, flush=True)
+    lib_ms = None if library is None else time_ms(library, flush=True)
+    bound_ms, by = bound(nbytes, flops, dtype_name)
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    print(f"[{tag}] {what}: kernel {ms:.4f} ms flushed ({warm:.4f} ms warm), "
+          f"bound {bound_ms:.4f} ms ({by}, {nbytes:,} B), "
+          f"{100 * bound_ms / ms:.1f}% of the bound flushed; plain "
+          f"{plain_ms:.4f} ms{lib}")
+    return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def plan_text(plan):
+    return (f"{plan['threads']} threads x {plan['outputs']} outputs, tile "
+            f"{plan['R']} x {plan['W']} (j x k), {plan['tiles']} tiles a plane, "
+            f"{plan['chunk']} planes a block, {plan['blocks']} blocks, "
+            f"{plan['smem_bytes']} B shared")
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose data starts one element past a 16 B boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
     return out
 
 
-def _compare(tag, what, kernel, plain, nbytes, tol):
-    """Kernel against plain version on the same inputs: errors, check,
-    CUDA-event times; returns (abs_err, ms, plain_ms)."""
+def _stencil_sweep(tag, shapes, device, kernel, plain, plan, operands):
+    """Each shape, f64 and f32, each mask of ``stencil_masks``: kernel
+    against plain version at ``TOL``; one line per shape and type.
+    ``operands(shape, dtype)`` gives the inputs after x; returns the max
+    abs error in each type."""
+    import numpy as np
     import torch
 
-    y_k, y_p = kernel(), plain()
-    torch.cuda.synchronize()
-    abs_err = float((y_k - y_p).abs().max())
-    rel_err = abs_err / float(y_p.abs().max())
-    del y_k, y_p
-    ms = time_ms(kernel)
-    plain_ms = time_ms(plain)
-    print(f"[{tag}] {what}: max abs err {abs_err:.3e}, rel {rel_err:.3e} "
-          f"(tol {tol:g}); kernel {ms:.4f} ms "
-          f"({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s modelled), plain "
-          f"{plain_ms:.4f} ms")
-    check(rel_err <= tol, f"{tag} {what} rel err {rel_err}")
-    return abs_err, ms, plain_ms
+    worst = {"float64": 0.0, "float32": 0.0}
+    for shape in shapes:
+        x_np = np.random.default_rng(len(shape) + sum(shape)).standard_normal(shape)
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            x = torch.as_tensor(x_np, dtype=dtype, device=device)
+            more = operands(shape, dtype)
+            errs = []
+            for mname, m_np in stencil_masks(shape, seed=sum(shape)):
+                f = None if m_np is None else torch.as_tensor(
+                    m_np, dtype=dtype, device=device)
+                err, rel = _agree(tag, f"{name} {mname} {shape}",
+                                  lambda: kernel(x, *more, f),
+                                  lambda: plain(x, *more, f), TOL[name])
+                worst[name] = max(worst[name], err)
+                errs.append(f"{mname} {rel:.1e}")
+            # operands off the 16 B alignment the kernels copy at
+            xm, fm = _misaligned(x), _misaligned(f)
+            _, rel = _agree(tag, f"{name} misaligned {shape}",
+                            lambda: kernel(xm, *more, fm),
+                            lambda: plain(x, *more, f), TOL[name])
+            errs.append(f"random misaligned {rel:.1e}")
+            p = plan(x, *more, f)
+            print(f"[{tag}] {name} {shape}: rel err {', '.join(errs)} "
+                  f"(tol {TOL[name]:g}); {plan_text(p)}")
+            del x, more
+    return worst
 
 
-def phase_k1(device="cuda", n=N_MAIN):
-    """K1 against its plain version at the lattice path's shape."""
+def phase_k2(device="cuda", shapes=STENCIL_SHAPES):
+    """K2 against its plain version over the GMG level shapes and shapes
+    that end mid-tile and mid-chunk, every mask, f64 and f32; then
+    ``time_k2``."""
+    from fenicssolver_tpu_torch.la import gmg
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    coefs = gmg.p1_box_stencil(1.0 / N_MAIN, 1.0 / N_MAIN, 1.0 / N_MAIN)
+    worst = _stencil_sweep(
+        "k2", shapes, device,
+        lambda x, f: cuda_kernels.stencil_apply_const(x, coefs, f),
+        lambda x, f: cuda_kernels.stencil_apply_const_reference(x, coefs, f),
+        lambda x, f: cuda_kernels.stencil_plan(x, f),
+        lambda shape, dtype: ())
+    return {**time_k2(device), "max_abs_err": worst["float64"]}
+
+
+def time_k2(device="cuda", n=N_MAIN):
+    """K2 timed at (n + 1)^3, f64 and f32, free sides, all-Dirichlet and
+    unmasked, beside its bound; the unmasked apply also beside
+    ``F.conv3d``, which computes that function (checked against the plain
+    version first).  Calls only the wrappers, which every version of the
+    package has.  Returns the f64 free-sides times (the heat path's case),
+    with the library time and the kernel's on the library's case."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from fenicssolver_tpu_torch.la import gmg
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.ops.structured import OFFSETS
+
+    coefs = gmg.p1_box_stencil(1.0 / n, 1.0 / n, 1.0 / n)
+    shape = (n + 1,) * 3
+    x_np = np.random.default_rng(0).standard_normal(shape)
+    masks = dict(stencil_masks(shape))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        x = torch.as_tensor(x_np, dtype=dtype, device=device)
+        w = torch.zeros((1, 1, 3, 3, 3), dtype=dtype, device=device)
+        for t, (di, dj, dk) in enumerate(OFFSETS):
+            w[0, 0, di + 1, dj + 1, dk + 1] = float(coefs[t])
+
+        def conv():
+            return F.conv3d(x[None, None], w, padding=1)[0, 0]
+
+        _agree("k2", f"{name} F.conv3d (library)", conv,
+               lambda: cuda_kernels.stencil_apply_const_reference(x, coefs),
+               TOL[name])
+        for mname in ("free-sides", "all-dirichlet", "no mask"):
+            f = None if masks[mname] is None else torch.as_tensor(
+                masks[mname], dtype=dtype, device=device)
+            t = _timed(
+                "k2", f"{name} {mname} {shape}",
+                lambda: cuda_kernels.stencil_apply_const(x, coefs, f),
+                lambda: cuda_kernels.stencil_apply_const_reference(x, coefs, f),
+                k2_bytes(shape, x.element_size(), f is not None),
+                stencil_flops(shape, f is not None), name,
+                library=conv if f is None else None)
+            if name == "float64" and mname == "free-sides":
+                out.update(t)
+            if name == "float64" and mname == "no mask":
+                out["library_ms"] = t["library_ms"]
+                out["library_kernel_ms"] = t["ms"]
+                out["library_case"] = (
+                    f"F.conv3d: the unmasked apply, f64 {shape}; "
+                    "library_kernel_ms is the kernel on that case")
+        # the card's own rate at this size: a device copy that reads half
+        # of the masked apply's bytes and writes the other half
+        nbytes = k2_bytes(shape, x.element_size())
+        a = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
+        b = torch.empty_like(a)
+        ms = time_ms(lambda: b.copy_(a), flush=True)
+        print(f"[k2] {name}: a device copy of {nbytes // 2:,} B ({nbytes:,} B "
+              f"moved) takes {ms:.4f} ms flushed, {nbytes / ms / 1e9:.3f} TB/s")
+        del x, w, a, b
+    return out
+
+
+def phase_k1(device="cuda", shapes=STENCIL_SHAPES):
+    """K1 against its plain version over the same shapes, masks and types
+    as K2, with random tap fields; then ``time_k1``."""
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    worst = _stencil_sweep(
+        "k1", shapes, device, cuda_kernels.stencil_apply_var,
+        cuda_kernels.stencil_apply_var_reference,
+        lambda x, c, f: cuda_kernels.stencil_plan(x, f, c),
+        lambda shape, dtype: _k1_coef(shape, dtype, device))
+    return {**time_k1(device), "max_abs_err": worst["float32"]}
+
+
+def _k1_coef(shape, dtype, device="cuda"):
+    """Seeded random tap fields (15,) + shape for K1."""
+    import numpy as np
+    import torch
+
+    c = np.random.default_rng(sum(shape) + 1).standard_normal((15,) + shape)
+    return (torch.as_tensor(c, dtype=dtype, device=device),)
+
+
+def time_k1(device="cuda", n=N_MAIN):
+    """K1 timed at (n + 1)^3, f32 and f64, all-Dirichlet and unmasked,
+    beside its bound (no single PyTorch call computes it: the taps differ
+    at each vertex).  Calls only the wrappers.  Returns the f32
+    all-Dirichlet times (the lattice path's case)."""
     import numpy as np
     import torch
 
     from fenicssolver_tpu_torch.ops import cuda_kernels
 
     shape = (n + 1,) * 3
-    rng = np.random.default_rng(1)
-    x_np = rng.standard_normal(shape)
-    coef_np = rng.standard_normal((15,) + shape)
-    sides = np.ones(shape)
-    sides[:, :, 0] = sides[:, :, -1] = 0.0
-    closed = np.zeros(shape)
-    closed[1:-1, 1:-1, 1:-1] = 1.0
-    out = {"max_abs_err": 0.0}
-    for dtype in (torch.float64, torch.float32):
+    x_np = np.random.default_rng(1).standard_normal(shape)
+    masks = dict(stencil_masks(shape))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
         name = str(dtype).replace("torch.", "")
         x = torch.as_tensor(x_np, dtype=dtype, device=device)
-        coef = torch.as_tensor(coef_np, dtype=dtype, device=device)
-        for mname, m_np in (("no mask", None), ("free-sides", sides),
-                            ("all-dirichlet", closed)):
-            f = None if m_np is None else torch.as_tensor(m_np, dtype=dtype,
-                                                          device=device)
-            arrays = 17 if f is None else 18
-            err, ms, plain_ms = _compare(
+        (coef,) = _k1_coef(shape, dtype, device)
+        for mname in ("all-dirichlet", "no mask"):
+            f = None if masks[mname] is None else torch.as_tensor(
+                masks[mname], dtype=dtype, device=device)
+            t = _timed(
                 "k1", f"{name} {mname} {shape}",
                 lambda: cuda_kernels.stencil_apply_var(x, coef, f),
                 lambda: cuda_kernels.stencil_apply_var_reference(x, coef, f),
-                arrays * x.numel() * x.element_size(), TOL[name],
-            )
-            if name == "float32":
-                out["max_abs_err"] = max(out["max_abs_err"], err)
-                if mname == "all-dirichlet":
-                    out["ms"], out["plain_ms"] = ms, plain_ms
+                k1_bytes(shape, x.element_size(), f is not None),
+                stencil_flops(shape, f is not None), name)
+            if name == "float32" and mname == "all-dirichlet":
+                out.update(t, library_case="none: the taps differ at each vertex",
+                           library_kernel_ms=None)
         del x, coef, f
     return out
+
+
+def _compare(tag, what, kernel, plain, nbytes, flops, dtype_name, tol,
+             library=False):
+    """Kernel against plain version on the same inputs, then ``_timed``;
+    ``library``: the plain version is itself one PyTorch call (its time is
+    also the library time).  Returns ``_timed``'s dict with the max abs
+    error."""
+    abs_err, _ = _agree(tag, what, kernel, plain, tol)
+    t = _timed(tag, what, kernel, plain, nbytes, flops, dtype_name)
+    if library:
+        t.update(library_ms=t["plain_ms"], library_kernel_ms=t["ms"],
+                 library_case="the plain version, one torch.einsum; same case")
+    else:
+        t.update(library_kernel_ms=None,
+                 library_case="none: no single PyTorch call computes it")
+    return {"max_abs_err": abs_err, **t}
 
 
 def _random_geometry(nc, dim, device):
@@ -320,7 +599,7 @@ def phase_k3_k4(device="cuda", n=N_MAIN):
 
     nc = 6 * n**3
     gref2 = np.array([[-1.0, -1], [1, 0], [0, 1]])
-    out = {k: {"max_abs_err": 0.0} for k in ("p1_stiffness_sym", "p1_stiffness")}
+    out = {}
     for dim, gref in ((3, GREF_P1_3D), (2, gref2)):
         JinvT64, detJ64 = _random_geometry(nc, dim, device)
         k = gref.shape[0]
@@ -332,21 +611,21 @@ def phase_k3_k4(device="cuda", n=N_MAIN):
                       lambda: cuda_kernels.p1_stiffness(JinvT, detJ, gref),
                       lambda: cuda_kernels.p1_stiffness_reference(JinvT, detJ,
                                                                   gref),
-                      (dim * dim + 1 + k * k) * nc * item)]
+                      k4_bytes(nc, item, dim, k), k4_flops(nc, dim, k))]
             if dim == 3:
                 cases.insert(0, (
                     "p1_stiffness_sym", "K3",
                     lambda: cuda_kernels.p1_stiffness_sym(JinvT, detJ),
                     lambda: cuda_kernels.p1_stiffness_sym_reference(JinvT, detJ),
-                    20 * nc * item))
-            for kname, what, kern, plain, nbytes in cases:
-                err, ms, plain_ms = _compare(
-                    "k3" if kname == "p1_stiffness_sym" else "k4",
-                    f"{what} {name} nc={nc}", kern, plain, nbytes, TOL[name])
+                    k3_bytes(nc, item), k3_flops(nc)))
+            for kname, what, kern, plain, nbytes, flops in cases:
+                r = _compare("k3" if kname == "p1_stiffness_sym" else "k4",
+                             f"{what} {name} nc={nc}", kern, plain, nbytes,
+                             flops, name, TOL[name])
                 # the dtype of the path that launches it (module docstring)
                 path_dtype = "float32" if kname == "p1_stiffness_sym" else "float64"
                 if name == path_dtype and dim == 3:
-                    out[kname].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    out[kname] = r
             del JinvT, detJ
         del JinvT64, detJ64
     return out
@@ -453,13 +732,13 @@ def phase_k5(device="cuda", sizes=((4, 6 * N_MAIN**3), (12, 6 * 64**3))):
         for dtype in (torch.float64, torch.float32):
             name = str(dtype).replace("torch.", "")
             A, x = A64.to(dtype), x64.to(dtype)
-            err, ms, plain_ms = _compare(
-                "k5", f"k={k} {name} nc={nc}",
-                lambda: cuda_kernels.element_matvec(A, x),
-                lambda: cuda_kernels.element_matvec_reference(A, x),
-                (k * k + 2 * k) * nc * A.element_size(), TOL[name])
+            r = _compare("k5", f"k={k} {name} nc={nc}",
+                         lambda: cuda_kernels.element_matvec(A, x),
+                         lambda: cuda_kernels.element_matvec_reference(A, x),
+                         k5_bytes(nc, A.element_size(), k), k5_flops(nc, k),
+                         name, TOL[name], library=True)
             if name == "float64" and k == 4:
-                out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                out.update(r)
             del A, x
         del A64, x64
     return out
@@ -654,7 +933,8 @@ def phase_sharded(device="cuda", n=N_MAIN, n_elas=N_ELAS, n_four=N_FOUR):
 
 def phase_main_path(device="cuda", n=N_MAIN):
     """main(settings) on UnitCubeMesh(n) with GMG-CG: phase times,
-    iterations, K2 launches, peak device memory, and the analytic check."""
+    iterations, K2 launches, peak device memory, and the analytic check;
+    then ``profile_vcycle`` on the solve's hierarchy."""
     import numpy as np
     import torch
 
@@ -702,7 +982,86 @@ def phase_main_path(device="cuda", n=N_MAIN):
     check(err <= 1e-6, f"max|T - (300 + 60 z)|/360 = {err}")
     if on_cuda:
         check(launches > 0, "K2 was not launched on the main path")
+        profile_vcycle(solver._gmg_cache[1])
     return {"launches": launches, "iterations": solver.last_iterations}
+
+
+def _profiled(fn, reps):
+    """(device-busy ms, of it the stencil kernels' ms, device events) per
+    call of ``fn``, from ``torch.profiler`` over ``reps`` calls; None where
+    the profiler saw no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    stencil = sum(e.time_range.elapsed_us() for e in dev if "stencil" in e.name)
+    return busy / 1e3 / reps, stencil / 1e3 / reps, len(dev) / reps
+
+
+def profile_vcycle(G, cycles=20, calls=200):
+    """The V-cycle of a solve's GMG hierarchy ``G`` (``la/gmg.GMGData``) on
+    a seeded random residual: wall ms a cycle (synchronised over
+    ``cycles``); device-busy ms a cycle and K2's part of it
+    (``torch.profiler``, 10 cycles) and so the device's idle share; and
+    for each level, K2's device time a launch (``time_ms``, warm: the
+    V-cycle finds its operand in L2) and host time a call (``calls``
+    enqueued back to back, no sync)."""
+    import torch
+
+    from fenicssolver_tpu_torch.la import gmg
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    free = G.levels[0].free3
+    gen = torch.Generator(device=free.device).manual_seed(3)
+    r = torch.randn(free.numel(), generator=gen, dtype=free.dtype,
+                    device=free.device)
+    for _ in range(3):
+        gmg.vcycle(G, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cycles):
+        gmg.vcycle(G, r)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / cycles * 1e3
+    prof = _profiled(lambda: gmg.vcycle(G, r), 10)
+    if prof is None:
+        dev = "device busy not measured (the profiler saw no device events)"
+    else:
+        busy, k2, events = prof
+        dev = (f"device busy {busy:.4f} ms a cycle ({events:.0f} device "
+               f"events), idle {100 * (1 - busy / wall):.1f}%; K2 {k2:.4f} ms "
+               f"of it ({100 * k2 / busy:.1f}%)")
+    print(f"[vcycle] {len(G.levels)} smoothed levels + {G.coarse_inv.shape[0]}"
+          f"-dof dense coarse solve, {free.dtype}: wall {wall:.4f} ms a cycle "
+          f"({cycles} cycles); {dev}")
+    for li, lv in enumerate(G.levels):
+        x = torch.randn(lv.free3.shape, generator=gen, dtype=free.dtype,
+                        device=free.device)
+
+        def apply():
+            return cuda_kernels.stencil_apply_const(x, lv.coefs, lv.free3)
+
+        dev_ms = time_ms(apply)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            apply()
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        print(f"[vcycle] level {li} {tuple(lv.free3.shape)}: K2 {dev_ms:.4f} ms "
+              f"a launch on the device (warm), {host_us:.1f} us a call on the "
+              f"host; {2 * G.nu} launches a cycle")
 
 
 def phase_body_source(device="cuda", n=32):
@@ -745,6 +1104,43 @@ def phase_cli(device="cuda"):
     check(err <= 1e-8, f"CLI case rel-L2 {err}")
 
 
+def phase_default_device(n=16):
+    """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
+    ``run_stencil`` run on the card, through K1."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fenicssolver_tpu_torch import lattice_poisson
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    saved = os.environ.pop("FST_DEVICE", None)
+    try:
+        cuda_kernels.reset_launch_counts()
+        r = lattice_poisson.run_stencil(n)
+        launches = cuda_kernels.LAUNCHES["stencil_apply_var"]
+        check(r["u"].device == torch.device("cuda", 0),
+              f"run_stencil({n}) ran on {r['u'].device}, not cuda:0")
+        check(launches > 0, f"run_stencil({n}) did not launch K1")
+        cuda_kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = lattice_poisson.main(["--n", str(n)])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        cli_launches = cuda_kernels.LAUNCHES["stencil_apply_var"]
+        check(rc == 0 and rec["device"].startswith("cuda"),
+              f"lattice CLI ran on {rec['device']}")
+        check(cli_launches > 0, "the lattice CLI did not launch K1")
+    finally:
+        if saved is not None:
+            os.environ["FST_DEVICE"] = saved
+    print(f"[default-device] FST_DEVICE unset: run_stencil({n}) on "
+          f"{r['u'].device}, {launches} K1 launches; lattice CLI --n {n} on "
+          f"{rec['device']}, {cli_launches} K1 launches, {rec['iterations']} "
+          f"iterations")
+
+
 def main():
     import torch
 
@@ -767,6 +1163,7 @@ def main():
     k2 = phase_k2()
     k1 = phase_k1()
     k34 = phase_k3_k4()
+    phase_default_device()
     mainp = phase_main_path()
     phase_body_source()
     phase_cli()
@@ -786,7 +1183,10 @@ def main():
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-        "plain_ms": m["plain_ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "library_case": m["library_case"],
+        "library_kernel_ms": m["library_kernel_ms"],
     } for name, (m, launches) in measured.items()]}
     print(f"[done] all phases passed on {card}")
     print(json.dumps(kernels))

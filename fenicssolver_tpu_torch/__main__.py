@@ -1,7 +1,8 @@
 """``python -m fenicssolver_tpu_torch case.json`` (port of
 ``fenicssolver_tpu/__main__.py``).
 
-Runs on ``FST_DEVICE`` (default ``cpu``) in float64 unless ``FST_X32=1``.
+Runs on ``FST_DEVICE`` (default ``cuda``; ``FST_DEVICE=cpu`` for the CPU)
+in float64 unless ``FST_X32=1``.
 """
 
 import sys

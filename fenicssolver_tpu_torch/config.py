@@ -5,8 +5,10 @@ Dtype: float64 by default, the accuracy the verification cases need
 torch global default: every function that allocates takes ``dtype=`` and
 ``device=`` explicitly and resolves them through this module.
 
-Device: ``FST_DEVICE`` names the default device (``cpu`` unless set).
-Solver classes also take ``device=``.  Asking for ``cuda`` on a machine
+Device: the port runs on the card (``cuda``) unless the caller asks for
+the CPU, with ``FST_DEVICE=cpu`` or ``device="cpu"`` (as the tests do).
+``FST_DEVICE`` names the default device; solver classes and entry points
+also take ``device=``.  Asking for ``cuda`` (the default) on a machine
 without a usable card raises; nothing carries on quietly on the CPU.
 """
 
@@ -22,11 +24,11 @@ def default_float():
 
 
 def resolve_device(device=None):
-    """``device`` (or ``FST_DEVICE``, default ``cpu``) as a ``torch.device``.
+    """``device`` (or ``FST_DEVICE``, default ``cuda``) as a ``torch.device``.
 
     Raises ``RuntimeError`` for a CUDA device when no card is available."""
     if device is None:
-        device = os.environ.get("FST_DEVICE", "cpu")
+        device = os.environ.get("FST_DEVICE", "cuda")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

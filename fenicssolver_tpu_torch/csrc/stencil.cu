@@ -1,4 +1,5 @@
-// 15-tap Freudenthal stencil applies on a P1 vertex lattice.
+// 15-tap Freudenthal stencil applies on a P1 vertex lattice, marched plane
+// by plane along i (2.5-D blocking) for Hopper (sm_90a).
 //
 // K2, constant coefficients: the geometric multigrid level operator of
 // fenicssolver_tpu_torch/la/gmg.py (_a_free).  Replaces
@@ -7,9 +8,9 @@
 // K1, variable coefficients: the PCG operator of the structured-lattice
 // Poisson path (fenicssolver_tpu_torch/lattice_poisson.py), whose 15
 // per-vertex tap fields come from ops/stencil_assembly.py.  Replaces
-// fenicssolver_tpu/ops/pallas_kernels.py:308 (stencil_flat_apply).  Below,
-// K2 first; K1 follows the same design with c[t] read per output vertex
-// from coef[t][v] (coef indexed by the row vertex v).
+// fenicssolver_tpu/ops/pallas_kernels.py:308 (stencil_flat_apply).  One
+// kernel template serves both: K1 reads c[t] per output vertex from
+// coef[t][v] (coef indexed by the row vertex v), K2 from the taps struct.
 //
 // What it computes, on an (Nx, Ny, Nz) vertex lattice stored C-order
 // (k fastest):
@@ -24,156 +25,457 @@
 // monotone offsets of ops/structured.OFFSETS; the sum runs centre tap
 // first, then the others in offset order, as the plain version does.
 //
-// What bounds it on the card: bytes.  Each output reads x and f and writes
-// y, about 3 arrays x 8 B per vertex in f64 (24 B, 52 MB per apply at
-// 129^3), against 15 multiply-adds.  The design keeps traffic at that
-// minimum: one thread per output vertex with k fastest, so a warp reads
-// contiguous runs and the 14 neighbour reads of a vertex hit lines that
-// its neighbours' threads already brought into L1/L2; the mask is fused
-// into the read, so no f * x temporary is written to device memory; the
-// taps travel by value in a struct (kernel parameter space), not through a
-// device array.  A fused damped-Jacobi sweep that also folds the smoother
-// update into this pass is left for a later change (ROADMAP.md).
+// What bounds it on the card: bytes.  K2 reads x and f and writes y, 24 B
+// per vertex in f64 against 31 flops (1.3 flop/B); K1 adds the 15
+// coefficient fields (144 B per vertex in f64, 72 B in f32).  Both sit far
+// below the card's ridge point, so there is nothing for tensor cores
+// (wgmma) to do: the design only cuts memory traffic and index work.
+//
+// Design:
+// - 2.5-D blocking.  A block owns a tile of R rows (j) by W columns (k) of
+//   the (j, k) plane and marches along i through a chunk of consecutive
+//   planes.  Per plane it copies the tile plus a halo of one (R + 2 rows
+//   of W + 2 values) of x (and f) into shared memory once, into a ring of
+//   4 plane buffers filled two planes ahead of the plane being read.  So
+//   each x and f value comes from device memory about once per chunk
+//   instead of about three times from L2.
+// - Register rolling.  The Freudenthal taps need 4 values of plane i-1,
+//   7 of plane i and 4 of plane i+1, all among the same 7 in-plane
+//   positions (dj, dk) in {(-1,-1), (-1,0), (0,-1), (0,0), (0,1), (1,0),
+//   (1,1)}.  Each thread reads those 7 of a plane from shared memory once,
+//   when the plane is i+1, and keeps them in registers while the plane
+//   serves as i and then i-1: 7 shared-memory reads per output, not 15.
+// - Asynchronous 16 B copies.  cp.async.cg with commit_group / wait_group
+//   fills planes i+2 and i+3 while plane i computes; one __syncthreads per
+//   plane.  A lattice row is not 16 B aligned (below), so each halo row is
+//   placed in its buffer row at an offset equal to its flat index mod 16 B:
+//   every copy then lands aligned, and a read adds that offset for the
+//   plane and row it reads.  x and f must be 16 B aligned (the wrapper
+//   copies an operand that is not).  One-value copies (4 B / 8 B
+//   cp.async.ca) were no faster in f64 and slower in f32 in trials.
+//   TMA does not apply: cuTensorMapEncodeTiled needs every global
+//   stride to be a multiple of 16 B, and the lattice sizes are 2^n + 1 (a
+//   129-wide row is 1,032 B in f64, 516 B in f32).
+// - Edges without per-tap tests.  Halo rows outside the lattice (j) and
+//   planes outside it (i) are zero-filled by the copy (src-size 0), so
+//   every tap reads a value.  The halo columns outside the lattice (k) are
+//   not copied: a thread on the first or last column of the lattice
+//   zeroes the 2 values it reads from there (its edge flags are computed
+//   once).  Adding c * 0 leaves the sum as the skipped tap of the plain
+//   version leaves it.
+// - 32-bit indices.  The wrapper bounds every operand below 2^31 elements.
+//   Each thread computes its (j, k) positions and halo copy slots once,
+//   from blockIdx and threadIdx, not by division per vertex.
+// - K1's coefficients are read once and never reused: each thread streams
+//   its outputs' 15 values with coalesced __ldg loads into registers, one
+//   plane ahead, so they are in flight while the current plane sums.
+// - Sizes.  256 threads a block, each with 1 output a plane, or 2 for K2
+//   in f32 (kOutputs, fixed at compile time: the faster of the two for
+//   each kernel and type in trials on the H100 while this design was
+//   made; K1 keeps 15 coefficients an output in registers, twice, this
+//   plane's and the next's, so 2 outputs would take it past 128
+//   registers).  W <= 64, balanced over Nz (129 -> 3 tiles of 43
+//   columns); R as many rows as the outputs allow (129: 5 rows, or 11
+//   with 2 outputs).  The chunk length along i is chosen so that the
+//   blocks fill the card's resident block slots in whole waves, weighed
+//   against the 2 halo planes each chunk reads again; the whole launch
+//   shape is worked out once per kernel instance, device and lattice
+//   shape, and kept.  Deeper prefetch (4 or 6 planes) and 128 x 4 or
+//   512 x 1 blocks were no faster in the same trials.
+// A fused damped-Jacobi sweep that also folds the smoother update into
+// this pass is left for a later change (ROADMAP.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+
 namespace {
 
-// ops/structured.OFFSETS, lex-sorted; index 7 is the centre tap.
-__constant__ int kOff[15][3] = {
-    {-1, -1, -1}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 0}, {0, -1, -1},
-    {0, -1, 0},   {0, 0, -1},  {0, 0, 0},   {0, 0, 1},  {0, 1, 0},
-    {0, 1, 1},    {1, 0, 0},   {1, 0, 1},   {1, 1, 0},  {1, 1, 1}};
-constexpr int kCenter = 7;
-
+// ops/structured.OFFSETS, lex-sorted; index 7 is the centre tap.  The
+// kernel's tap order (tap_sum) follows this table.
 const int kHostOff[15][3] = {
     {-1, -1, -1}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 0}, {0, -1, -1},
     {0, -1, 0},   {0, 0, -1},  {0, 0, 0},   {0, 0, 1},  {0, 1, 0},
     {0, 1, 1},    {1, 0, 0},   {1, 0, 1},   {1, 1, 0},  {1, 1, 1}};
 
+constexpr int kThreads = 256;
+constexpr int kMaxW = 64;               // widest tile along k
+constexpr int kSmemBudget = 96 * 1024;  // most shared memory a block takes
+constexpr int kAhead = 2;               // planes in flight ahead of the one read
+constexpr int kRing = kAhead + 2;       // plane buffers: i - 1 .. i + kAhead
+
+// Outputs a thread: 2 for K2 in f32, else 1 (see the note on sizes).
+template <typename T, bool kVar>
+constexpr int kOutputs = !kVar && sizeof(T) == 4 ? 2 : 1;
+
 template <typename T>
 struct Taps {
   T c[15];
+  __device__ __forceinline__ T operator[](int t) const { return c[t]; }
 };
 
-template <typename T, bool kMasked>
-__global__ void stencil_const_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ f,
-                                     T* __restrict__ y, int nx, int ny,
-                                     int nz, Taps<T> taps) {
-  const int64_t total = (int64_t)nx * ny * nz;
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= total) return;
-  const int k = (int)(v % nz);
-  const int64_t ij = v / nz;
-  const int j = (int)(ij % ny);
-  const int i = (int)(ij / ny);
-  T acc;
-  if (kMasked) {
-    acc = taps.c[kCenter] * (__ldg(f + v) * __ldg(x + v));
-  } else {
-    acc = taps.c[kCenter] * __ldg(x + v);
-  }
-#pragma unroll
-  for (int t = 0; t < 15; ++t) {
-    if (t == kCenter) continue;
-    const int ii = i + kOff[t][0];
-    const int jj = j + kOff[t][1];
-    const int kk = k + kOff[t][2];
-    if (ii < 0 || ii >= nx || jj < 0 || jj >= ny || kk < 0 || kk >= nz)
-      continue;
-    const int64_t u = ((int64_t)ii * ny + jj) * nz + kk;
-    if (kMasked) {
-      acc += taps.c[t] * (__ldg(f + u) * __ldg(x + u));
-    } else {
-      acc += taps.c[t] * __ldg(x + u);
-    }
-  }
-  if (kMasked) acc = __ldg(f + v) * acc;
-  y[v] = acc;
+struct Geom {
+  int nx, ny, nz;
+  int W, R;    // tile columns (k) and rows (j)
+  int pitch;   // row length of a plane buffer: W + 2 V rounded up to V
+               // (V values in 16 B), room for a row shifted by up to V - 1
+  int nvec;    // 16 B copies a row of the halo tile may need
+  int halo;    // (R + 2) * pitch: values per plane buffer
+  int tiles_k, tiles_j;
+  int chunk;   // planes per block along i
+};
+
+// 16 B copy; the bytes past `bytes` (0..16) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-template <typename T>
-int launch(const void* x, const void* f, void* y, int64_t nx, int64_t ny,
-           int64_t nz, const double* taps_in, void* stream) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Centre tap first, then the others in offset order.  pv: plane i-1, cu:
+// plane i, nx: plane i+1, each at the 7 in-plane positions (-1,-1),
+// (-1,0), (0,-1), (0,0), (0,1), (1,0), (1,1).
+template <typename T, typename C>
+__device__ __forceinline__ T tap_sum(const C& c, const T* pv, const T* cu,
+                                     const T* nx) {
+  T acc = c[7] * cu[3];
+  acc += c[0] * pv[0];
+  acc += c[1] * pv[1];
+  acc += c[2] * pv[2];
+  acc += c[3] * pv[3];
+  acc += c[4] * cu[0];
+  acc += c[5] * cu[1];
+  acc += c[6] * cu[2];
+  acc += c[8] * cu[4];
+  acc += c[9] * cu[5];
+  acc += c[10] * cu[6];
+  acc += c[11] * nx[3];
+  acc += c[12] * nx[4];
+  acc += c[13] * nx[5];
+  acc += c[14] * nx[6];
+  return acc;
+}
+
+template <typename T, bool kMasked, bool kVar>
+__global__ void __launch_bounds__(kThreads)
+    stencil_march_kernel(const T* __restrict__ x, const T* __restrict__ f,
+                         const T* __restrict__ coef, T* __restrict__ y,
+                         const Geom g, __grid_constant__ const Taps<T> taps) {
+  constexpr int kSlots = kOutputs<T, kVar>;
+  constexpr int kLoad = kSlots + 2;   // halo copies per thread (host checks)
+  constexpr int V = 16 / sizeof(T);   // values in a 16 B copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sx = reinterpret_cast<T*>(smem_raw);
+  T* const sf = sx + kRing * g.halo;  // masked only
+  const int tid = threadIdx.x;
+  const int plane = g.ny * g.nz;
+  const int total = g.nx * plane;
+  const int j0 = (blockIdx.x / g.tiles_k) * g.R;
+  const int k0 = (blockIdx.x % g.tiles_k) * g.W;
+  const int i0 = blockIdx.y * g.chunk;
+  const int i1 = min(i0 + g.chunk, g.nx);
+  // the in-lattice columns of the halo tile (column c is k = k0 - 1 + c)
+  const int c_lo = k0 == 0 ? 1 : 0;
+  const int c_hi = min(k0 + g.W, g.nz - 1) - k0 + 1;
+
+  // The 16 B copies of this thread: row of the halo tile (-1 past the
+  // tile) and vector index in the row.
+  int vrow[kLoad], vcol[kLoad];
+#pragma unroll
+  for (int s = 0; s < kLoad; ++s) {
+    const int e = s * kThreads + tid;
+    vrow[s] = e < (g.R + 2) * g.nvec ? e / g.nvec : -1;
+    vcol[s] = e - (e / g.nvec) * g.nvec;
+  }
+  // The outputs: halo-tile row and column of the centre, in-plane offset
+  // (-1: the slot holds no lattice vertex; it computes on a valid buffer
+  // cell and stores nothing), and whether k is the first / last column.
+  int row[kSlots], col[kSlots], dst[kSlots];
+  bool k_first[kSlots], k_last[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int o = s * kThreads + tid;
+    const int r = o / g.W, c = o - r * g.W;
+    const bool ok = r < g.R && j0 + r < g.ny && k0 + c < g.nz;
+    row[s] = ok ? r + 1 : 1;
+    col[s] = ok ? c + 1 : 1;
+    dst[s] = ok ? (j0 + r) * g.nz + k0 + c : -1;
+    k_first[s] = k0 + c == 0;
+    k_last[s] = k0 + c == g.nz - 1;
+  }
+
+  // plane q (i0 - 1 <= q <= i1) lives in buffer (q - i0 + 1) mod kRing
+  auto buffer = [&](int q) { return ((q - i0 + 1) % kRing) * g.halo; };
+  // the flat index of column 0 of halo row r of plane q: the row's values
+  // start at buffer column (that index mod V), so every copy lands aligned
+  auto row_start = [&](int q, int r) {
+    return q * plane + (j0 - 1 + r) * g.nz + k0 - 1;
+  };
+  auto load_plane = [&](int q) {
+    const int b = buffer(q);
+    const bool inside = q >= 0 && q < g.nx;
+#pragma unroll
+    for (int s = 0; s < kLoad; ++s) {
+      if (vrow[s] < 0) continue;
+      const int j = j0 - 1 + vrow[s];
+      const int g0 = row_start(q, vrow[s]);
+      const int base = g0 & ~(V - 1);  // floor to a multiple of V
+      const int a = ((g0 + c_lo) & ~(V - 1)) + vcol[s] * V;
+      const int d = b + vrow[s] * g.pitch;
+      if (inside && j >= 0 && j < g.ny) {
+        if (a <= g0 + c_hi) {
+          const int n = min(V, total - a) * (int)sizeof(T);
+          cp_async16(sx + d + a - base, x + a, n);
+          if (kMasked) cp_async16(sf + d + a - base, f + a, n);
+        }
+      } else {  // a row outside the lattice: zeros
+        cp_async16(sx + d + vcol[s] * V, x, 0);
+        if (kMasked) cp_async16(sf + d + vcol[s] * V, f, 0);
+      }
+    }
+  };
+  // the 7 values (f * x, or x) of plane q around slot s's centre, and f
+  // at the centre
+  auto read_plane = [&](int q, int s, T* v, T& fc) {
+    const int b = buffer(q), p = g.pitch;
+    const int g0 = row_start(q, row[s] - 1);
+    const int r0 = b + (row[s] - 1) * p + (g0 & (V - 1)) + col[s];
+    const int r1 = b + row[s] * p + ((g0 + g.nz) & (V - 1)) + col[s];
+    const int r2 = b + (row[s] + 1) * p + ((g0 + 2 * g.nz) & (V - 1)) + col[s];
+    const int at[7] = {r0 - 1, r0, r1 - 1, r1, r1 + 1, r2, r2 + 1};
+#pragma unroll
+    for (int t = 0; t < 7; ++t)
+      v[t] = kMasked ? sx[at[t]] * sf[at[t]] : sx[at[t]];
+    fc = kMasked ? sf[r1] : T(1);
+    // the columns k - 1 < 0 and k + 1 = nz were not copied
+    if (k_first[s]) v[0] = v[2] = T(0);
+    if (k_last[s]) v[4] = v[6] = T(0);
+  };
+  auto load_coef = [&](int q, T (*cc)[15]) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+      for (int t = 0; t < 15; ++t)
+        cc[s][t] = dst[s] >= 0 ? __ldg(coef + t * total + q * plane + dst[s])
+                               : T(0);
+  };
+
+  T pv[kSlots][7], cu[kSlots][7], fc[kSlots];
+  T cc[kVar ? kSlots : 1][15];  // K1: this plane's coefficients
+#pragma unroll
+  for (int d = 0; d < kRing; ++d) {
+    if (i0 - 1 + d <= i1) load_plane(i0 - 1 + d);
+    cp_async_commit();
+  }
+  if (kVar) load_coef(i0, cc);
+  cp_async_wait<kAhead>();  // planes i0 - 1 and i0 have landed
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    T unused;
+    read_plane(i0 - 1, s, pv[s], unused);
+    read_plane(i0, s, cu[s], fc[s]);
+  }
+  __syncthreads();  // the buffer of plane i0 - 1 is refilled next
+
+  for (int i = i0; i < i1; ++i) {
+    // refill the buffer read two iterations ago (plane i - 1)
+    if (i + kAhead + 1 <= i1) load_plane(i + kAhead + 1);
+    cp_async_commit();
+    T cn[kVar ? kSlots : 1][15];
+    if (kVar) {
+      if (i + 1 < i1) {
+        load_coef(i + 1, cn);
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+          for (int t = 0; t < 15; ++t) cn[s][t] = T(0);
+      }
+    }
+    cp_async_wait<kAhead>();  // plane i + 1 has landed
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      T nv[7], nf;
+      read_plane(i + 1, s, nv, nf);
+      T acc = kVar ? tap_sum(cc[s], pv[s], cu[s], nv)
+                   : tap_sum(taps, pv[s], cu[s], nv);
+      if (kMasked) acc = fc[s] * acc;
+      if (dst[s] >= 0) y[i * plane + dst[s]] = acc;
+#pragma unroll
+      for (int q = 0; q < 7; ++q) {
+        pv[s][q] = cu[s][q];
+        cu[s][q] = nv[q];
+      }
+      fc[s] = nf;
+    }
+    if (kVar) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int t = 0; t < 15; ++t) cc[s][t] = cn[s][t];
+    }
+  }
+}
+
+// The tile shape of a lattice for `slots` outputs a thread.  max_halo:
+// the most values a plane buffer may hold (shared memory).
+Geom tile_geometry(int nx, int ny, int nz, int slots, int max_halo,
+                   int vec) {
+  Geom g;
+  g.nx = nx;
+  g.ny = ny;
+  g.nz = nz;
+  g.tiles_k = (nz + kMaxW - 1) / kMaxW;
+  g.W = (nz + g.tiles_k - 1) / g.tiles_k;
+  g.pitch = (g.W + 2 * vec + vec - 1) / vec * vec;
+  g.nvec = (g.W + 2 + 2 * vec - 2) / vec;
+  // R * W <= threads * slots gives every tile vertex an output slot, and
+  // R + W + 2 <= threads keeps the copies within slots + 2 a thread
+  int R = std::min(kThreads * slots / g.W, kThreads - 2 - g.W);
+  R = std::max(1, std::min({R, ny, max_halo / g.pitch - 2}));
+  g.tiles_j = (ny + R - 1) / R;
+  g.R = (ny + g.tiles_j - 1) / g.tiles_j;
+  g.halo = (g.R + 2) * g.pitch;
+  g.chunk = nx;
+  return g;
+}
+
+// Planes per block: fill the card's resident block slots in whole waves,
+// each chunk paying 2 extra halo planes.
+int choose_chunk(int nx, int tiles, int slots) {
+  int best = nx;
+  double best_score = -1.0;
+  for (int n = 1; n <= std::min(nx, 256); ++n) {
+    const int c = (nx + n - 1) / n;
+    if ((nx + c - 1) / c != n) continue;  // the same chunk as a smaller n
+    const long blocks = (long)tiles * n;
+    const long waves = (blocks + slots - 1) / slots;
+    const double score =
+        (double)blocks / (double)(waves * slots) * c / (c + 2.0);
+    if (score > best_score + 1e-12) {
+      best_score = score;
+      best = c;
+    }
+  }
+  return best;
+}
+
+// A launch shape: the geometry, the grid and the dynamic shared memory.
+struct Launch {
+  Geom g;
+  dim3 grid;
+  int smem;
+};
+
+// The launch shape of kernel instance <T, kMasked, kVar> on an (nx, ny,
+// nz) lattice (all > 0) on the current device.  It depends only on those,
+// so it is worked out once (the occupancy query, the chunk search) and
+// kept per (device, shape): the GMG levels launch with a few shapes.
+template <typename T, bool kMasked, bool kVar>
+cudaError_t launch_shape(int nx, int ny, int nz, Launch* out) {
+  struct Entry {
+    int dev, nx, ny, nz;
+    Launch l;
+  };
+  constexpr int kCache = 32;
+  static std::mutex mu;
+  static Entry cache[kCache];
+  static int stored = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int n = 0; n < std::min(stored, kCache); ++n) {
+    const Entry& c = cache[n];
+    if (c.dev == dev && c.nx == nx && c.ny == ny && c.nz == nz) {
+      *out = c.l;
+      return cudaSuccess;
+    }
+  }
+  auto kern = stencil_march_kernel<T, kMasked, kVar>;
+  constexpr int kSlots = kOutputs<T, kVar>;
+  constexpr int arrays = kMasked ? 2 : 1;
+  Geom g = tile_geometry(nx, ny, nz, kSlots,
+                         kSmemBudget / (kRing * arrays * (int)sizeof(T)),
+                         16 / (int)sizeof(T));
+  if ((g.R + 2) * g.nvec > (kSlots + 2) * kThreads) return cudaErrorInvalidValue;
+  const int smem = kRing * g.halo * (int)sizeof(T) * arrays;  // <= budget
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBudget);
+    if (e != cudaSuccess) return e;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int tiles = g.tiles_k * g.tiles_j;
+  g.chunk = choose_chunk(nx, tiles, std::max(1, per_sm * sms));
+  *out = Launch{g, dim3(tiles, (nx + g.chunk - 1) / g.chunk), smem};
+  cache[stored++ % kCache] = Entry{dev, nx, ny, nz, *out};
+  return cudaSuccess;
+}
+
+struct Call {
+  const void *x, *f, *coef;
+  void* y;
+  int nx, ny, nz;
+  const double* taps;
+  cudaStream_t stream;
+};
+
+template <typename T, bool kMasked, bool kVar>
+int launch_march(const Call& a) {
+  Launch l;
+  const cudaError_t e = launch_shape<T, kMasked, kVar>(a.nx, a.ny, a.nz, &l);
+  if (e != cudaSuccess) return (int)e;
   Taps<T> taps;
-  for (int t = 0; t < 15; ++t) taps.c[t] = (T)taps_in[t];
-  const int64_t total = nx * ny * nz;
-  if (total == 0) return 0;
-  const int block = 256;
-  const int64_t grid = (total + block - 1) / block;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (f != nullptr) {
-    stencil_const_kernel<T, true><<<(unsigned)grid, block, 0, s>>>(
-        (const T*)x, (const T*)f, (T*)y, (int)nx, (int)ny, (int)nz, taps);
-  } else {
-    stencil_const_kernel<T, false><<<(unsigned)grid, block, 0, s>>>(
-        (const T*)x, nullptr, (T*)y, (int)nx, (int)ny, (int)nz, taps);
-  }
+  for (int t = 0; t < 15; ++t) taps.c[t] = a.taps ? (T)a.taps[t] : T(0);
+  stencil_march_kernel<T, kMasked, kVar><<<l.grid, kThreads, l.smem, a.stream>>>(
+      (const T*)a.x, (const T*)a.f, (const T*)a.coef, (T*)a.y, l.g, taps);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kMasked>
-__global__ void stencil_var_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ f,
-                                   const T* __restrict__ coef,
-                                   T* __restrict__ y, int nx, int ny, int nz) {
-  const int64_t total = (int64_t)nx * ny * nz;
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= total) return;
-  const int k = (int)(v % nz);
-  const int64_t ij = v / nz;
-  const int j = (int)(ij % ny);
-  const int i = (int)(ij / ny);
-  // K1 moves 15 tap fields plus x, f and y per vertex (18 arrays, 144 B in
-  // f64): the coefficient reads are coalesced streams, one per tap, and
-  // dominate the traffic; x and f are read as in K2.
-  T acc;
-  if (kMasked) {
-    acc = __ldg(coef + kCenter * total + v) * (__ldg(f + v) * __ldg(x + v));
-  } else {
-    acc = __ldg(coef + kCenter * total + v) * __ldg(x + v);
+// A kernel instance, as a tag for dispatch.
+template <typename T, bool kMasked, bool kVar>
+struct Instance {
+  using type = T;
+  static constexpr bool masked = kMasked, var = kVar;
+};
+
+// fn(Instance<T, masked, var>{}) for the instance that the arguments name.
+template <typename Fn>
+int dispatch(bool f64, bool masked, bool var, Fn&& fn) {
+  if (f64) {
+    if (masked) return var ? fn(Instance<double, true, true>{})
+                           : fn(Instance<double, true, false>{});
+    return var ? fn(Instance<double, false, true>{})
+               : fn(Instance<double, false, false>{});
   }
-#pragma unroll
-  for (int t = 0; t < 15; ++t) {
-    if (t == kCenter) continue;
-    const int ii = i + kOff[t][0];
-    const int jj = j + kOff[t][1];
-    const int kk = k + kOff[t][2];
-    if (ii < 0 || ii >= nx || jj < 0 || jj >= ny || kk < 0 || kk >= nz)
-      continue;
-    const int64_t u = ((int64_t)ii * ny + jj) * nz + kk;
-    const T c = __ldg(coef + t * total + v);
-    if (kMasked) {
-      acc += c * (__ldg(f + u) * __ldg(x + u));
-    } else {
-      acc += c * __ldg(x + u);
-    }
-  }
-  if (kMasked) acc = __ldg(f + v) * acc;
-  y[v] = acc;
+  if (masked) return var ? fn(Instance<float, true, true>{})
+                         : fn(Instance<float, true, false>{});
+  return var ? fn(Instance<float, false, true>{})
+             : fn(Instance<float, false, false>{});
 }
 
-template <typename T>
-int launch_var(const void* x, const void* f, const void* coef, void* y,
-               int64_t nx, int64_t ny, int64_t nz, void* stream) {
-  const int64_t total = nx * ny * nz;
-  if (total == 0) return 0;
-  const int block = 256;
-  const int64_t grid = (total + block - 1) / block;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (f != nullptr) {
-    stencil_var_kernel<T, true><<<(unsigned)grid, block, 0, s>>>(
-        (const T*)x, (const T*)f, (const T*)coef, (T*)y, (int)nx, (int)ny,
-        (int)nz);
-  } else {
-    stencil_var_kernel<T, false><<<(unsigned)grid, block, 0, s>>>(
-        (const T*)x, nullptr, (const T*)coef, (T*)y, (int)nx, (int)ny,
-        (int)nz);
-  }
-  return (int)cudaGetLastError();
-}
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -186,35 +488,45 @@ void fst_stencil_offsets(int* out) {
     for (int a = 0; a < 3; ++a) out[3 * t + a] = kHostOff[t][a];
 }
 
-// x, f (nullable), y: device pointers to nx*ny*nz contiguous values;
-// taps: 15 host doubles aligned with the offsets; stream: a cudaStream_t.
-// Returns cudaGetLastError() after the launch (0 on success).
-int fst_stencil_apply_const_f64(const void* x, const void* f, void* y,
-                                int64_t nx, int64_t ny, int64_t nz,
-                                const double* taps, void* stream) {
-  return launch<double>(x, f, y, nx, ny, nz, taps, stream);
+// K1 when coef is not null, else K2.  x, f (nullable), y: device pointers
+// to nx*ny*nz contiguous values, x and f 16 B aligned; coef: 15*nx*ny*nz
+// contiguous values, tap-major and aligned with the offsets; taps (K2): 15
+// host doubles aligned with the offsets; f64: nonzero for double, else
+// float; stream: a cudaStream_t.  Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorMisalignedAddress without launching.
+int fst_stencil_apply(int f64, const void* x, const void* f, const void* coef,
+                      void* y, int64_t nx, int64_t ny, int64_t nz,
+                      const double* taps, void* stream) {
+  if (nx * ny * nz == 0) return 0;
+  if (!aligned16(x) || !aligned16(f)) return (int)cudaErrorMisalignedAddress;
+  const Call a{x, f, coef, y, (int)nx, (int)ny, (int)nz, taps,
+               (cudaStream_t)stream};
+  return dispatch(f64 != 0, f != nullptr, coef != nullptr, [&](auto k) {
+    using K = decltype(k);
+    return launch_march<typename K::type, K::masked, K::var>(a);
+  });
 }
 
-int fst_stencil_apply_const_f32(const void* x, const void* f, void* y,
-                                int64_t nx, int64_t ny, int64_t nz,
-                                const double* taps, void* stream) {
-  return launch<float>(x, f, y, nx, ny, nz, taps, stream);
-}
-
-// K1.  x, f (nullable), y: device pointers to nx*ny*nz contiguous values;
-// coef: device pointer to 15*nx*ny*nz contiguous values, tap-major and
-// aligned with the offsets; stream: a cudaStream_t.  Returns
-// cudaGetLastError() after the launch (0 on success).
-int fst_stencil_apply_var_f64(const void* x, const void* f, const void* coef,
-                              void* y, int64_t nx, int64_t ny, int64_t nz,
-                              void* stream) {
-  return launch_var<double>(x, f, coef, y, nx, ny, nz, stream);
-}
-
-int fst_stencil_apply_var_f32(const void* x, const void* f, const void* coef,
-                              void* y, int64_t nx, int64_t ny, int64_t nz,
-                              void* stream) {
-  return launch_var<float>(x, f, coef, y, nx, ny, nz, stream);
+// The launch shape that fst_stencil_apply takes on the current device for
+// these arguments (masked: f given; var: coef given), written to out[8]:
+// threads a block, outputs a thread, tile columns W and rows R, tiles a
+// plane, planes a block, blocks, shared-memory bytes.  Returns a CUDA
+// error, 0 on success.
+int fst_stencil_plan(int f64, int masked, int var, int64_t nx, int64_t ny,
+                     int64_t nz, int* out) {
+  if (nx * ny * nz == 0) return (int)cudaErrorInvalidValue;
+  return dispatch(f64 != 0, masked != 0, var != 0, [&](auto k) {
+    using K = decltype(k);
+    Launch l;
+    const cudaError_t e = launch_shape<typename K::type, K::masked, K::var>(
+        (int)nx, (int)ny, (int)nz, &l);
+    if (e != cudaSuccess) return (int)e;
+    const int plan[8] = {kThreads, kOutputs<typename K::type, K::var>,
+                         l.g.W, l.g.R, l.g.tiles_k * l.g.tiles_j, l.g.chunk,
+                         (int)(l.grid.x * l.grid.y), l.smem};
+    std::copy(plan, plan + 8, out);
+    return 0;
+  });
 }
 
 }  // extern "C"

@@ -17,7 +17,7 @@ multigrid V-cycle (``la/gmg.py``), stopped at ``|r| <= tol |b|``
   block-ELL is a TPU gather layout; the port keeps CSR).
 
 Command line (prints one JSON line; dtype and device follow the package
-policy, ``FST_X32=1`` for float32 and ``FST_DEVICE=cuda`` for the card)::
+policy: the card unless ``FST_DEVICE=cpu``, float64 unless ``FST_X32=1``)::
 
     python -m fenicssolver_tpu_torch.lattice_poisson --n 128 \\
         [--assembly sym|full|factored] [--format stencil|csr]
@@ -170,7 +170,8 @@ def main(argv=None):
         prog="python -m fenicssolver_tpu_torch.lattice_poisson",
         description="P1 Poisson on the unit cube's Kuhn lattice (f = 1, "
         "Dirichlet shell), GMG-preconditioned CG to 1e-6; prints one JSON "
-        "line.  FST_X32=1 selects float32, FST_DEVICE=cuda the card.",
+        "line.  Runs on the card unless FST_DEVICE=cpu; FST_X32=1 selects "
+        "float32.",
     )
     ap.add_argument("--n", type=int, default=128, help="cells per axis")
     ap.add_argument("--format", choices=("stencil", "csr"), default="stencil")

@@ -3,7 +3,8 @@
 ``main(case_input, device=None)`` dispatches on ``settings['solver_name']``
 and runs the solve; ``load_settings`` accepts a dict or a JSON file path.
 ``python -m fenicssolver_tpu_torch case.json`` works via ``__main__.py``;
-the device is ``device=`` or ``FST_DEVICE`` (default ``cpu``).
+the device is ``device=`` or ``FST_DEVICE`` (default ``cuda``;
+``FST_DEVICE=cpu`` for the CPU).
 """
 
 from __future__ import annotations

@@ -148,14 +148,12 @@ def _stencil_lib():
     lib = ctypes.CDLL(build("stencil"))
     vp = ctypes.c_void_p
     i64 = ctypes.c_int64
-    for fn in ("fst_stencil_apply_const_f64", "fst_stencil_apply_const_f32"):
-        f = getattr(lib, fn)
-        f.restype = ctypes.c_int
-        f.argtypes = [vp, vp, vp, i64, i64, i64, ctypes.POINTER(ctypes.c_double), vp]
-    for fn in ("fst_stencil_apply_var_f64", "fst_stencil_apply_var_f32"):
-        f = getattr(lib, fn)
-        f.restype = ctypes.c_int
-        f.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+    ci = ctypes.c_int
+    lib.fst_stencil_apply.restype = ci
+    lib.fst_stencil_apply.argtypes = [ci, vp, vp, vp, vp, i64, i64, i64, vp, vp]
+    lib.fst_stencil_plan.restype = ci
+    lib.fst_stencil_plan.argtypes = [ci, ci, ci, i64, i64, i64,
+                                     ctypes.POINTER(ci)]
     lib.fst_stencil_offsets.restype = None
     lib.fst_stencil_offsets.argtypes = [ctypes.POINTER(ctypes.c_int)]
     table = (ctypes.c_int * 45)()
@@ -251,6 +249,12 @@ def _check_lattice(name, x3, free3, **more):
     return kind
 
 
+def _aligned16(t):
+    """``t``, or a copy of it where its data is not 16 B aligned (the
+    stencil kernels copy x and f 16 B at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
@@ -304,27 +308,8 @@ def stencil_apply_const(x3, coefs, free3=None):
     ``csrc/stencil.cu`` on the current stream."""
     if _check_lattice("stencil_apply_const", x3, free3) == "cpu":
         return stencil_apply_const_reference(x3, coefs, free3)
-    taps = _taps(coefs)
-    lib = _stencil_lib()
-    fn = (
-        lib.fst_stencil_apply_const_f64
-        if x3.dtype == torch.float64
-        else lib.fst_stencil_apply_const_f32
-    )
-    y = torch.empty_like(x3)
-    nx, ny, nz = x3.shape
-    with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = fn(
-            x3.data_ptr(),
-            None if free3 is None else free3.data_ptr(),
-            y.data_ptr(),
-            nx, ny, nz,
-            taps.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            stream,
-        )
-    _launch("stencil_apply_const", rc)
-    return y
+    return _stencil_launch("stencil_apply_const", x3, free3, None,
+                           _taps(coefs))
 
 
 # ---------------------------------------------------------------------------
@@ -367,26 +352,50 @@ def stencil_apply_var(x3, coef, free3=None):
         )
     if _check_lattice("stencil_apply_var", x3, free3, coef=coef) == "cpu":
         return stencil_apply_var_reference(x3, coef, free3)
-    lib = _stencil_lib()
-    fn = (
-        lib.fst_stencil_apply_var_f64
-        if x3.dtype == torch.float64
-        else lib.fst_stencil_apply_var_f32
-    )
+    return _stencil_launch("stencil_apply_var", x3, free3, coef, None)
+
+
+def _stencil_launch(name, x3, free3, coef, taps):
+    """K1 (``coef`` given) or K2 (host ``taps``) on checked CUDA tensors."""
+    x3, free3 = _aligned16(x3), _aligned16(free3)
     y = torch.empty_like(x3)
     nx, ny, nz = x3.shape
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = fn(
-            x3.data_ptr(),
+        rc = _stencil_lib().fst_stencil_apply(
+            int(x3.dtype == torch.float64), x3.data_ptr(),
             None if free3 is None else free3.data_ptr(),
-            coef.data_ptr(),
-            y.data_ptr(),
-            nx, ny, nz,
-            stream,
+            None if coef is None else coef.data_ptr(), y.data_ptr(),
+            nx, ny, nz, None if taps is None else taps.ctypes.data, stream,
         )
-    _launch("stencil_apply_var", rc)
+    _launch(name, rc)
     return y
+
+
+#: the fields of ``stencil_plan``, in the order ``csrc/stencil.cu`` writes
+#: them
+PLAN_FIELDS = ("threads", "outputs", "W", "R", "tiles", "chunk", "blocks",
+               "smem_bytes")
+
+
+def stencil_plan(x3, free3=None, coef=None):
+    """The launch shape that K2 (``coef`` None) or K1 takes on the lattice
+    of the CUDA tensor ``x3`` (masked when ``free3`` is given): a dict of
+    ``PLAN_FIELDS`` (threads a block, outputs a thread, tile columns W and
+    rows R, tiles a plane, planes a block, blocks, shared-memory bytes).
+    Launches nothing."""
+    if x3.device.type != "cuda" or x3.dtype not in (torch.float32,
+                                                    torch.float64):
+        raise ValueError("stencil_plan: x3 must be float32 or float64 on a "
+                         f"CUDA device, got {x3.dtype} on {x3.device}")
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    with torch.cuda.device(x3.device):
+        rc = _stencil_lib().fst_stencil_plan(
+            int(x3.dtype == torch.float64), int(free3 is not None),
+            int(coef is not None), *x3.shape, out)
+    if rc != 0:
+        raise RuntimeError(f"stencil_plan: failed with CUDA error {rc}")
+    return dict(zip(PLAN_FIELDS, out[:]))
 
 
 # ---------------------------------------------------------------------------

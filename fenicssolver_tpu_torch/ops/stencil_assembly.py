@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import config
 from . import cuda_kernels
 from .structured import (
     OFFSETS,
@@ -48,10 +49,11 @@ def _pad_block(blk, ca):
     return F.pad(blk, (ca[2], 1 - ca[2], ca[1], 1 - ca[1], ca[0], 1 - ca[0]))
 
 
-def box_geometry(n3, extent=(1.0, 1.0, 1.0), dtype=torch.float64, device="cpu"):
+def box_geometry(n3, extent=(1.0, 1.0, 1.0), dtype=torch.float64, device=None):
     """Per-cell ``JinvT`` (3, 3, nc) and ``detJ`` (nc,) of the BoxMesh lattice,
-    made on ``device`` from the 6 per-type constants (type-major cells):
-    the counterpart of ``bench.py:737-742``."""
+    made on ``device`` (resolved by ``config``) from the 6 per-type
+    constants (type-major cells): the counterpart of ``bench.py:737-742``."""
+    device = config.resolve_device(device)
     nx, ny, nz = n3
     ncub = nx * ny * nz
     h = tuple(extent[i] / n3[i] for i in range(3))

@@ -9,7 +9,7 @@ steady linear path uses: settings, mesh and space loading (``:118-258``),
 preconditioned by the geometric multigrid V-cycle on BoxMesh lattices
 (``:1038-1073``).
 
-Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cpu``);
+Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cuda``);
 tensors are created there in ``config.default_float()``.  Features outside
 the slice raise ``NotImplementedError`` naming the module that will bring
 them: transient runs, Newton solves, ``"amg"``, ``distributed``.

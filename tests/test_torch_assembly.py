@@ -23,6 +23,7 @@ from fenicssolver_tpu_torch.ops import geometry as tgeo  # noqa: E402
 from fenicssolver_tpu_torch.solvers.scalar_transport import (  # noqa: E402
     ScalarTransportSolver as TSolver,
 )
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 TOL = 1e-12
 

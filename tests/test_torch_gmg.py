@@ -11,6 +11,8 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 from fenicssolver_tpu.la import gmg as jgmg  # noqa: E402
 from fenicssolver_tpu.ops.pallas_kernels import (  # noqa: E402
     stencil_flat_apply_const,
@@ -18,6 +20,7 @@ from fenicssolver_tpu.ops.pallas_kernels import (  # noqa: E402
 from fenicssolver_tpu_torch import interop  # noqa: E402
 from fenicssolver_tpu_torch.la import gmg as tgmg  # noqa: E402
 from fenicssolver_tpu_torch.ops import cuda_kernels  # noqa: E402
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 TOL = 1e-12
 
@@ -71,6 +74,65 @@ def test_plain_k2_matches_pallas_kernel_interpret():
     m = np.zeros(shape3)
     m[1:-1, 1:-1, 1:-1] = 1.0
     assert _rel(m * y_t, m * y_p) < TOL
+
+
+#: chip_smoke's K1/K2 sweep shapes small enough for interpret mode: the
+#: coarsest GMG level of n = 128 and the shapes that end mid-tile in every
+#: axis and mid-chunk in i
+SWEEP_SHAPES = [s for s in chip_smoke.STENCIL_SHAPES if np.prod(s) < 20_000]
+SWEEP_MASKS = [name for name, _ in chip_smoke.stencil_masks((2, 2, 2))]
+
+
+def _shape_id(shape3):
+    return "x".join(str(v) for v in shape3)
+
+
+def _sweep_mask(shape3, name, zero_shell=False):
+    """chip_smoke's mask ``name`` on ``shape3`` (None: no mask), with its
+    boundary shell cleared when ``zero_shell``."""
+    f = dict(chip_smoke.stencil_masks(shape3, seed=sum(shape3)))[name]
+    if zero_shell:
+        f = f.copy()
+        f[0] = f[-1] = 0.0
+        f[:, 0] = f[:, -1] = 0.0
+        f[:, :, 0] = f[:, :, -1] = 0.0
+    return f
+
+
+@pytest.mark.parametrize("mask", SWEEP_MASKS,
+                         ids=lambda m: m.replace(" ", "-"))
+@pytest.mark.parametrize("shape3", SWEEP_SHAPES, ids=_shape_id)
+def test_plain_k2_matches_jax_stencil_on_sweep_shapes(shape3, mask):
+    """K2's plain version against ``la/gmg.stencil_apply`` on the shapes
+    and masks the chip run holds the CUDA kernel to, f64, 1e-12 relative."""
+    x = np.random.default_rng(sum(shape3)).standard_normal(shape3)
+    f = _sweep_mask(shape3, mask)
+    coefs = jgmg.p1_box_stencil(0.1, 0.15, 0.08)
+    if f is None:
+        y_j = jgmg.stencil_apply(jnp.asarray(x), jnp.asarray(coefs))
+    else:
+        fj = jnp.asarray(f)
+        y_j = fj * jgmg.stencil_apply(fj * jnp.asarray(x), jnp.asarray(coefs))
+    y_t = cuda_kernels.stencil_apply_const(
+        torch.as_tensor(x), coefs, None if f is None else torch.as_tensor(f))
+    assert _rel(y_t, np.asarray(y_j)) < TOL
+
+
+@pytest.mark.parametrize("mask", ["all-dirichlet", "random"])
+@pytest.mark.parametrize("shape3", SWEEP_SHAPES, ids=_shape_id)
+def test_plain_k2_matches_pallas_kernel_on_sweep_shapes(shape3, mask):
+    """K2's plain version against the Pallas kernel in interpret mode where
+    its zero-shell condition holds: the mask is zero on the boundary shell
+    (the random one with its shell cleared), so ``f * pallas(f * x)`` is
+    the masked apply everywhere; f64, 1e-12 relative."""
+    x = np.random.default_rng(sum(shape3)).standard_normal(shape3)
+    f = _sweep_mask(shape3, mask, zero_shell=True)
+    coefs = jgmg.p1_box_stencil(0.1, 0.15, 0.08)
+    y_p = f * np.asarray(stencil_flat_apply_const(jnp.asarray(f * x), coefs,
+                                                  interpret=True))
+    y_t = cuda_kernels.stencil_apply_const(torch.as_tensor(x), coefs,
+                                           torch.as_tensor(f))
+    assert _rel(y_t, y_p) < TOL
 
 
 def test_k2_wrapper_counts_only_launches_and_checks_inputs():

@@ -25,6 +25,7 @@ from fenicssolver_tpu_torch.main import load_settings, main  # noqa: E402
 from fenicssolver_tpu_torch.solvers.scalar_transport import (  # noqa: E402
     ScalarTransportSolver as TSolver,
 )
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASE = os.path.join(REPO, "data", "TestHeatTransfer.json")

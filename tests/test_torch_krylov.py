@@ -15,6 +15,7 @@ from fenicssolver_tpu.la import krylov as jkry  # noqa: E402
 from fenicssolver_tpu.la.sparse import csr_from_scipy  # noqa: E402
 from fenicssolver_tpu_torch import interop  # noqa: E402
 from fenicssolver_tpu_torch.la import krylov as tkry  # noqa: E402
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 
 def _spd(n=80, seed=0):

@@ -18,12 +18,15 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 from fenicssolver_tpu.la import gmg as jgmg  # noqa: E402
 from fenicssolver_tpu.ops import pallas_kernels as pk  # noqa: E402
 from fenicssolver_tpu.ops import structured as jst  # noqa: E402
 from fenicssolver_tpu_torch import interop  # noqa: E402
 from fenicssolver_tpu_torch.ops import cuda_kernels  # noqa: E402
 from fenicssolver_tpu_torch.ops import structured as tst  # noqa: E402
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 TOL = 1e-12
 GREF3 = np.array([[-1.0, -1, -1], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
@@ -172,6 +175,63 @@ def test_plain_k1_matches_jax_shift_formula(masked):
     y_t = cuda_kernels.stencil_apply_var(torch.as_tensor(x),
                                          torch.as_tensor(coef), f_t)
     assert _rel(y_t, y_j) < TOL
+
+
+#: chip_smoke's K1/K2 sweep shapes small enough for interpret mode (see
+#: tests/test_torch_gmg.py)
+SWEEP_SHAPES = [s for s in chip_smoke.STENCIL_SHAPES if np.prod(s) < 20_000]
+SWEEP_MASKS = [name for name, _ in chip_smoke.stencil_masks((2, 2, 2))]
+
+
+def _shape_id(shape3):
+    return "x".join(str(v) for v in shape3)
+
+
+def _sweep_mask(shape3, name, zero_shell=False):
+    f = dict(chip_smoke.stencil_masks(shape3, seed=sum(shape3)))[name]
+    if zero_shell:
+        f = f.copy()
+        f[0] = f[-1] = 0.0
+        f[:, 0] = f[:, -1] = 0.0
+        f[:, :, 0] = f[:, :, -1] = 0.0
+    return f
+
+
+@pytest.mark.parametrize("mask", SWEEP_MASKS,
+                         ids=lambda m: m.replace(" ", "-"))
+@pytest.mark.parametrize("shape3", SWEEP_SHAPES, ids=_shape_id)
+def test_plain_k1_matches_jax_shift_formula_on_sweep_shapes(shape3, mask):
+    """K1's plain version against the JAX shift formula on the shapes and
+    masks the chip run holds the CUDA kernel to, f64, 1e-12 relative."""
+    x, coef = _var_operands(shape3, seed=sum(shape3))
+    f = _sweep_mask(shape3, mask)
+    xj, cj = jnp.asarray(x), jnp.asarray(coef)
+    fj = 1.0 if f is None else jnp.asarray(f)
+    xm = fj * xj
+    y = cj[jgmg.CENTER_IDX] * xm
+    for oi, d in enumerate(jgmg.OFFSETS_T):
+        if oi != jgmg.CENTER_IDX:
+            y = y + cj[oi] * jgmg._shift(xm, d)
+    y_t = cuda_kernels.stencil_apply_var(
+        torch.as_tensor(x), torch.as_tensor(coef),
+        None if f is None else torch.as_tensor(f))
+    assert _rel(y_t, np.asarray(fj * y)) < TOL
+
+
+@pytest.mark.parametrize("mask", ["all-dirichlet", "random"])
+@pytest.mark.parametrize("shape3", SWEEP_SHAPES, ids=_shape_id)
+def test_plain_k1_matches_pallas_kernel_on_sweep_shapes(shape3, mask):
+    """K1's plain version against ``stencil_flat_apply`` in interpret mode
+    where its zero-shell condition holds (the mask zero on the shell), so
+    ``f * pallas(f * x)`` is the masked apply everywhere; f64, 1e-12."""
+    x, coef = _var_operands(shape3, seed=sum(shape3))
+    f = _sweep_mask(shape3, mask, zero_shell=True)
+    y_p = f * np.asarray(pk.stencil_flat_apply(
+        jnp.asarray(f * x), jnp.asarray(coef), interpret=True))
+    y_t = cuda_kernels.stencil_apply_var(torch.as_tensor(x),
+                                         torch.as_tensor(coef),
+                                         torch.as_tensor(f))
+    assert _rel(y_t, y_p) < TOL
 
 
 def test_new_wrappers_count_only_launches_and_check_inputs():

@@ -34,6 +34,7 @@ from fenicssolver_tpu_torch.ops.stencil_assembly import (  # noqa: E402
     assemble_stencil,
     box_geometry,
 )
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_ENV = {

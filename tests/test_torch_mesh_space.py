@@ -15,6 +15,7 @@ from fenicssolver_tpu.core import elements as jel  # noqa: E402
 from fenicssolver_tpu.solvers import solver_base as jsb  # noqa: E402
 from fenicssolver_tpu_torch.core import elements as tel  # noqa: E402
 from fenicssolver_tpu_torch.solvers import solver_base as tsb  # noqa: E402
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH_XML = os.path.join(REPO, "data", "mesh.xml")

@@ -19,6 +19,7 @@ from fenicssolver_tpu_torch.core import (  # noqa: E402
     UnitSquareMesh,
     VectorFunctionSpace,
 )
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "fenicssolver_tpu_torch")
@@ -101,14 +102,94 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
 
 
 def test_device_and_dtype_policy(monkeypatch):
+    """The card unless the caller asks for the CPU; float64 unless
+    FST_X32=1."""
     monkeypatch.delenv("FST_DEVICE", raising=False)
     monkeypatch.delenv("FST_X32", raising=False)
+    if torch.cuda.is_available():
+        assert config.resolve_device() == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            config.resolve_device()
+    assert config.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("FST_DEVICE", "cpu")
     assert config.resolve_device() == torch.device("cpu")
     assert config.default_float() == torch.float64
     monkeypatch.setenv("FST_X32", "1")
     assert config.default_float() == torch.float32
     with pytest.raises(ValueError):
         config.resolve_device("meta")
+
+
+ENTRY_POINTS = ["lattice_cli", "lattice_module", "run_stencil", "run_csr",
+                "main", "module", "solver", "sharded", "box_geometry"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With FST_DEVICE unset and no device=, every entry point asks for the
+    card: without one it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card rule does not apply")
+    monkeypatch.delenv("FST_DEVICE", raising=False)
+    case = os.path.join(REPO, "data", "TestHeatTransfer.json")
+    if entry in ("module", "lattice_module"):
+        args = ([case] if entry == "module" else ["--n", "4"])
+        mod = ("fenicssolver_tpu_torch" if entry == "module"
+               else "fenicssolver_tpu_torch.lattice_poisson")
+        env = {k: v for k, v in os.environ.items() if k != "FST_DEVICE"}
+        proc = subprocess.run([sys.executable, "-m", mod, *args], cwd=REPO,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert "RuntimeError" in proc.stderr and "cuda" in proc.stderr
+        return
+    from fenicssolver_tpu_torch import lattice_poisson
+    from fenicssolver_tpu_torch.main import load_settings, main
+    from fenicssolver_tpu_torch.ops.stencil_assembly import box_geometry
+    from fenicssolver_tpu_torch.parallel import ShardedEllipticSolver
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    calls = {
+        "lattice_cli": lambda: lattice_poisson.main(["--n", "4"]),
+        "run_stencil": lambda: lattice_poisson.run_stencil(4),
+        "run_csr": lambda: lattice_poisson.run_csr(4),
+        "main": lambda: main(load_settings(case)),
+        "solver": lambda: ScalarTransportSolver(load_settings(case)),
+        "sharded": lambda: ShardedEllipticSolver(
+            FunctionSpace(UnitCubeMesh(2, 2, 2), "CG", 1), lambda *a: None),
+        "box_geometry": lambda: box_geometry((2, 2, 2)),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
+
+
+#: chip_smoke's byte model at the shapes of the kernel table in PERF.md:
+#: (kernel, its bytes function and arguments, type, bytes)
+BYTE_MODEL = [
+    ("K2", "k2_bytes", ((129, 129, 129), 8), "float64", 51_520_536),
+    ("K1", "k1_bytes", ((129, 129, 129), 4), "float32", 154_561_608),
+    ("K3", "k3_bytes", (6 * 128**3, 4), "float32", 1_006_632_960),
+    ("K4", "k4_bytes", (6 * 128**3, 8), "float64", 2_617_245_696),
+    ("K5", "k5_bytes", (6 * 128**3, 8), "float64", 2_415_919_104),
+]
+
+
+@pytest.mark.parametrize("kernel,fn,args,dtype,nbytes", BYTE_MODEL,
+                         ids=[b[0] for b in BYTE_MODEL])
+def test_chip_smoke_byte_model(kernel, fn, args, dtype, nbytes):
+    """Each input byte read once, each output byte written once; the bound
+    is bytes over the data-sheet HBM rate (operations are far below)."""
+    import chip_smoke
+
+    assert getattr(chip_smoke, fn)(*args) == nbytes
+    flops = (chip_smoke.stencil_flops(args[0]) if kernel in ("K1", "K2")
+             else getattr(chip_smoke, f"{kernel.lower()}_flops")(args[0]))
+    ms, by = chip_smoke.bound(nbytes, flops, dtype)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
 
 
 def _settings(V, **extra):

@@ -44,6 +44,7 @@ from fenicssolver_tpu_torch.parallel import (  # noqa: E402
     ShardedEllipticSolver,
     partition_cells,
 )
+from tests.torch_cpu import on_the_cpu  # noqa: E402,F401
 
 F64 = torch.float64
 TOL = 1e-12  # CG tolerance of the solves
