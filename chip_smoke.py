@@ -26,11 +26,23 @@ non-zero and no result line is printed):
    K4 also with the 2-D reference gradients (k = 3);
 5b. default device: with ``FST_DEVICE`` unset, ``run_stencil(16)`` and
    the lattice CLI run on ``cuda:0`` through K1;
-6. main path: ``main(settings)`` on ``UnitCubeMesh(128)`` (2,146,689 dofs),
-   f64, GMG-preconditioned CG at rtol 1e-10, with phase times, iterations,
-   the K2 launch count and the peak device memory; then the solve's
-   V-cycle: wall and device-busy time a cycle, K2's part, and per level
-   K2's device time a launch and host time a call;
+6. steady heat path: ``main(settings)`` on ``UnitCubeMesh(128)``
+   (2,146,689 dofs), f64, GMG-preconditioned CG at rtol 1e-10, with phase
+   times, iterations, the K2 launch count and the peak device memory; then
+   the solve's V-cycle: wall and device-busy time a cycle, K2's part, and
+   per level K2's device time a launch and host time a call;
+6b. main path (transient): ``main(settings)`` on the same mesh and space,
+   three Crank-Nicolson steps of 1e-3 of the decaying sine mode on
+   T = 300 + 60 z (Dirichlet on every face), GMG-CG at rtol 1e-10 each
+   step, the cached transient form from step 2; one line a step (form build
+   or refresh, assembly, GMG setup, Krylov, iterations, K2 launches); checks
+   the CN decay to 1e-2, <= 60 iterations and K2 on every step;
+6c. SUPG advection at n = 48 (BiCGStab, or GMRES after a breakdown) against
+   the exact exponential profile to 1e-3;
+6d. Newton at n = 48: k(T) against its closed form to 2e-5; radiation with
+   a point source (and the same at n = 12 on the card and the CPU, 1e-8);
+6e. saving: one transient step at n = 16 with ``saving_freq: 1``; the PVD
+   and VTU parse and hold T;
 7. a body-source case at n=32 whose CUDA solve must match the CPU solve;
 8. the bundled JSON case ``data/TestHeatTransfer.json`` on the card;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
@@ -54,7 +66,8 @@ non-zero and no result line is printed):
     ``poisson3d_p1`` at n = 32 on four shards of ``cuda:0`` against one.
 
 Kernel times in the kernels' record are those of the dtype and mask of
-the path that launches the kernel: K2 f64 with free sides (the heat path),
+the path that launches the kernel: K2 f64 all-Dirichlet (the transient
+heat path, whose launches the record counts),
 K1 (all-Dirichlet mask) and K3 f32 (the lattice path, in the bench's
 dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path).
 ``ms``, ``plain_ms`` and ``library_ms`` are medians with the L2 flushed
@@ -428,8 +441,9 @@ def time_k2(device="cuda", n=N_MAIN):
     unmasked, beside its bound; the unmasked apply also beside
     ``F.conv3d``, which computes that function (checked against the plain
     version first).  Calls only the wrappers, which every version of the
-    package has.  Returns the f64 free-sides times (the heat path's case),
-    with the library time and the kernel's on the library's case."""
+    package has.  Returns the f64 all-Dirichlet times (the transient heat
+    path's case: Dirichlet on every face), with the library time and the
+    kernel's on the library's case."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -466,7 +480,7 @@ def time_k2(device="cuda", n=N_MAIN):
                 k2_bytes(shape, x.element_size(), f is not None),
                 stencil_flops(shape, f is not None), name,
                 library=conv if f is None else None)
-            if name == "float64" and mname == "free-sides":
+            if name == "float64" and mname == "all-dirichlet":
                 out.update(t)
             if name == "float64" and mname == "no mask":
                 out["library_ms"] = t["library_ms"]
@@ -983,7 +997,7 @@ def phase_main_path(device="cuda", n=N_MAIN):
     if on_cuda:
         check(launches > 0, "K2 was not launched on the main path")
         profile_vcycle(solver._gmg_cache[1])
-    return {"launches": launches, "iterations": solver.last_iterations}
+    return {"launches": launches, "iterations": solver.last_iterations, "V": V}
 
 
 def _profiled(fn, reps):
@@ -1104,6 +1118,345 @@ def phase_cli(device="cuda"):
     check(err <= 1e-8, f"CLI case rel-L2 {err}")
 
 
+# -- the transient, advective, nonlinear and saving paths ---------------------
+
+#: the sine mode of the transient check, on T = 300 + 60 z
+SINE_MODE = "10*sin(pi*x[0])*sin(pi*x[1])*sin(pi*x[2])"
+DT = 1e-3
+
+
+def transient_settings(core, V, steps, saving=None):
+    """The decaying sine mode on the unit cube: alpha = k/(rho c_p) = 1,
+    T = 300 + 60 z on all six faces, T0 = that plus ``SINE_MODE``, ``steps``
+    Crank-Nicolson steps of ``DT``, GMG-CG at ``RTOL``, cached transient
+    form; ``saving``: the PVD path, saved every step."""
+    wall = core.AutoSubDomain(lambda x, on_boundary: on_boundary)
+    report = {"logging_level": 40}
+    if saving:
+        report.update(saving_freq=1, result_filename=saving)
+    return {
+        "solver_name": "ScalarTransportSolver",
+        "scalar_name": "temperature", "function_space": V, "mesh": None,
+        "boundary_conditions": {
+            "walls": {"boundary": wall, "boundary_id": 1, "type": "Dirichlet",
+                      "value": "300 + 60*x[2]"},
+        },
+        "initial_values": {"temperature": f"300 + 60*x[2] + {SINE_MODE}"},
+        "material": {"density": 1.0, "specific_heat_capacity": 1.0,
+                     "thermal_conductivity": 1.0},
+        "solver_settings": {
+            "transient_settings": {"transient": True, "starting_time": 0.0,
+                                   "time_step": DT, "ending_time": steps * DT},
+            "reference_values": {},
+            "solver_parameters": {"relative_tolerance": RTOL,
+                                  "maximum_iterations": 3000,
+                                  "preconditioner": "gmg",
+                                  "cache_transient_form": True},
+        },
+        "report_settings": report,
+    }
+
+
+class StepProbe:
+    """Records, for each ``solve_current_step`` of the solver class while
+    active: the phase times it added, its iterations, the K2 launches it
+    made and (``keep``) a copy of the solution."""
+
+    PHASES = ("form", "form_cache_refresh", "assembly", "gmg_setup", "krylov",
+              "newton")
+
+    def __init__(self, cls, keep=False):
+        self.cls, self.keep, self.steps = cls, keep, []
+
+    def __enter__(self):
+        from fenicssolver_tpu_torch.ops import cuda_kernels
+
+        inner = self.inner = self.cls.solve_current_step
+        self.own = "solve_current_step" in vars(self.cls)
+        probe = self
+
+        def step(solver):
+            before = dict(solver.timers.totals)
+            k2 = cuda_kernels.LAUNCHES["stencil_apply_const"]
+            inner(solver)
+            probe.steps.append({
+                "times": {k: solver.timers.totals.get(k, 0.0) - before.get(k, 0.0)
+                          for k in probe.PHASES},
+                "iterations": solver.last_iterations,
+                "k2": cuda_kernels.LAUNCHES["stencil_apply_const"] - k2,
+                "T": solver.w_current.values.copy() if probe.keep else None,
+            })
+
+        self.cls.solve_current_step = step
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            self.cls.solve_current_step = self.inner
+        else:
+            del self.cls.solve_current_step
+
+
+def phase_transient(device="cuda", n=N_MAIN, steps=3, V=None):
+    """This slice's main path: ``main(settings)`` on the transient heat case
+    (``transient_settings``) on ``UnitCubeMesh(n)``'s P1 space ``V`` (the
+    steady phase's, when given), f64, GMG-CG at ``RTOL`` every step.  One
+    line a step (form build or cached-form refresh, assembly, GMG setup,
+    Krylov, iterations, K2 launches); checks the CN decay of the sine mode,
+    <= 60 iterations and K2 launches on every step; then ``profile_form``."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    on_cuda = torch.device(device).type == "cuda"
+    if V is None:
+        V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with StepProbe(ScalarTransportSolver, keep=True) as probe:
+        solver = run_main(transient_settings(core, V, steps), device=device)
+    t_main = time.perf_counter() - t0
+    launches = cuda_kernels.LAUNCHES["stencil_apply_const"]
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_cuda else float("nan")
+    x = V.dof_coords
+    base = 300.0 + 60.0 * x[:, 2]
+    mode = 10.0 * np.prod(np.sin(np.pi * x), axis=1)
+    g = (1 - 1.5 * np.pi**2 * DT) / (1 + 1.5 * np.pi**2 * DT)
+    stepped = sum(sum(step["times"].values()) for step in probe.steps)
+    print(f"[transient] n={n}: {V.ndof} dofs, {V.mesh.num_cells()} tets, "
+          f"{device}, {len(probe.steps)} CN steps of {DT:g}; main() "
+          f"{t_main:.2f} s, of it solver init {t_main - stepped:.2f} s; peak "
+          f"device memory {peak:.2f} GiB; K2 launches {launches}")
+    for k, st in enumerate(probe.steps):
+        t = st["times"]
+        form = (f"form build {t['form']:.2f}" if t["form"] else
+                f"cached-form refresh {t['form_cache_refresh']:.3f}")
+        err = float(np.abs(st["T"] - base - g ** (k + 1) * mode).max())
+        print(f"[transient] step {k}: {form} s, assembly {t['assembly']:.2f} "
+              f"s, gmg setup {t['gmg_setup']:.2f} s, krylov {t['krylov']:.3f} "
+              f"s, {st['iterations']} CG iterations, K2 launches {st['k2']}, "
+              f"max|T - (300 + 60 z) - 10 g^{k + 1} mode| = {err:.3e}")
+        check(isinstance(st["iterations"], int) and st["iterations"] <= 60,
+              f"step {k}: iterations {st['iterations']} > 60")
+        check(err <= 1e-2, f"step {k}: decay error {err} > 1e-2")
+        if on_cuda:
+            check(st["k2"] > 0, f"step {k}: K2 was not launched")
+    check(len(probe.steps) == steps, f"{len(probe.steps)} steps, not {steps}")
+    check(hasattr(solver, "_gmg_cache"), "the GMG branch did not run")
+    check(solver.timers.counts["form"] == min(steps, 2)
+          and solver.timers.counts["form_cache_refresh"] == max(steps - 2, 0),
+          "forms not built at steps 0 and 1 and refreshed after")
+    profile_form(solver)
+    return {"launches": launches, "iterations": [st["iterations"] for st in
+                                                 probe.steps]}
+
+
+def profile_form(solver, top=10):
+    """One more ``generate_form`` of the solver's last step under cProfile:
+    its wall time, the port's functions by cumulative time and all
+    functions by own time (host work; device work it queues is synchronised
+    at the end)."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    solver.generate_form(solver.current_step, None, None, solver.w_current,
+                         solver.w_current)
+    if torch.device(solver.device).type == "cuda":
+        torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+
+    def where(key):
+        fn, line, name = key
+        if fn.startswith(HERE):
+            return f"{os.path.relpath(fn, HERE)}:{line}({name})"
+        return f"{os.path.basename(fn)}:{line}({name})" if line else name
+
+    ours = sorted(((v[3], where(k)) for k, v in stats.items()
+                   if k[0].startswith(os.path.join(HERE, "fenicssolver_tpu_torch"))),
+                  reverse=True)[:top]
+    own = sorted(((v[2], where(k)) for k, v in stats.items()), reverse=True)[:top]
+    print(f"[form] one form build under cProfile: {wall:.2f} s wall")
+    print("[form] port functions by cumulative s: "
+          + "; ".join(f"{w} {t:.2f}" for t, w in ours))
+    print("[form] all functions by own s: "
+          + "; ".join(f"{w} {t:.2f}" for t, w in own))
+
+
+def scalar_settings(core, V, material, **extra):
+    """A steady scalar case on the unit cube: T = 300 at z = 0 and 360 at
+    z = 1, natural side walls, rtol 1e-10; ``extra`` settings added."""
+    bottom = core.AutoSubDomain(lambda x: core.near(x[2], 0.0))
+    top = core.AutoSubDomain(lambda x: core.near(x[2], 1.0))
+    s = {
+        "solver_name": "ScalarTransportSolver",
+        "scalar_name": "temperature", "function_space": V, "mesh": None,
+        "boundary_conditions": {
+            "cold": {"boundary": bottom, "boundary_id": 1, "type": "Dirichlet",
+                     "value": 300.0},
+            "hot": {"boundary": top, "boundary_id": 2, "type": "Dirichlet",
+                    "value": 360.0},
+        },
+        "material": {"density": 1000.0, "specific_heat_capacity": 4200.0,
+                     **material},
+        "solver_settings": {
+            "transient_settings": {"transient": False},
+            "reference_values": {"temperature": 300.0},
+            "solver_parameters": {"relative_tolerance": 1e-10,
+                                  "maximum_iterations": 5000},
+        },
+        "report_settings": {"logging_level": 40},
+    }
+    s.update(extra)
+    return s
+
+
+def _rel_l2(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_advection(device="cuda", n=48):
+    """3-D SUPG advection-diffusion (the counterpart of
+    ``test_convective_velocity_supg``): capacity 1, k 0.6, v = (0, 0, -0.6),
+    ``"SPUG"``, Pe 1, against the exact exponential profile.  The reference
+    sends this non-symmetric system through Jacobi-BiCGStab (GMRES after a
+    breakdown), so no TPU kernel runs, and n is kept small."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    s = scalar_settings(core, V, {"capacity": 1.0, "conductivity": 0.6},
+                        convective_velocity=(0.0, 0.0, -0.6),
+                        advection_settings={"stabilization_method": "SPUG",
+                                            "Pe": 1.0})
+    t0 = time.perf_counter()
+    solver = run_main(s, device=device)
+    wall = time.perf_counter() - t0
+    z = V.dof_coords[:, 2]
+    lam = -0.6 / 0.6
+    exact = 300.0 + 60.0 / (np.exp(lam) - 1.0) * (np.exp(lam * z) - 1.0)
+    err = _rel_l2(solver.result.values, exact)
+    print(f"[advection] n={n}: {V.ndof} dofs on {device}, finished by "
+          f"{solver.last_krylov} in {solver.last_iterations} iterations (rel "
+          f"residual {solver.last_relres:.3e}), main() {wall:.2f} s; rel-L2 vs "
+          f"the exact profile {err:.3e} (tol 1e-3)")
+    check(solver.last_krylov in ("BiCGStab", "GMRES"),
+          f"the advective system was solved by {solver.last_krylov}")
+    check(err <= 1e-3, f"advection rel-L2 {err}")
+
+
+def _kT(T):
+    return 0.6 * (1 + 0.001 * (T - 300.0))
+
+
+def radiation_case(core, V):
+    """k 0.6, radiation to 280 K (emissivity 0.9) on every exterior facet,
+    and a point load of 50 W at the cube's centre."""
+    return scalar_settings(
+        core, V, {"conductivity": 0.6, "emissivity": 0.9},
+        radiation_settings={"ambient_temperature": 280.0, "emissivity": 0.9},
+        point_source=[((0.5, 0.5, 0.5), 50.0)])
+
+
+def phase_nonlinear(device="cuda", n=48, n_cpu=12):
+    """Newton: k(T) = 0.6 (1 + 0.001 (T - 300)) against the closed form of
+    ``test_nonlinear_conductivity_newton``; then radiation with a point
+    source at the centre, whose card solve at ``n_cpu`` matches the CPU's.
+    The reference solves each Newton update by Jacobi-CG (no TPU kernel),
+    so n is kept small."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    t0 = time.perf_counter()
+    solver = run_main(scalar_settings(core, V, {"conductivity": _kT}),
+                      device=device)
+    wall = time.perf_counter() - t0
+    a, dT = 0.001, 60.0
+    u = (dT + a / 2 * dT**2) * V.dof_coords[:, 2]
+    err = _rel_l2(solver.result.values, 300 + (-1 + np.sqrt(1 + 2 * a * u)) / a)
+    print(f"[nonlinear] k(T) n={n}: {V.ndof} dofs on {device}, "
+          f"{solver.last_iterations} Newton iterations, newton "
+          f"{solver.timers.totals['newton']:.2f} s, main() {wall:.2f} s; rel-L2 "
+          f"vs the closed form {err:.3e} (tol 2e-5)")
+    check(err <= 2e-5, f"k(T) rel-L2 {err}")
+    t0 = time.perf_counter()
+    solver = run_main(radiation_case(core, V), device=device)
+    wall = time.perf_counter() - t0
+    T = solver.result.values
+    centre = float(solver.result((0.5, 0.5, 0.5)))
+    print(f"[nonlinear] radiation + point source n={n}: {solver.last_iterations} "
+          f"Newton iterations, main() {wall:.2f} s; T mean {T.mean():.4f}, "
+          f"T at the centre {centre:.4f}, range [{T.min():.4f}, {T.max():.4f}]")
+    check(np.isfinite(T).all() and T.mean() < 330.0,
+          f"radiation: T mean {T.mean()} not below the conduction mean 330")
+    res = {}
+    for dev in (device, "cpu"):
+        Vs = core.FunctionSpace(core.UnitCubeMesh(n_cpu, n_cpu, n_cpu), "CG", 1)
+        sol = run_main(radiation_case(core, Vs), device=dev)
+        res[dev] = (sol.result.values.copy(), sol.last_iterations)
+    rel = _rel_l2(res[device][0], res["cpu"][0])
+    print(f"[nonlinear] radiation + point source n={n_cpu}: {device} vs cpu "
+          f"rel-L2 {rel:.3e} (tol 1e-8), Newton iterations "
+          f"{res[device][1]} vs {res['cpu'][1]}")
+    check(rel <= 1e-8, f"radiation {device} vs cpu rel-L2 {rel}")
+    check(res[device][1] == res["cpu"][1], "Newton iterations differ")
+
+
+def phase_save(device="cuda", n=16):
+    """One transient step with ``saving_freq: 1`` into a temporary
+    directory through ``main``: the PVD and its VTU parse, and the VTU's
+    point data equals T to the writer's 12 significant digits."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pvd = os.path.join(tmp, "result.pvd")
+        V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+        solver = run_main(transient_settings(core, V, 1, saving=pvd),
+                          device=device)
+        sets = [d.attrib for d in ET.parse(pvd).getroot().iter("DataSet")]
+        check(len(sets) == 1, f"{len(sets)} data sets in the PVD, not 1")
+        vtu = ET.parse(os.path.join(tmp, sets[0]["file"])).getroot()
+        piece = next(vtu.iter("Piece")).attrib
+        arr = next(a for a in vtu.iter("DataArray")
+                   if a.attrib.get("Name") == solver.result.name())
+        vals = np.array(arr.text.split(), dtype=np.float64)
+    T = solver.result.values
+    err = float(np.abs(vals - T).max() / np.abs(T).max())
+    print(f"[save] n={n}: {pvd.rsplit(os.sep, 1)[-1]} with 1 data set at t = "
+          f"{sets[0]['timestep']}, {sets[0]['file']}: {piece['NumberOfPoints']} "
+          f"points, {piece['NumberOfCells']} cells; point data vs T max rel "
+          f"{err:.1e} (tol 1e-11)")
+    check(int(piece["NumberOfPoints"]) == V.ndof, "VTU point count")
+    check(err <= 1e-11, f"saved point data rel err {err}")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -1164,7 +1517,11 @@ def main():
     k1 = phase_k1()
     k34 = phase_k3_k4()
     phase_default_device()
-    mainp = phase_main_path()
+    steady = phase_main_path()
+    transient = phase_transient(V=steady.pop("V"))
+    phase_advection()
+    phase_nonlinear()
+    phase_save()
     phase_body_source()
     phase_cli()
     lat = phase_lattice()
@@ -1173,7 +1530,7 @@ def main():
     shard = phase_sharded()
     measured = {
         "stencil_apply_var": (k1, lat["launches"]["stencil_apply_var"]),
-        "stencil_apply_const": (k2, mainp["launches"]),
+        "stencil_apply_const": (k2, transient["launches"]),
         "p1_stiffness_sym": (k34["p1_stiffness_sym"],
                              lat["launches"]["p1_stiffness_sym"]),
         "p1_stiffness": (k34["p1_stiffness"], csr["launches"]["p1_stiffness"]),

@@ -3,16 +3,17 @@
 The port keeps the JAX package's module paths and public names, so each
 module here has a counterpart under ``fenicssolver_tpu/`` (the reference).
 It imports ``torch``, numpy and scipy only: never ``jax`` and never
-``fenicssolver_tpu``.  This first slice covers the steady, linear P1
-scalar-transport (heat-conduction) solve: mesh and space setup, per-element
-autodiff assembly into CSR, and dense-LU / Jacobi-CG / geometric-multigrid
-CG solves whose level operator is a hand-written CUDA kernel
-(``ops/cuda_kernels.py``, ``csrc/stencil.cu``).  The second slice adds the
-JAX package's benchmark workload, P1 Poisson on a Kuhn lattice
-(``lattice_poisson.py``): element stiffness and stencil operator kernels
-(``csrc/p1_stiffness.cu``, ``csrc/stencil.cu``), stencil assembly
-(``ops/stencil_assembly.py``) and GMG-CG.  Features not ported yet raise
-``NotImplementedError`` naming the module that will bring them.
+``fenicssolver_tpu``.  It covers the scalar-transport solver
+(``ScalarTransportSolver``: steady and Crank-Nicolson transient heat,
+advection with SUPG, Newton for k(T) and radiation, point sources, CG
+P1-P3) with dense-LU, Jacobi-CG, BiCGStab/GMRES and geometric-multigrid CG
+solves whose level operator is a hand-written CUDA kernel
+(``ops/cuda_kernels.py``, ``csrc/stencil.cu``); the JAX package's benchmark
+workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
+stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
+cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``).
+Features not ported yet raise ``NotImplementedError`` naming the module
+that will bring them.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
 """Discrete FE functions: a dof-value array bound to a space.
 
 Port of ``fenicssolver_tpu/core/function.py`` (host numpy), trimmed to
-``Function`` and ``interpolate`` on scalar spaces.  Values live in a numpy
-array on the host between solves; solvers move them to the device as
-tensors.  Point evaluation, checkpoint loading and ``project`` raise
-``NotImplementedError``.
+``Function`` (with point evaluation through ``ops/pointlocate.py``) and
+``interpolate`` (between meshes too).  Values live in a numpy array on the
+host between solves; solvers move them to the device as tensors.
+Checkpoint loading and ``project`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numbers
 import numpy as np
 
 from .expression import Constant, Expression
+from .spaces import VectorFunctionSpace
 
 
 class _VectorView:
@@ -107,19 +108,33 @@ class Function:
         return self._name
 
     def nodal_values(self):
+        """(nnodes, vdim) for vector spaces, (nnodes,) for scalar."""
+        W = self.space
+        if isinstance(W, VectorFunctionSpace):
+            return self.values.reshape(-1, W.vdim)
         return self.values
 
     def __call__(self, *point):
-        raise NotImplementedError(
-            "point evaluation is not ported to fenicssolver_tpu_torch yet; "
-            "it comes with ops/pointlocate.py"
-        )
+        """Point evaluation via cell location (host-side, small-scale use)."""
+        if len(point) == 1 and hasattr(point[0], "__len__"):
+            point = np.asarray(point[0], dtype=np.float64)
+        else:
+            point = np.asarray(point, dtype=np.float64)
+        from ..ops.pointlocate import eval_function_at_points
 
-    eval_at = __call__
+        val = eval_function_at_points(self, point[None, :])
+        return val[0] if val.shape[0] == 1 else val
+
+    def eval_at(self, points, t=None):
+        """Evaluate at (npts, gdim) points (interface shared with Expression)."""
+        from ..ops.pointlocate import eval_function_at_points
+
+        return eval_function_at_points(self, np.asarray(points, dtype=np.float64))
 
     @property
     def value_shape(self):
-        return ()
+        W = self.space
+        return (W.vdim,) if isinstance(W, VectorFunctionSpace) else ()
 
     def __repr__(self):
         return f"<Function '{self._name}' on {self.space}>"
@@ -142,12 +157,12 @@ def interpolate(value, space):
         else:
             f.values[:] = np.tile(v, coords.shape[0])
     elif isinstance(value, Function):
-        if value.space.ndof != space.ndof:
-            raise NotImplementedError(
-                "interpolation between different meshes is not ported to "
-                "fenicssolver_tpu_torch yet; it comes with ops/pointlocate.py"
-            )
-        f.values[:] = value.values
+        if value.space.ndof == space.ndof:
+            f.values[:] = value.values
+        else:  # another mesh: locate the dof coordinates in its cells
+            from ..ops.pointlocate import interpolate_nonmatching_mesh
+
+            f.values[:] = interpolate_nonmatching_mesh(value, space).values
     elif callable(value):
         vals = np.stack([np.atleast_1d(value(x)) for x in coords])
         f.values[:] = vals.reshape(-1)

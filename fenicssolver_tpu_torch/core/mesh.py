@@ -299,28 +299,16 @@ class Mesh:
             c = np.linalg.norm(X[:, 0] - X[:, 1], axis=1)
             area = self.cell_volumes()
             return a * b * c / (4.0 * np.maximum(area, 1e-300))
-        # tet: R = sqrt((aA)^2 ... ) use formula R = |OP| via linear solve
+        # tet: the circumcentre O solves (V_k - A) . O = (|V_k|^2 - |A|^2) / 2
         A, B, C, D = X[:, 0], X[:, 1], X[:, 2], X[:, 3]
         M = np.stack([B - A, C - A, D - A], axis=1)  # (nc,3,3)
-        rhs = 0.5 * np.stack(
-            [
-                np.einsum("ij,ij->i", B - A, B + A),
-                np.einsum("ij,ij->i", C - A, C + A),
-                np.einsum("ij,ij->i", D - A, D + A),
-            ],
-            axis=1,
-        ) - 0.5 * np.einsum("ij,ij->i", A, A)[:, None] * 0  # keep simple below
-        # solve M x = b with b_k = 0.5(|V_k|^2 - |A|^2)
+        AA = np.einsum("ij,ij->i", A, A)
         b = 0.5 * np.stack(
-            [
-                np.einsum("ij,ij->i", B, B) - np.einsum("ij,ij->i", A, A),
-                np.einsum("ij,ij->i", C, C) - np.einsum("ij,ij->i", A, A),
-                np.einsum("ij,ij->i", D, D) - np.einsum("ij,ij->i", A, A),
-            ],
-            axis=1,
+            [np.einsum("ij,ij->i", V, V) - AA for V in (B, C, D)], axis=1
         )
-        del rhs
-        center = np.linalg.solve(M, b)
+        # a stack of (3, 1) right-hand sides: numpy >= 2 reads an (nc, 3)
+        # operand as one (nc, 3) matrix (the reference's mesh.py:323 raises)
+        center = np.linalg.solve(M, b[:, :, None])[:, :, 0]
         return np.linalg.norm(center - A, axis=1)
 
     def midpoints(self, entities="cell"):

@@ -1,11 +1,13 @@
-"""Function spaces and dof maps (P1 Lagrange, scalar and vector).
+"""Function spaces and dof maps (Lagrange: scalar P1-P3, vector P1).
 
 Port of ``fenicssolver_tpu/core/spaces.py`` (host numpy), trimmed to the
-scalar P1 ``FunctionSpace`` and the P1 ``VectorFunctionSpace``.  A space is
-plain host-side index arrays: ``cell_dofs`` (num_cells, ndof_per_cell) plus
-nodal dof coordinates; vector spaces interleave components node-major
-(dof = node*vdim + comp).  Mixed spaces, component views (``sub``) and
-periodic constraints raise ``NotImplementedError``.
+scalar CG ``FunctionSpace`` of degree 1, 2 or 3 (``:100-157``, with
+``facet_dofs``' edge lookup, ``:215-262``) and the P1
+``VectorFunctionSpace``.  A space is plain host-side index arrays:
+``cell_dofs`` (num_cells, ndof_per_cell) plus nodal dof coordinates;
+vector spaces interleave components node-major (dof = node*vdim + comp).
+DG spaces, vector spaces above P1, mixed spaces, component views (``sub``)
+and periodic constraints raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,10 +59,11 @@ class MixedFunctionSpace:
 
 
 class FunctionSpace:
-    """Scalar continuous Lagrange space, P1 (this slice's solver path).
+    """Scalar continuous Lagrange space, P1, P2 or P3.
 
-    The P2/P3 and DG dof maps of the reference arrive with the solvers
-    that use them; asking for them raises ``NotImplementedError``."""
+    The DG dof maps and periodic constraints of the reference arrive with
+    ``solvers/scalar_transport_dg.py``; asking for them raises
+    ``NotImplementedError``."""
 
     def __init__(self, mesh: Mesh, family="CG", degree=1, constrained_domain=None):
         if isinstance(family, FiniteElement):
@@ -69,11 +72,12 @@ class FunctionSpace:
         self.mesh = mesh
         self.family = "CG" if family in ("CG", "Lagrange", "P") else "DG"
         self.degree = int(degree)
-        if self.family != "CG" or self.degree != 1:
+        if self.family != "CG":
             raise NotImplementedError(
                 f"{self.family}{self.degree} spaces are not ported to "
-                "fenicssolver_tpu_torch yet (P1 CG only); P2+ and DG come "
-                "with core/spaces.py's remaining dof maps (see ROADMAP.md)"
+                "fenicssolver_tpu_torch yet (CG P1-P3 only); DG comes with "
+                "core/spaces.py's DG dof maps and solvers/scalar_transport_dg.py "
+                "(see ROADMAP.md)"
             )
         if constrained_domain is not None:
             raise NotImplementedError(
@@ -82,14 +86,68 @@ class FunctionSpace:
             )
         self.value_shape = ()
         self.vdim = 1
-        self.ndof_el = elements.num_dofs(mesh.tdim, 1)
-        self.cell_dofs = mesh.cells_array.copy()
-        self.ndof = mesh.num_vertices()
-        self.dof_coords = mesh.coords.copy()
+        tdim = mesh.tdim
+        self.ndof_el = elements.num_dofs(tdim, self.degree)
+        if self.degree == 1:
+            self.cell_dofs = mesh.cells_array.copy()
+            self.ndof = mesh.num_vertices()
+            self.dof_coords = mesh.coords.copy()
+        elif self.degree == 2:
+            # dofs: [vertices | one per edge, at its midpoint]
+            nv = mesh.num_vertices()
+            self.cell_dofs = np.concatenate(
+                [mesh.cells_array, nv + mesh.cell_edges()], axis=1
+            ).astype(np.int32)
+            self.ndof = nv + mesh.num_edges()
+            ev = mesh.edges()
+            edge_mid = 0.5 * (mesh.coords[ev[:, 0]] + mesh.coords[ev[:, 1]])
+            self.dof_coords = np.concatenate([mesh.coords, edge_mid], axis=0)
+        elif self.degree == 3:
+            self._p3_dofs(mesh)
+        else:
+            raise ValueError("only P1/P2/P3 CG supported")
         self.constrained_domain = None
         self._periodic_master = None
         self.periodic_slaves = np.zeros(0, dtype=np.int64)
         self.element = FiniteElement(self.family, mesh.ufl_cell(), self.degree)
+
+    def _p3_dofs(self, mesh):
+        """dofs: [vertices | 2 per edge (near the lower vertex first: cell
+        vertices are sorted ascending, so a local edge's orientation is the
+        global one) | face bubble (3D) / cell bubble (2D)]."""
+        tdim = mesh.tdim
+        nv = mesh.num_vertices()
+        nc = mesh.num_cells()
+        if tdim == 1:
+            ne = nc
+            ce = np.arange(nc, dtype=np.int64)[:, None]
+            ev = mesh.cells_array
+            bub = np.zeros((nc, 0), dtype=np.int64)
+            nb = 0
+            bub_coords = np.zeros((0, mesh.gdim))
+        else:
+            ce = mesh.cell_edges()
+            ne = mesh.num_edges()
+            ev = mesh.edges()
+            if tdim == 3:
+                bub = mesh.cell_facets().astype(np.int64)
+                nb = mesh.num_facets()
+                bub_coords = mesh.coords[mesh.facets()].mean(axis=1)
+            else:
+                bub = np.arange(nc, dtype=np.int64)[:, None]
+                nb = nc
+                bub_coords = mesh.coords[mesh.cells_array].mean(axis=1)
+        edge_pair = np.stack([nv + 2 * ce, nv + 2 * ce + 1], axis=2).reshape(
+            len(ce), -1
+        )
+        self.cell_dofs = np.concatenate(
+            [mesh.cells_array, edge_pair, nv + 2 * ne + bub], axis=1
+        ).astype(np.int32)
+        self.ndof = nv + 2 * ne + nb
+        e3 = np.empty((2 * ne, mesh.gdim))
+        e3[0::2] = (2 * mesh.coords[ev[:, 0]] + mesh.coords[ev[:, 1]]) / 3.0
+        e3[1::2] = (mesh.coords[ev[:, 0]] + 2 * mesh.coords[ev[:, 1]]) / 3.0
+        self.dof_coords = np.concatenate([mesh.coords, e3, bub_coords], axis=0)
 
     def num_dofs(self):
         return self.ndof
@@ -101,9 +159,49 @@ class FunctionSpace:
         return self.element
 
     def facet_dofs(self, facet_ids):
-        """All dofs living on the given facets (P1: the facet vertices)."""
-        fv = self.mesh.facets()[facet_ids]
-        return np.unique(fv.ravel()).astype(np.int32)
+        """All dofs living on the given facets: vertices, and for P2/P3 the
+        facet edges' dofs and (3D P3) the facet bubble."""
+        mesh = self.mesh
+        fv = mesh.facets()[facet_ids]
+        dofs = [np.unique(fv.ravel())]
+        if self.degree >= 2 and mesh.tdim >= 2:
+            edge_lookup = self._edge_lookup()
+            nvert = fv.shape[1]
+            eids = []
+            for a in range(nvert):
+                for b in range(a + 1, nvert):
+                    key = np.stack(
+                        [np.minimum(fv[:, a], fv[:, b]), np.maximum(fv[:, a], fv[:, b])],
+                        axis=1,
+                    )
+                    eids.append(edge_lookup(key))
+            eu = np.unique(np.concatenate(eids))
+            nv = mesh.num_vertices()
+            if self.degree == 2:
+                dofs.append(nv + eu)
+            else:
+                dofs.append(np.stack([nv + 2 * eu, nv + 2 * eu + 1], 1).ravel())
+                if mesh.tdim == 3:
+                    dofs.append(
+                        nv + 2 * mesh.num_edges() + np.asarray(facet_ids, dtype=np.int64)
+                    )
+        return np.unique(np.concatenate(dofs)).astype(np.int32)
+
+    def _edge_lookup(self):
+        """Edge ids of (lower, upper) vertex pairs, by a sorted key search."""
+        if not hasattr(self, "_edge_keys_sorted"):
+            ev = self.mesh.edges()
+            key = ev[:, 0].astype(np.int64) * self.mesh.num_vertices() + ev[:, 1]
+            order = np.argsort(key)
+            self._edge_keys_sorted = key[order]
+            self._edge_ids_sorted = order.astype(np.int32)
+
+        def lookup(pairs):
+            k = pairs[:, 0].astype(np.int64) * self.mesh.num_vertices() + pairs[:, 1]
+            pos = np.searchsorted(self._edge_keys_sorted, k)
+            return self._edge_ids_sorted[pos]
+
+        return lookup
 
     def vertex_dofs(self, vertex_ids):
         return np.asarray(vertex_ids, dtype=np.int32)
@@ -136,7 +234,13 @@ class VectorFunctionSpace:
 
     def __init__(self, mesh: Mesh, family="CG", degree=1, dim=None,
                  constrained_domain=None):
-        # the scalar space raises for P2+, DG and periodic constraints
+        if int(degree) != 1:
+            raise NotImplementedError(
+                f"vector P{int(degree)} spaces are not ported to "
+                "fenicssolver_tpu_torch yet (vector P1 only); they come with "
+                "the elasticity solvers (see ROADMAP.md)"
+            )
+        # the scalar space raises for DG and periodic constraints
         self.scalar_space = FunctionSpace(mesh, family, degree, constrained_domain)
         s = self.scalar_space
         self.mesh = mesh

@@ -4,7 +4,11 @@
 and runs the solve; ``load_settings`` accepts a dict or a JSON file path.
 ``python -m fenicssolver_tpu_torch case.json`` works via ``__main__.py``;
 the device is ``device=`` or ``FST_DEVICE`` (default ``cuda``;
-``FST_DEVICE=cpu`` for the CPU).
+``FST_DEVICE=cpu`` for the CPU).  A run prints one summary line (for a
+transient run: the steps taken and the last step's iterations); with
+``report_settings.saving_freq > 0`` the final result is saved to
+``report_settings.result_filename`` (default ``result_file.pvd``) unless
+the time loop saved that step already.
 """
 
 from __future__ import annotations
@@ -71,17 +75,24 @@ def main(case_input, device=None):
     t0 = _time.perf_counter()
     solver.solve()
     wall = _time.perf_counter() - t0
+    sf = solver.report_settings.get("saving_freq")
+    last_step = solver.steps_taken - 1
+    if sf and sf > 0 and getattr(solver, "_last_saved_step", None) != last_step:
+        solver.save(solver.result_filename())
     ndof = getattr(getattr(solver, "function_space", None), "ndof", None)
     iters = getattr(solver, "last_iterations", None)
     iter_txt = (
         "direct solve" if iters == "direct"
         else f"{iters if iters is not None else 'n/a'} iterations"
     )
+    if solver.transient_settings["transient"]:
+        iter_txt = f"{solver.steps_taken} time steps, last step {iter_txt}"
+    saved = getattr(solver, "_last_saved_path", None)
     print(
         f"[fenicssolver_tpu_torch] {solver_name}: solved "
         f"{ndof if ndof is not None else '?'} dofs on {solver.device}, "
         f"{iter_txt}, {wall:.3f} s, result: "
-        "(not saved; set report_settings.saving_freq)"
+        f"{saved or '(not saved; set report_settings.saving_freq)'}"
     )
     if settings.get("report_settings", {}).get("plotting_interactive"):
         solver.plot()

@@ -11,6 +11,10 @@ residual kernels over cell/facet batches:
   ``index_add_`` into a static CSR pattern
 * linear problems: A = J(0), b = -R(0)  (forms are affine in u)
 
+Both assemblers read ``term.aux`` when called and keep no copy of it, so a
+caller may swap an aux tensor in place between calls (the cached transient
+form refreshes its lagged solution so, and bumps ``Form.aux_version``).
+
 Cells are processed in chunks of ``CHUNK_CELLS`` so the batched forward-mode
 intermediates stay bounded on the device (the Jacobian of a P1 tet kernel
 holds a few hundred values per cell per tangent).  On CUDA, ``index_add_``
@@ -60,6 +64,7 @@ class Form:
     cell_terms: list = field(default_factory=list)
     facet_terms: list = field(default_factory=list)
     pattern: Any = None
+    aux_version: int = 0  # bumped on an in-place ``term.aux`` refresh
 
     def finalize(self):
         """Build the CSR pattern covering all terms and fill slot maps, on
@@ -189,6 +194,11 @@ def constrained_operator(matvec, free_mask):
 
 def constrained_rhs(matvec, b, free_mask, u_bc):
     return free_mask * (b - matvec(u_bc)) + (1.0 - free_mask) * u_bc
+
+
+def constrain_residual(R, u, free_mask, u_bc):
+    """Nonlinear residual with Dirichlet rows replaced by (u - u_bc)."""
+    return free_mask * R + (1.0 - free_mask) * (u - u_bc)
 
 
 def constrain_csr(A: CSRMatrix, free_mask):

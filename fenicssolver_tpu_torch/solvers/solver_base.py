@@ -1,20 +1,23 @@
-"""Shared solver base: settings schema, value translation, the steady solve
-loop and the algebraic solve dispatch.
+"""Shared solver base: settings schema, value translation, the time loop
+and the algebraic solve dispatch.
 
-Port of ``fenicssolver_tpu/solvers/solver_base.py``, trimmed to what the
-steady linear path uses: settings, mesh and space loading (``:118-258``),
-``translate_value`` and the boundary helpers, ``init_solver`` and the steady
-``solve_transient``/``solve`` loop, ``solve_linear_problem`` (serial) and
-``solve_static``: a dense LU below ``DENSE_LIMIT``, Jacobi-CG, and CG
-preconditioned by the geometric multigrid V-cycle on BoxMesh lattices
-(``:1038-1073``).
+Port of ``fenicssolver_tpu/solvers/solver_base.py``, serial branches only:
+settings, mesh and space loading (``:118-258``), ``translate_value`` (with
+per-step time series) and the boundary helpers, the time loop
+(``:385-547``: ``get_time_step`` with ``time_series``, ``get_acceleration``,
+``init_solver``, ``solve_current_step`` with the cached transient form,
+``solve_transient``, ``save`` through ``io/meshio.PVDFile``),
+``solve_linear_problem``, ``solve_nonlinear_problem`` (Newton) and
+``solve_static`` (``:839-1149``): a dense LU below ``DENSE_LIMIT``; for SPD
+systems Jacobi-CG, or CG preconditioned by the geometric multigrid V-cycle
+on BoxMesh lattices; for the others Jacobi-BiCGStab, then GMRES(80) when
+BiCGStab breaks down or stalls.
 
 Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cuda``);
 tensors are created there in ``config.default_float()``.  Features outside
-the slice raise ``NotImplementedError`` naming the module that will bring
-them: transient runs, Newton solves, ``"amg"``, ``distributed``.
-``spmv: "bell"`` (the reference's default, a block-ELL layout) maps to the
-CSR matvec.
+the port raise ``NotImplementedError`` naming the module that will bring
+them: ``"amg"``, ``distributed``, periodic constraints.  ``spmv: "bell"``
+(the reference's default, a block-ELL layout) maps to the CSR matvec.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..core.spaces import FunctionSpace
 from ..la import krylov
 from ..la.direct import DENSE_LIMIT, dense_solve
 from ..la.krylov import SolverError
+from ..la.newton import newton_solve
 from ..ops import assembly
 from ..utils.timers import PhaseTimers
 
@@ -217,17 +221,23 @@ class SolverBase:
         """Translate JSON-able values into evaluable coefficients.
 
         numbers -> float; str -> Expression; tuple of numbers -> Constant
-        vector (reference semantics, ``SolverBase.py:349-393``)."""
+        vector; in a transient run a longer sequence is a per-step time
+        series and a callable a function of time (reference semantics,
+        ``SolverBase.py:349-393``)."""
         if isinstance(value, (tuple, list, np.ndarray)):
             if len(value) == self.dimension and isinstance(value[0], numbers.Number):
                 return Constant(tuple(float(v) for v in value))
             if len(value) == self.dimension and isinstance(value[0], str):
                 return Expression(tuple(value), degree=self.settings["fe_degree"])
+            if self.transient_settings["transient"] and len(value) > self.dimension:
+                return self.translate_value(value[self.current_step], function_space)
             raise SolverError(f"cannot translate sequence value: {value!r}")
         if isinstance(value, numbers.Number):
             return float(value)
         if isinstance(value, (Constant, Function, Expression)):
             return value
+        if callable(value) and self.transient_settings["transient"]:
+            return self.translate_value(value(self.get_current_time()))
         if isinstance(value, str):
             if os.path.exists(value):
                 raise not_ported("restart values from a file", "io/checkpoint.py")
@@ -273,7 +283,11 @@ class SolverBase:
             return Function(self.function_space)
         v0 = self.initial_values.get(self.get_variable_name(), 0)
         if isinstance(v0, Function):
-            return Function(v0)
+            if v0.space.ndof == self.function_space.ndof:
+                return Function(v0)
+            from ..ops.pointlocate import interpolate_nonmatching_mesh
+
+            return interpolate_nonmatching_mesh(v0, self.function_space)
         return interpolate(self._as_interp(v0), self.function_space)
 
     def _as_interp(self, v0):
@@ -285,15 +299,41 @@ class SolverBase:
             return Expression(tuple(v0), degree=self.settings["fe_degree"])
         return v0
 
+    def get_time_step(self, time_iter_):
+        ts = self.transient_settings
+        if "time_step" in ts and ts["time_step"] is not None:
+            try:
+                return float(ts["time_step"])
+            except (TypeError, ValueError):
+                pass
+        series = ts.get("time_series")
+        if series is not None and len(series) > time_iter_ + 1:
+            # the reference's dt was always 0 here (SolverBase.py:447)
+            return float(series[time_iter_ + 1] - series[time_iter_])
+        raise SolverError("time step must be a scalar or a time_series sequence")
+
     def get_current_time(self, time_iter_=None):
         if time_iter_ is None:
             time_iter_ = getattr(self, "current_step", 0)
         ts = self.transient_settings
+        series = ts.get("time_series")
+        if series is not None and len(series) > time_iter_:
+            return float(series[time_iter_])
         dt = float(ts.get("time_step", 0.0) or 0.0)
         return float(ts.get("starting_time", 0.0)) + dt * time_iter_
 
+    def get_acceleration(self, time_iter_):
+        """2nd-order acceleration from the history (the reference's final
+        division is inverted, ``SolverBase.py:482``)."""
+        assert time_iter_ >= 1
+        dt = self.get_time_step(time_iter_)
+        dt_prev = self.get_time_step(max(time_iter_ - 1, 0))
+        vel = (self.w_current.values - self.w_prev.values) / dt
+        vel_prev = (self.w_prev.values - self.w_pp.values) / dt_prev
+        return (vel - vel_prev) / dt
+
     # ------------------------------------------------------------------
-    # the (steady) solve loop (reference ``SolverBase.py:492-542``)
+    # the time loop (reference ``SolverBase.py:492-542``)
     # ------------------------------------------------------------------
     def init_solver(self):
         self.trial_function = None  # placeholders: forms are numeric kernels
@@ -301,17 +341,68 @@ class SolverBase:
         self.w_current = self.get_initial_field()
         self.w_prev = Function(self.function_space)
         self.w_prev.assign(self.w_current)
+        self.w_pp = Function(self.function_space)
+        self.w_pp.assign(self.w_current)
+
+    #: aux keys holding the lagged solution gather (refreshable between
+    #: steps without a form rebuild): the CN history of scalar transport
+    _HISTORY_AUX = ("Tprev",)
+
+    def _cached_form_eligible(self):
+        """Transient form caching (``solver_parameters.cache_transient_form``)
+        skips the per-step ``generate_form`` (tabulation, geometry contexts,
+        the CSR pattern) and refreshes only the history aux tensors.  Opt-in,
+        valid when the form is step-invariant: fixed dt (no ``time_series``),
+        no mesh motion, time-constant boundary and source values (the user
+        asserts the last; the first two are checked)."""
+        if not self._solver_params().get("cache_transient_form"):
+            return False
+        ts = self.transient_settings
+        if not ts.get("transient") or "time_series" in ts:
+            return False
+        return not self.settings.get("reference_frame_settings")
+
+    def _refresh_cached_form(self, form):
+        """Swap the lagged-solution aux of every term for a gather of the
+        last computed solution, in place, and bump ``form.aux_version``."""
+        lag = torch.as_tensor(self.w_current.values, dtype=self.dtype,
+                              device=self.device)
+        for term in form.cell_terms + form.facet_terms:
+            if term.aux is None:
+                continue
+            for key in self._HISTORY_AUX:
+                if key in term.aux:
+                    term.aux[key] = lag[term.ctx.cell_dofs]
+        form.aux_version += 1
 
     def solve_current_step(self):
-        with self.timers.phase("form"):
-            F, Dirichlet_bcs = self.generate_form(
-                self.current_step,
-                self.trial_function,
-                self.test_function,
-                self.w_current,
-                self.w_current,
-            )
+        # The lagged state of this step is the last computed solution, i.e.
+        # w_current at form-build time (the reference rotates w_prev before
+        # solving and relies on deferred UFL evaluation, SolverBase.py:484-490).
+        # History rotates after the solve, so get_acceleration sees
+        # T_k, T_{k-1}, T_{k-2}.
+        prev_snapshot = self.w_current.values.copy()
+        cache = getattr(self, "_transient_form_cache", None)
+        if self._cached_form_eligible() and cache is not None:
+            with self.timers.phase("form_cache_refresh"):
+                F, Dirichlet_bcs = cache
+                self._refresh_cached_form(F[0] if isinstance(F, tuple) else F)
+        else:
+            with self.timers.phase("form"):
+                F, Dirichlet_bcs = self.generate_form(
+                    self.current_step,
+                    self.trial_function,
+                    self.test_function,
+                    self.w_current,
+                    self.w_current,
+                )
+            # cache only once the step-1 structure exists (dynamics forms
+            # gain the inertia term at time_iter_ >= 1)
+            if self._cached_form_eligible() and self.current_step >= 1:
+                self._transient_form_cache = (F, Dirichlet_bcs)
         self.w_current = self.solve_form(F, self.w_current, Dirichlet_bcs)
+        self.w_pp.assign(self.w_prev)
+        self.w_prev.values[:] = prev_snapshot
         if not np.isfinite(self.w_current.values).all():
             raise SolverError(
                 f"{self.__class__.__name__}: solve produced non-finite values "
@@ -320,22 +411,39 @@ class SolverBase:
         self.result = self.w_current
 
     def solve_transient(self):
+        """The time loop: one ``solve_current_step`` a step until
+        ``ending_time`` (one step for a steady run), saving every
+        ``saving_freq`` steps (step 0 excluded, as in the reference)."""
         import time as _time
 
-        if self.transient_settings["transient"]:
-            raise not_ported(
-                "transient runs", "solvers/scalar_transport.py's time loop and "
-                "solvers/fast_paths.py"
-            )
         self.init_solver()
-        self.current_time = self.transient_settings.get("starting_time", 0.0)
+        ts = self.transient_settings
+        self.current_time = ts.get("starting_time", 0.0)
         self.current_step = 0
+        self.steps_taken = 0
+        t_end = ts["ending_time"] if ts["transient"] else self.current_time + 1
+        sf = self.report_settings.get("saving_freq")
         t0 = _time.perf_counter()
-        self.solve_current_step()
-        self.logger.info(
-            "Current step = %d time = %g elapsed = %.3fs",
-            self.current_step, self.current_time, _time.perf_counter() - t0,
-        )
+        while self.current_time < t_end:
+            dt = self.get_time_step(self.current_step) if ts["transient"] else 1.0
+            self.solve_current_step()
+            self.steps_taken += 1
+            self.logger.info(
+                "Current step = %d time = %g elapsed = %.3fs",
+                self.current_step,
+                self.current_time + (dt if ts["transient"] else 0.0),
+                _time.perf_counter() - t0,
+            )
+            pf = self.report_settings.get("plotting_freq")
+            if pf and pf > 0 and self.current_step > 0 and self.current_step % pf == 0:
+                if self.report_settings.get("plotting_interactive"):
+                    self.plot()
+            if sf and sf > 0 and self.current_step > 0 and self.current_step % sf == 0:
+                self.save(self.result_filename())
+            if not ts["transient"]:
+                break
+            self.current_step += 1
+            self.current_time += dt
         self.timers.report(self.logger)
         return self.w_current
 
@@ -353,8 +461,20 @@ class SolverBase:
             "(utils/plotting.py); skipped"
         )
 
+    def result_filename(self):
+        return self.report_settings.get("result_filename") or "result_file.pvd"
+
     def save(self, result_filename):
-        raise not_ported("saving results", "io/meshio.py's VTU/PVD writers")
+        """Append ``w_current`` at the current time to the PVD time series
+        ``result_filename`` (one VTU a call)."""
+        from ..io.meshio import PVDFile
+
+        self._last_saved_path = result_filename
+        self._last_saved_step = getattr(self, "current_step", 0)
+        stream = getattr(self, "_result_stream", None)
+        if stream is None or stream.filename != result_filename:
+            self._result_stream = PVDFile(result_filename)
+        self._result_stream.write(self.w_current, getattr(self, "current_time", 0.0))
 
     # ------------------------------------------------------------------
     # algebraic solve dispatch (reference ``SolverBase.py:592-672``)
@@ -364,24 +484,24 @@ class SolverBase:
         sp.update(self.solver_settings.get("solver_parameters", {}))
         return sp
 
-    def _check_ported(self, sp, spd):
+    def _check_ported(self, sp):
         if sp.get("distributed"):
             raise not_ported("solver_parameters.distributed", "parallel/")
         if sp.get("preconditioner") == "amg":
             raise not_ported("preconditioner='amg'", "la/amg.py")
-        if not spd:
-            raise not_ported(
-                "non-symmetric solves (BiCGStab/GMRES)", "the rest of la/krylov.py"
-            )
 
     def solve_static(self, A, b, dirichlet, x0=None, spd=True):
         """Solve A u = b with Dirichlet data applied symmetrically.
 
-        Small systems use a dense LU; larger SPD systems use CG,
+        Small systems use a dense LU.  Larger SPD systems use CG,
         preconditioned by Jacobi or (``preconditioner = "gmg"`` on a BoxMesh
-        lattice) by the geometric multigrid V-cycle."""
+        lattice) by the geometric multigrid V-cycle; the others use
+        Jacobi-BiCGStab and, when its relative residual is above
+        ``10 * tol`` or not finite, Jacobi-GMRES(80) at ``maxiter // 10``
+        restarts (reference ``:1110-1141``).  ``last_krylov`` names the
+        method that produced the result."""
         sp = self._solver_params()
-        self._check_ported(sp, spd)
+        self._check_ported(sp)
         n = A.pattern.n
         if dirichlet is not None and dirichlet.any:
             free, ubc = dirichlet.free_mask, dirichlet.u_bc
@@ -398,33 +518,50 @@ class SolverBase:
             with self.timers.phase("dense_solve"):
                 Ac = assembly.constrain_csr(A, free)
                 self.last_iterations = "direct"
+                self.last_krylov = "direct"
                 return dense_solve(Ac, rhs)
         op = assembly.constrained_operator(A.matvec, free)
         diag = free * A.diagonal() + (1.0 - free)
         M = krylov.jacobi_preconditioner(diag)
         if sp.get("preconditioner") == "gmg":
-            M = self._gmg_preconditioner(free) or M
+            M = self._gmg_preconditioner(free, spd) or M
         tol = sp.get("relative_tolerance", 1e-8)
         maxiter = sp.get("maximum_iterations", 2000)
         with self.timers.phase("krylov"):
-            x, it, res = krylov.cg(op, rhs, x0=x0, M=M, tol=tol, maxiter=maxiter)
+            if spd:
+                self.last_krylov = "CG"
+                x, it, res = krylov.cg(op, rhs, x0=x0, M=M, tol=tol, maxiter=maxiter)
+            else:
+                self.last_krylov = "BiCGStab"
+                x, it, res = krylov.bicgstab(op, rhs, x0=x0, M=M, tol=tol,
+                                             maxiter=maxiter)
+                if not res <= tol * 10:  # a breakdown (NaN) or a stall
+                    self.logger.info(
+                        "BiCGStab ended at rel residual %.3e after %d iters; "
+                        "restarted GMRES(80)", res, it,
+                    )
+                    self.last_krylov = "GMRES"
+                    x, it, res = krylov.gmres(op, rhs, x0=x0, M=M, tol=tol,
+                                              restart=80, maxiter=maxiter // 10)
         self.last_iterations = int(it)
         self.last_relres = float(res)
         if sp.get("monitor_convergence"):
-            self.logger.info("Krylov solve: %d iters, rel residual %.3e", it, res)
+            self.logger.info("Krylov solve (%s): %d iters, rel residual %.3e",
+                             self.last_krylov, it, res)
         return x
 
-    def _gmg_preconditioner(self, free):
-        """The V-cycle on BoxMesh lattices (scalar P1), or None with a
-        warning when the mesh cannot take it (reference ``:1038-1078``)."""
+    def _gmg_preconditioner(self, free, spd=True):
+        """The V-cycle on BoxMesh lattices (SPD systems, scalar P1), or None
+        with a warning when the system or mesh cannot take it (reference
+        ``:1038-1078``)."""
         info = getattr(self.mesh, "lattice_info", None)
         V = self.function_space
         coarsenable = info is not None and (
             all(nn % 2 == 0 for nn in info["n"])
             or int(np.prod([nn + 1 for nn in info["n"]])) <= 800
         )  # odd n cannot coarsen: the "coarse" dense solve would be huge
-        if not (coarsenable and type(V) is FunctionSpace and V.degree == 1
-                and V.family == "CG"):
+        if not (spd and coarsenable and type(V) is FunctionSpace
+                and V.degree == 1 and V.family == "CG"):
             self.logger.warning(
                 "preconditioner=gmg needs a scalar P1 space on a BoxMesh "
                 "lattice; falling back to Jacobi"
@@ -456,7 +593,51 @@ class SolverBase:
         return u
 
     def solve_nonlinear_problem(self, form, u_current, dirichlet, spd=False):
-        raise not_ported("Newton solves", "la/newton.py")
+        """Newton with the autodiff Jacobian (reference ``:1215-1331``,
+        serial branch): dense LU below ``DENSE_LIMIT``, else Jacobi-CG
+        (``spd``) or Jacobi-GMRES(80) to 1e-10 for each update."""
+        sp = self._solver_params()
+        self._check_ported(sp)
+        free = dirichlet.free_mask if dirichlet and dirichlet.any else None
+        ubc = dirichlet.u_bc if dirichlet and dirichlet.any else None
+
+        def residual(u):
+            R = assembly.assemble_residual(form, u)
+            if free is not None:
+                R = assembly.constrain_residual(R, u, free, ubc)
+            return R
+
+        def jacobian(u):
+            return assembly.assemble_jacobian(form, u)
+
+        def lin_solve(J, rhs):
+            n = J.pattern.n
+            fm = free if free is not None else torch.ones_like(rhs)
+            if n <= DENSE_LIMIT:
+                return dense_solve(assembly.constrain_csr(J, fm), rhs)
+            # zero the constrained rows: the update leaves Dirichlet dofs
+            # exactly at their values whatever the start point
+            op = assembly.constrained_operator(J.matvec, fm)
+            M = krylov.jacobi_preconditioner(fm * J.diagonal() + (1.0 - fm))
+            if spd:
+                x, _, _ = krylov.cg(op, fm * rhs, M=M, tol=1e-10, maxiter=5000)
+            else:
+                x, _, _ = krylov.gmres(op, fm * rhs, M=M, tol=1e-10,
+                                       restart=80, maxiter=200)
+            return x
+
+        u0 = torch.as_tensor(u_current.values, dtype=self.dtype, device=self.device)
+        if free is not None:  # start from a state that meets the constraints
+            u0 = free * u0 + (1 - free) * ubc
+        x, its, _ = newton_solve(
+            residual, jacobian, lin_solve, u0,
+            rtol=sp.get("relative_tolerance", 1e-9), atol=1e-10,
+            maxiter=sp.get("maximum_iterations", 50),
+            logger=self.logger if sp.get("monitor_convergence") else None,
+        )
+        self.last_iterations = int(its)
+        u_current.values = x.cpu().numpy().astype(np.float64)
+        return u_current
 
     def solve_amg(self, form, u, dirichlet):
         raise not_ported("AMG-preconditioned solves", "la/amg.py")

@@ -169,3 +169,109 @@ def test_vector_space_cell_context_matches_interop():
     for f in ("Xe", "detJ", "Jinv", "qpx"):
         a, b = getattr(sub, f), getattr(tc, f)[rows]
         assert float((a - b).abs().max()) <= 1e-15 * float(b.abs().max()), f
+
+
+@pytest.mark.parametrize("degree", [2, 3])
+@pytest.mark.parametrize("mesh", ["cube", "box", "square", "interval"])
+def test_p2_p3_dof_maps_and_facet_dofs_match(mesh, degree):
+    """CG P2/P3 dof maps (vertices, edge dofs near the lower vertex first,
+    face/cell bubbles) and facet dofs through the edge lookup."""
+    def make(core):
+        return {"cube": lambda: core.UnitCubeMesh(3, 2, 2),
+                "box": lambda: core.BoxMesh((0, 0, 0), (1.0, 0.7, 1.3), 2, 3, 2),
+                "square": lambda: core.UnitSquareMesh(4, 3, diagonal="crossed"),
+                "interval": lambda: core.UnitIntervalMesh(5)}[mesh]()
+
+    jm, tm = make(jcore), make(tcore)
+    jV = jcore.FunctionSpace(jm, "CG", degree)
+    tV = tcore.FunctionSpace(tm, "CG", degree)
+    assert (tV.ndof, tV.ndof_el, tV.degree) == (jV.ndof, jV.ndof_el, degree)
+    _same(tV.cell_dofs, jV.cell_dofs)
+    _same(tV.dof_coords, jV.dof_coords)
+    ext = jm.exterior_facets()
+    for ids in (ext, ext[::3], ext[:1]):
+        _same(tV.facet_dofs(ids), jV.facet_dofs(ids))
+    with pytest.raises(ValueError):
+        tcore.FunctionSpace(tm, "CG", 4)
+
+
+def test_p3_cube_counts():
+    """P3 on UnitCubeMesh(2): vertices + 2 per edge + 1 per face."""
+    m = tcore.UnitCubeMesh(2, 2, 2)
+    V = tcore.FunctionSpace(m, "CG", 3)
+    assert V.ndof == m.num_vertices() + 2 * m.num_edges() + m.num_facets()
+    assert V.cell_dofs.shape == (m.num_cells(), 20)
+    assert len(np.unique(V.cell_dofs)) == V.ndof
+
+
+def test_point_location_and_nonmatching_interpolation_match():
+    """ops/pointlocate: cells and barycentric coordinates of points (inside,
+    on a facet, outside), point evaluation of P1/P2 functions, and
+    interpolation between meshes."""
+    from fenicssolver_tpu.ops import pointlocate as jpl
+
+    from fenicssolver_tpu_torch.ops import pointlocate as tpl
+
+    jm, tm = jcore.UnitCubeMesh(3, 3, 2), tcore.UnitCubeMesh(3, 3, 2)
+    pts = np.array([[0.2, 0.3, 0.4], [0.5, 0.5, 0.5], [1 / 3, 0.0, 0.7],
+                    [1.2, 0.5, 0.5]])
+    jc, jb = jpl.locate_cells(jm, pts)
+    tc, tb = tpl.locate_cells(tm, pts)
+    _same(tc, jc)
+    np.testing.assert_allclose(tb, jb, rtol=0, atol=1e-15)
+    code = "1 + x[0] + 2*x[1]*x[1] - x[2]"
+    for deg in (1, 2):
+        jf = jcore.interpolate(jcore.Expression(code, degree=2),
+                               jcore.FunctionSpace(jm, "CG", deg))
+        tf = tcore.interpolate(tcore.Expression(code, degree=2),
+                               tcore.FunctionSpace(tm, "CG", deg))
+        np.testing.assert_allclose(tf.eval_at(pts), jpl.eval_function_at_points(jf, pts),
+                                   rtol=1e-14, atol=0)
+        assert tf(0.2, 0.3, 0.4) == pytest.approx(float(jf((0.2, 0.3, 0.4))), abs=1e-13)
+    # P2 reproduces the quadratic exactly inside the cube
+    assert tf((0.2, 0.3, 0.4)) == pytest.approx(1 + 0.2 + 2 * 0.09 - 0.4, abs=1e-12)
+    jt = jcore.interpolate(jf, jcore.FunctionSpace(jcore.UnitCubeMesh(2, 2, 2), "CG", 1))
+    tt = tcore.interpolate(tf, tcore.FunctionSpace(tcore.UnitCubeMesh(2, 2, 2), "CG", 1))
+    np.testing.assert_allclose(tt.values, jt.values, rtol=1e-14, atol=0)
+
+
+def test_vtu_pvd_and_xml_writers_match(tmp_path):
+    """The VTU/PVD writers produce the JAX writer's files for the same
+    function (P1 and P2: vertex values only); the dolfin XML writers round
+    trip through the readers."""
+    from fenicssolver_tpu.io import meshio as jio
+
+    from fenicssolver_tpu_torch.io import meshio as tio
+
+    for deg in (1, 2):
+        jm, tm = jcore.UnitCubeMesh(2, 2, 1), tcore.UnitCubeMesh(2, 2, 1)
+        code = "300 + 60*x[2] + sin(x[0])"
+        jf = jcore.interpolate(jcore.Expression(code, degree=1),
+                               jcore.FunctionSpace(jm, "CG", deg))
+        tf = tcore.interpolate(tcore.Expression(code, degree=1),
+                               tcore.FunctionSpace(tm, "CG", deg))
+        jf.rename("temperature")
+        tf.rename("temperature")
+        files = {}
+        for tag, io_, fn in (("j", jio, jf), ("t", tio, tf)):
+            d = tmp_path / f"{tag}{deg}"
+            d.mkdir()
+            pvd = io_.PVDFile(str(d / "result.pvd"))
+            pvd << (fn, 0.0)
+            pvd.write(fn, 0.5)
+            files[tag] = {p.name: p.read_text() for p in sorted(d.iterdir())}
+        assert files["t"] == files["j"]
+        assert sorted(files["t"]) == ["result.pvd", "result000000.vtu",
+                                      "result000001.vtu"]
+    jm, tm = jcore.UnitCubeMesh(2, 1, 1), tcore.UnitCubeMesh(2, 1, 1)
+    tio.write_dolfin_xml(str(tmp_path / "t.xml"), tm)
+    jio.write_dolfin_xml(str(tmp_path / "j.xml"), jm)
+    assert (tmp_path / "t.xml").read_text() == (tmp_path / "j.xml").read_text()
+    back = tcore.Mesh(filename=str(tmp_path / "t.xml"))
+    _same(back.cells_array, tm.cells_array)
+    np.testing.assert_array_equal(back.coords, tm.coords)
+    mf = tcore.MeshFunction("size_t", tm, 2)
+    tcore.AutoSubDomain(lambda x: tcore.near(x[2], 0.0)).mark(mf, 4)
+    tio.write_mesh_function_xml(str(tmp_path / "t_facet_region.xml"), mf)
+    again = tcore.MeshFunction("size_t", back, str(tmp_path / "t_facet_region.xml"))
+    _same(again.values, mf.values)

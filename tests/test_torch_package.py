@@ -32,6 +32,7 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.main",
     "fenicssolver_tpu_torch.core",
     "fenicssolver_tpu_torch.io.meshio",
+    "fenicssolver_tpu_torch.ops.pointlocate",
     "fenicssolver_tpu_torch.ops.structured",
     "fenicssolver_tpu_torch.ops.geometry",
     "fenicssolver_tpu_torch.ops.assembly",
@@ -44,6 +45,7 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.la.sparse",
     "fenicssolver_tpu_torch.la.direct",
     "fenicssolver_tpu_torch.la.krylov",
+    "fenicssolver_tpu_torch.la.newton",
     "fenicssolver_tpu_torch.la.gmg",
     "fenicssolver_tpu_torch.utils.timers",
     "fenicssolver_tpu_torch.solvers.solver_base",
@@ -209,16 +211,8 @@ def _settings(V, **extra):
     return s
 
 
-@pytest.mark.parametrize(
-    "change",
-    ["transient", "advection", "radiation", "nonlinear", "amg", "distributed",
-     "point_source"],
-)
-def test_unported_features_raise(change):
+def _feature_settings(change):
     from fenicssolver_tpu_torch.core import AutoSubDomain, near
-    from fenicssolver_tpu_torch.solvers.scalar_transport import (
-        ScalarTransportSolver,
-    )
 
     V = FunctionSpace(UnitSquareMesh(4, 4), "CG", 1)
     bottom = AutoSubDomain(lambda x: near(x[1], 0.0))
@@ -242,18 +236,49 @@ def test_unported_features_raise(change):
         sp["distributed"] = True
     elif change == "point_source":
         s["point_source"] = [((0.5, 0.5), 1.0)]
+    elif change == "restart_file":
+        s["initial_values"] = {"temperature": os.path.join(REPO, "data",
+                                                           "mesh.xml")}
+    return s
+
+
+@pytest.mark.parametrize("change", ["amg", "distributed", "restart_file"])
+def test_unported_features_raise(change):
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
     with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
-        ScalarTransportSolver(s).solve()
+        ScalarTransportSolver(_feature_settings(change)).solve()
 
 
 @pytest.mark.parametrize(
-    "what", ["P2", "DG", "vector", "vector_sub", "vector_periodic", "mixed", "xdmf"]
+    "change", ["transient", "advection", "radiation", "nonlinear", "point_source"]
+)
+def test_formerly_unported_features_run(change):
+    """What raised before the scalar extensions were ported now solves."""
+    import numpy as np
+
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    solver = ScalarTransportSolver(_feature_settings(change))
+    T = solver.solve().values
+    assert np.isfinite(T).all()
+    dofs = solver.function_space.facet_dofs(solver.boundary_facet_ids(1))
+    assert dofs.size and np.allclose(T[dofs], 300.0)
+
+
+@pytest.mark.parametrize(
+    "what", ["P2_periodic", "DG", "vector", "vector_sub", "vector_periodic",
+             "mixed", "xdmf"]
 )
 def test_unported_spaces_and_readers_raise(what, tmp_path):
     mesh = UnitCubeMesh(2, 2, 2)
     with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
-        if what == "P2":
-            FunctionSpace(mesh, "CG", 2)
+        if what == "P2_periodic":  # P2 is ported; periodic maps are not
+            FunctionSpace(mesh, "CG", 2, constrained_domain=object())
         elif what == "DG":
             FunctionSpace(mesh, "DG", 1)
         elif what == "vector":  # P1 is ported; P2 is not
