@@ -42,7 +42,9 @@ non-zero and no result line is printed):
 6d. Newton at n = 48: k(T) against its closed form to 2e-5; radiation with
    a point source (and the same at n = 12 on the card and the CPU, 1e-8);
 6e. saving: one transient step at n = 16 with ``saving_freq: 1``; the PVD
-   and VTU parse and hold T;
+   and VTU parse and hold T; then a transient copy of the JSON case, P1 and
+   P2, through ``python -m fenicssolver_tpu_torch`` with ``FST_DEVICE``
+   unset runs on the card;
 7. a body-source case at n=32 whose CUDA solve must match the CPU solve;
 8. the bundled JSON case ``data/TestHeatTransfer.json`` on the card;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
@@ -1457,6 +1459,35 @@ def phase_save(device="cuda", n=16):
     check(err <= 1e-11, f"saved point data rel err {err}")
 
 
+def phase_transient_cli():
+    """A transient copy of ``data/TestHeatTransfer.json`` (the file is not
+    edited), P1 and P2, through ``python -m fenicssolver_tpu_torch`` with
+    ``FST_DEVICE`` unset: each runs its three steps on the card."""
+    import tempfile
+
+    from fenicssolver_tpu_torch.main import load_settings
+
+    env = {k: v for k, v in os.environ.items() if k != "FST_DEVICE"}
+    env["PYTHONPATH"] = HERE
+    for degree in (1, 2):
+        settings = load_settings(os.path.join(HERE, "data", "TestHeatTransfer.json"))
+        settings["fe_degree"] = degree
+        settings["solver_settings"]["transient_settings"]["transient"] = True
+        with tempfile.TemporaryDirectory() as tmp:
+            case = os.path.join(tmp, "case.json")
+            with open(case, "w") as f:
+                json.dump(settings, f)  # the mesh path is absolute here
+            proc = subprocess.run(
+                [sys.executable, "-m", "fenicssolver_tpu_torch", case],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+        print(f"[transient-cli] P{degree}, FST_DEVICE unset: rc {proc.returncode}; "
+              f"{line}")
+        check(proc.returncode == 0, f"P{degree} transient CLI: {proc.stderr[-2000:]}")
+        check(" on cuda" in line and "3 time steps" in line,
+              f"P{degree} transient CLI did not run 3 steps on the card")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -1522,6 +1553,7 @@ def main():
     phase_advection()
     phase_nonlinear()
     phase_save()
+    phase_transient_cli()
     phase_body_source()
     phase_cli()
     lat = phase_lattice()
