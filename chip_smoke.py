@@ -34,17 +34,38 @@ non-zero and no result line is printed):
 6b. main path (transient): ``main(settings)`` on the same mesh and space,
    three Crank-Nicolson steps of 1e-3 of the decaying sine mode on
    T = 300 + 60 z (Dirichlet on every face), GMG-CG at rtol 1e-10 each
-   step, the cached transient form from step 2; one line a step (form build
-   or refresh, assembly, GMG setup, Krylov, iterations, K2 launches); checks
-   the CN decay to 1e-2, <= 60 iterations and K2 on every step;
+   step, one form build (its CSR pattern sorted on the card) and the cached
+   form refreshed, with A kept, on the later steps; one line a step (form
+   build or refresh, assembly with A kept or rebuilt, GMG setup, Krylov,
+   iterations, K2 launches); checks the CN decay to 1e-2, <= 60 iterations
+   and K2 on every step; then one more form build under cProfile, and the
+   form's pattern from the card beside, and identical to, the host's;
+6b'. determinism: two assemblies of that form are bit-equal, beside the
+   assembly time with ``index_add_``'s atomics and the times of one chunk's
+   scatter by ``index_add_``, by ``index_put_(accumulate=True)``, by
+   ``segment_reduce`` and by the presorted ``OrderedScatter``; repeated CSR
+   products are bit-equal;
+6b''. fast path: ``fast_paths.compile_transient_heat`` on the same settings,
+   three steps (``T_final`` against the time loop's third step to 1e-7, the
+   CN decay) and twenty (seconds a step), Jacobi-PCG iterations a step;
 6c. SUPG advection at n = 48 (BiCGStab, or GMRES after a breakdown) against
-   the exact exponential profile to 1e-3;
+   the exact exponential profile to 1e-3; its iteration count is the same
+   in every call of this script (the sums of assembly have a fixed order);
 6d. Newton at n = 48: k(T) against its closed form to 2e-5; radiation with
    a point source (and the same at n = 12 on the card and the CPU, 1e-8);
 6e. saving: one transient step at n = 16 with ``saving_freq: 1``; the PVD
    and VTU parse and hold T; then a transient copy of the JSON case, P1 and
-   P2, through ``python -m fenicssolver_tpu_torch`` with ``FST_DEVICE``
-   unset runs on the card;
+   P2, a DG copy and a copy restarted from a ``.npz`` checkpoint, through
+   ``python -m fenicssolver_tpu_torch`` with ``FST_DEVICE`` unset, run on
+   the card;
+6f. DG: ``ScalarTransportDGSolver`` on ``UnitCubeMesh(32)`` (196,608 tets,
+   786,432 DG1 dofs): SIPG diffusion against the linear profile (1e-6) by
+   Jacobi-CG, upwind advection against the exponential profile (1e-3) by
+   BiCGStab; periodic: tests/test_periodic.py's case on a 256 x 256 mesh
+   (the x = 1 edge tied to x = 0 to 1e-8); restart: a transient state saved
+   at n = 16 (``save_state``, ``save_function``), loaded into a fresh
+   solver on the same mesh and, interpolated, as the initial field of a
+   solver on another;
 7. a body-source case at n=32 whose CUDA solve must match the CPU solve;
 8. the bundled JSON case ``data/TestHeatTransfer.json`` on the card;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
@@ -1161,8 +1182,8 @@ def transient_settings(core, V, steps, saving=None):
 
 class StepProbe:
     """Records, for each ``solve_current_step`` of the solver class while
-    active: the phase times it added, its iterations, the K2 launches it
-    made and (``keep``) a copy of the solution."""
+    active: the phase times it added, whether it kept A, its iterations, the
+    K2 launches it made and (``keep``) a copy of the solution."""
 
     PHASES = ("form", "form_cache_refresh", "assembly", "gmg_setup", "krylov",
               "newton")
@@ -1179,9 +1200,11 @@ class StepProbe:
 
         def step(solver):
             before = dict(solver.timers.totals)
+            kept = solver.timers.counts["operator_kept"]
             k2 = cuda_kernels.LAUNCHES["stencil_apply_const"]
             inner(solver)
             probe.steps.append({
+                "kept": solver.timers.counts["operator_kept"] > kept,
                 "times": {k: solver.timers.totals.get(k, 0.0) - before.get(k, 0.0)
                           for k in probe.PHASES},
                 "iterations": solver.last_iterations,
@@ -1203,9 +1226,12 @@ def phase_transient(device="cuda", n=N_MAIN, steps=3, V=None):
     """This slice's main path: ``main(settings)`` on the transient heat case
     (``transient_settings``) on ``UnitCubeMesh(n)``'s P1 space ``V`` (the
     steady phase's, when given), f64, GMG-CG at ``RTOL`` every step.  One
-    line a step (form build or cached-form refresh, assembly, GMG setup,
-    Krylov, iterations, K2 launches); checks the CN decay of the sine mode,
-    <= 60 iterations and K2 launches on every step; then ``profile_form``."""
+    line a step (form build or cached-form refresh, assembly with A kept or
+    rebuilt, GMG setup, Krylov, iterations, K2 launches); checks the CN decay
+    of the sine mode, <= 60 iterations and K2 launches on every step, one
+    form build and A kept on every later step; then ``profile_form`` and
+    ``profile_pattern``.  Returns the launches, the iterations, the solver
+    and the last step's solution."""
     import numpy as np
     import torch
 
@@ -1243,7 +1269,8 @@ def phase_transient(device="cuda", n=N_MAIN, steps=3, V=None):
                 f"cached-form refresh {t['form_cache_refresh']:.3f}")
         err = float(np.abs(st["T"] - base - g ** (k + 1) * mode).max())
         print(f"[transient] step {k}: {form} s, assembly {t['assembly']:.2f} "
-              f"s, gmg setup {t['gmg_setup']:.2f} s, krylov {t['krylov']:.3f} "
+              f"s (A {'kept, b alone' if st['kept'] else 'and b built'}), gmg "
+              f"setup {t['gmg_setup']:.2f} s, krylov {t['krylov']:.3f} "
               f"s, {st['iterations']} CG iterations, K2 launches {st['k2']}, "
               f"max|T - (300 + 60 z) - 10 g^{k + 1} mode| = {err:.3e}")
         check(isinstance(st["iterations"], int) and st["iterations"] <= 60,
@@ -1253,12 +1280,17 @@ def phase_transient(device="cuda", n=N_MAIN, steps=3, V=None):
             check(st["k2"] > 0, f"step {k}: K2 was not launched")
     check(len(probe.steps) == steps, f"{len(probe.steps)} steps, not {steps}")
     check(hasattr(solver, "_gmg_cache"), "the GMG branch did not run")
-    check(solver.timers.counts["form"] == min(steps, 2)
-          and solver.timers.counts["form_cache_refresh"] == max(steps - 2, 0),
-          "forms not built at steps 0 and 1 and refreshed after")
+    counts = solver.timers.counts
+    check(counts["form"] == 1 and counts["form_cache_refresh"] == steps - 1
+          and counts["operator_kept"] == steps - 1,
+          f"not one form build, then a refresh with A kept on every later "
+          f"step: {dict(counts)}")
     profile_form(solver)
-    return {"launches": launches, "iterations": [st["iterations"] for st in
-                                                 probe.steps]}
+    if on_cuda:
+        profile_pattern(solver._transient_form_cache[0][0])
+    return {"launches": launches,
+            "iterations": [st["iterations"] for st in probe.steps],
+            "solver": solver, "T": probe.steps[-1]["T"]}
 
 
 def profile_form(solver, top=10):
@@ -1297,6 +1329,204 @@ def profile_form(solver, top=10):
           + "; ".join(f"{w} {t:.2f}" for t, w in ours))
     print("[form] all functions by own s: "
           + "; ".join(f"{w} {t:.2f}" for t, w in own))
+
+
+def profile_pattern(form):
+    """The CSR pattern of ``form``'s dof maps built on the card
+    (``torch.unique`` of the keys) beside the host route for the same maps
+    (copy to the host, numpy keys, ``native.build_csr_pattern``); the two
+    must be identical."""
+    import torch
+
+    from fenicssolver_tpu_torch.la import sparse
+
+    maps = [t.ctx.cell_dofs for t in form.cell_terms + form.facet_terms]
+    ndof, dev = form.space.ndof, maps[0].device
+    entries = sum(m.shape[0] * m.shape[1] ** 2 for m in maps)
+    out = {}
+    for route, on_device in (("card", True), ("host", False)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[route] = sparse.build_pattern(maps, ndof, device=dev,
+                                          on_device=on_device)
+        torch.cuda.synchronize()
+        out[route + "_s"] = time.perf_counter() - t0
+        out[route + "_peak"] = _peak_gib()
+    (pc, posc), (ph, posh) = out["card"], out["host"]
+    same = (all(torch.equal(getattr(pc, f), getattr(ph, f))
+                and getattr(pc, f).dtype == torch.int32
+                for f in ("indptr", "indices", "rows"))
+            and all(torch.equal(a, b) for a, b in zip(posc, posh))
+            and pc.nnz == ph.nnz)
+    print(f"[pattern] {ndof} dofs, {entries:,} element entries, {pc.nnz:,} "
+          f"stored: on the card {out['card_s']:.3f} s (peak device memory "
+          f"{out['card_peak']:.2f} GiB in it), on the host {out['host_s']:.2f} s "
+          f"(copy, numpy keys, native sort); identical: {same}")
+    check(same, "the card's CSR pattern differs from the host's")
+
+
+def phase_determinism(solver, device="cuda"):
+    """Assembly on the card sums in a fixed order: two assemblies of the
+    transient solver's cached form are bit-equal (A's data and b).  Beside
+    it, what the order costs: the assembly with ``index_add_``'s atomics
+    (the same form finalized with ``ordered=False``), and one chunk's
+    scatter of 2^24 values into 32 M slots by ``index_add_``, by
+    ``index_put_(accumulate=True)`` (which sorts at every call), by
+    ``torch.segment_reduce`` over the presorted values and by the presorted
+    ``OrderedScatter`` (a CSR selection product).  Repeated CSR products
+    must be bit-equal too (iteration counts repeat only if they are).  The
+    digests of A and b can be compared between two calls of the script."""
+    import hashlib
+
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly
+
+    form = solver._transient_form_cache[0][0]
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    times = {}
+    for ordered in (True, False):
+        if not ordered:
+            form.finalize(ordered=False)
+        runs = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            runs.append(assembly.assemble_linear_system(form))
+            sync()
+            times[ordered] = time.perf_counter() - t0
+        (A0, b0), (A1, b1) = runs
+        equal = torch.equal(A0.data, A1.data) and torch.equal(b0, b1)
+        digest = " ".join(
+            hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:12]
+            for t in (A0.data, b0))
+        print(f"[determinism] assembly of A and b, "
+              f"{'fixed order' if ordered else 'index_add_ (atomics)'}: "
+              f"{times[ordered]:.3f} s; two assemblies bit-equal: {equal}; "
+              f"sha256 of A's data and of b: {digest}")
+        if ordered:
+            check(equal, "two assemblies on the card differ")
+            x = torch.randn(A0.pattern.n, dtype=A0.data.dtype, device=device,
+                            generator=torch.Generator(device=device).manual_seed(5))
+            ys = [A0 @ x for _ in range(20)]
+            spmv = all(torch.equal(ys[0], y) for y in ys)
+            print(f"[determinism] 20 CSR products of A bit-equal: {spmv}")
+            check(spmv, "repeated CSR products differ")
+            del ys
+        del runs, A0, A1, b0, b1
+    form.finalize()
+    if torch.device(device).type != "cuda":
+        return
+    n_out, n_in = 32_000_000, 1 << 24
+    gen = torch.Generator(device=device).manual_seed(0)
+    idx = torch.randint(0, n_out // 12, (n_in,), generator=gen, device=device)
+    vals = torch.randn(n_in, dtype=torch.float64, device=device, generator=gen)
+    out = torch.zeros(n_out, dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    sc = assembly.OrderedScatter(idx)
+    sync()
+    setup = time.perf_counter() - t0
+    lengths = sc.crow[1:] - sc.crow[:-1]
+    ms = {
+        "index_add_": time_ms(lambda: out.index_add_(0, idx, vals), reps=10),
+        "index_put_(accumulate=True)": time_ms(
+            lambda: out.index_put_((idx,), vals, accumulate=True), reps=10),
+        "segment_reduce of the presorted values": time_ms(
+            lambda: out.index_add_(0, sc.targets, torch.segment_reduce(
+                vals[sc.cols], "sum", lengths=lengths, unsafe=True)), reps=10),
+        "OrderedScatter": time_ms(lambda: sc.add_(out, vals), reps=10),
+    }
+    print(f"[determinism] one chunk's scatter ({n_in:,} f64 values): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; OrderedScatter's one-time sort {setup * 1e3:.1f} ms")
+
+
+class CountCG:
+    """Records the iterations of every ``la/krylov.cg`` call while active."""
+
+    def __enter__(self):
+        from fenicssolver_tpu_torch.la import krylov
+
+        self.krylov, self.inner, self.iterations = krylov, krylov.cg, []
+
+        def cg(*args, **kwargs):
+            x, it, res = self.inner(*args, **kwargs)
+            self.iterations.append(it)
+            return x, it, res
+
+        krylov.cg = cg
+        return self
+
+    def __exit__(self, *exc):
+        self.krylov.cg = self.inner
+
+
+def phase_fast_path(device="cuda", n=N_MAIN, V=None, T_loop=None, steps=3,
+                    long_steps=20):
+    """``fast_paths.compile_transient_heat`` on the transient phase's
+    settings: ``steps`` steps of ``DT`` at ``RTOL`` (setup seconds, seconds
+    and Jacobi-PCG iterations a step), ``T_final`` against the time loop's
+    solution after as many steps ``T_loop`` (rel-L2 <= 1e-7) and against the
+    CN decay of the sine mode (1e-2); then ``long_steps`` steps for the time
+    a step."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.solvers import fast_paths
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    on_cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    if V is None:
+        V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    x = V.dof_coords
+    base = 300.0 + 60.0 * x[:, 2]
+    mode = 10.0 * np.prod(np.sin(np.pi * x), axis=1)
+    g = (1 - 1.5 * np.pi**2 * DT) / (1 + 1.5 * np.pi**2 * DT)
+    for count in (steps, long_steps):
+        sync()
+        t0 = time.perf_counter()
+        solver = ScalarTransportSolver(transient_settings(core, V, count),
+                                       device=device)
+        run, aux = fast_paths.compile_transient_heat(solver, DT, count, tol=RTOL)
+        T0 = solver.get_initial_field().values
+        sync()
+        t1 = time.perf_counter()
+        with CountCG() as cg:
+            T, norms = run(T0)
+            sync()
+        t2 = time.perf_counter()
+        T = T.cpu().numpy()
+        norms = norms.cpu().numpy()
+        err = float(np.abs(T - base - g**count * mode).max())
+        its = cg.iterations
+        peak = _peak_gib() if on_cuda else float("nan")
+        print(f"[fast-path] n={n}: {V.ndof} dofs, {count} CN steps of {DT:g} at "
+              f"tol {RTOL:g} on {device}: setup (solver, two forms, A, K, b) "
+              f"{t1 - t0:.2f} s; run {t2 - t1:.3f} s, {(t2 - t1) / count:.4f} s a "
+              f"step, Jacobi-PCG iterations a step {min(its)}-{max(its)} (mean "
+              f"{sum(its) / len(its):.1f}), {(t2 - t1) / sum(its) * 1e3:.3f} ms an "
+              f"iteration; |T| {norms[0]:.6e} -> {norms[-1]:.6e}; max|T - (300 + "
+              f"60 z) - 10 g^{count} mode| = {err:.3e}; peak device memory "
+              f"{peak:.2f} GiB")
+        check(len(its) == count and norms.shape == (count,), "steps not taken")
+        check(np.isfinite(T).all(), "fast path: non-finite solution")
+        check(err <= 1e-2, f"fast path: decay error {err} > 1e-2")
+        check(abs(norms[-1] - np.linalg.norm(T)) <= 1e-9 * norms[-1],
+              "fast path: the last norm is not |T_final|")
+        if count == steps and T_loop is not None:
+            rel = _rel_l2(T, T_loop)
+            print(f"[fast-path] T_final vs the time loop's step {steps}: rel-L2 "
+                  f"{rel:.3e} (tol 1e-7)")
+            check(rel <= 1e-7, f"fast path vs the time loop rel-L2 {rel}")
+        del run, aux, solver
 
 
 def scalar_settings(core, V, material, **extra):
@@ -1459,33 +1689,230 @@ def phase_save(device="cuda", n=16):
     check(err <= 1e-11, f"saved point data rel err {err}")
 
 
-def phase_transient_cli():
-    """A transient copy of ``data/TestHeatTransfer.json`` (the file is not
-    edited), P1 and P2, through ``python -m fenicssolver_tpu_torch`` with
-    ``FST_DEVICE`` unset: each runs its three steps on the card."""
+def phase_transient_cli(on="cuda"):
+    """Transient copies of ``data/TestHeatTransfer.json`` (the file is not
+    edited) through ``python -m fenicssolver_tpu_torch`` with ``FST_DEVICE``
+    unset (``on="cpu"``: set to ``cpu``): P1 and P2, the DG solver, and P1
+    restarted from a checkpoint of the steady solution on the case's mesh
+    (``initial_values`` names the ``.npz``).  Each runs its three steps on
+    the card; the restarted run, starting from the steady state, must stay
+    on it."""
     import tempfile
 
-    from fenicssolver_tpu_torch.main import load_settings
+    from fenicssolver_tpu_torch.io import checkpoint
+    from fenicssolver_tpu_torch.main import load_settings, main as run_main
 
     env = {k: v for k, v in os.environ.items() if k != "FST_DEVICE"}
     env["PYTHONPATH"] = HERE
-    for degree in (1, 2):
-        settings = load_settings(os.path.join(HERE, "data", "TestHeatTransfer.json"))
-        settings["fe_degree"] = degree
+    if on == "cpu":
+        env["FST_DEVICE"] = "cpu"
+    json_case = os.path.join(HERE, "data", "TestHeatTransfer.json")
+    steady = run_main(load_settings(json_case), device=on)
+    cases = (("P1", {"fe_degree": 1}), ("P2", {"fe_degree": 2}),
+             ("DG1", {"solver_name": "ScalarTransportDGSolver"}),
+             ("P1 restarted", {"restart": True}))
+    for name, change in cases:
+        settings = load_settings(json_case)
+        restart = change.pop("restart", False)
+        settings.update(change)
         settings["solver_settings"]["transient_settings"]["transient"] = True
         with tempfile.TemporaryDirectory() as tmp:
+            if restart:
+                ckpt = os.path.join(tmp, "steady.npz")
+                checkpoint.save_function(ckpt, steady.result)
+                settings["initial_values"] = {"temperature": ckpt}
+                settings["report_settings"].update(
+                    saving_freq=3, result_filename=os.path.join(tmp, "T.pvd"))
             case = os.path.join(tmp, "case.json")
             with open(case, "w") as f:
                 json.dump(settings, f)  # the mesh path is absolute here
             proc = subprocess.run(
                 [sys.executable, "-m", "fenicssolver_tpu_torch", case],
                 cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            drift = None
+            if restart and proc.returncode == 0:
+                vals = _pvd_last_values(os.path.join(tmp, "T.pvd"), "f")
+                drift = _rel_l2(vals, steady.result.values)
         line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
-        print(f"[transient-cli] P{degree}, FST_DEVICE unset: rc {proc.returncode}; "
-              f"{line}")
-        check(proc.returncode == 0, f"P{degree} transient CLI: {proc.stderr[-2000:]}")
-        check(" on cuda" in line and "3 time steps" in line,
-              f"P{degree} transient CLI did not run 3 steps on the card")
+        print(f"[transient-cli] {name}, FST_DEVICE "
+              f"{'unset' if on != 'cpu' else 'cpu'}: rc {proc.returncode}; {line}"
+              + ("" if drift is None else
+                 f"; after 3 steps from the steady state rel-L2 {drift:.3e} "
+                 "from it (tol 1e-8)"))
+        check(proc.returncode == 0, f"{name} transient CLI: {proc.stderr[-2000:]}")
+        check(f" on {on}" in line and "3 time steps" in line,
+              f"{name} transient CLI did not run 3 steps on {on}")
+        if restart:
+            check(drift <= 1e-8, f"restarted run left the steady state: {drift}")
+
+
+def _pvd_last_values(pvd, name):
+    """The point data ``name`` of the last data set of a PVD file."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    sets = [d.attrib for d in ET.parse(pvd).getroot().iter("DataSet")]
+    vtu = ET.parse(os.path.join(os.path.dirname(pvd), sets[-1]["file"])).getroot()
+    arr = next(a for a in vtu.iter("DataArray") if a.attrib.get("Name") == name)
+    return np.array(arr.text.split(), dtype=np.float64)
+
+
+def dg_settings(core, n, material, **extra):
+    """``scalar_settings`` for ``ScalarTransportDGSolver`` on
+    ``UnitCubeMesh(n)``, DG1 (the solver builds its spaces from the mesh)."""
+    s = scalar_settings(core, None, material, **extra)
+    s.update(mesh=core.UnitCubeMesh(n, n, n), function_space=None, fe_degree=1,
+             solver_name="ScalarTransportDGSolver")
+    s["solver_settings"]["solver_parameters"]["maximum_iterations"] = 50000
+    return s
+
+
+def phase_dg(device="cuda", n=32):
+    """``ScalarTransportDGSolver`` through ``main`` on ``UnitCubeMesh(n)``,
+    DG1: SIPG diffusion (penalty alpha = 500) against the linear profile,
+    and upwind advection (the case of ``phase_advection``) against the exact
+    exponential profile, both read on the CG shadow space.  The reference
+    solves these by Jacobi Krylov on the assembled CSR matrix."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    lam = -0.6 / 0.6
+    cases = (
+        ("SIPG diffusion", {}, ("CG",), 1e-6,
+         lambda z: 300.0 + 60.0 * z),
+        ("upwind advection", {"convective_velocity": (0.0, 0.0, -0.6)},
+         ("BiCGStab", "GMRES"), 1e-3,
+         lambda z: 300.0 + 60.0 / (np.exp(lam) - 1.0) * (np.exp(lam * z) - 1.0)),
+    )
+    for name, extra, methods, tol, exact in cases:
+        s = dg_settings(core, n, {"capacity": 1.0, "conductivity": 0.6}, **extra)
+        t0 = time.perf_counter()
+        solver = run_main(s, device=device)
+        wall = time.perf_counter() - t0
+        tt = solver.timers.totals
+        err = _rel_l2(solver.result.values,
+                      exact(solver.shadow_space.dof_coords[:, 2]))
+        print(f"[dg] {name} n={n}: {solver.function_space.ndof} DG1 dofs, "
+              f"{solver.mesh.num_cells()} tets on {device}, {solver.last_krylov} "
+              f"{solver.last_iterations} iterations (rel residual "
+              f"{solver.last_relres:.3e}); form {tt['form']:.2f} s, assembly "
+              f"{tt['assembly']:.2f} s, krylov {tt['krylov']:.2f} s, main() "
+              f"{wall:.2f} s; projected to CG, rel-L2 vs the exact profile "
+              f"{err:.3e} (tol {tol:g})")
+        check(type(solver).__name__ == "ScalarTransportDGSolver"
+              and solver.function_space.family == "DG", "not the DG solver")
+        check(solver.last_krylov in methods, f"{name} solved by {solver.last_krylov}")
+        check(err <= tol, f"{name} rel-L2 {err}")
+
+
+def phase_periodic(device="cuda", n=256):
+    """tests/test_periodic.py's case refined to n x n: T = 360 at y = 1, 300
+    at y = 0, the x = 1 edge tied to x = 0 (``periodic_boundary`` in the
+    settings) and a source that is not symmetric in x, by Jacobi-CG; the
+    two edges must agree to 1e-8 and the field vary in x."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    class PeriodicX(core.SubDomain):
+        def inside(self, x, on_boundary):
+            return core.near(x[0], 0.0)
+
+        def map(self, x, y):
+            y[0] = x[0] - 1.0
+            y[1] = x[1]
+
+    s = scalar_settings(core, None, {"thermal_conductivity": 0.6},
+                        body_source=core.Expression("100*sin(2*pi*x[0] + 0.5)",
+                                                    degree=2))
+    for bc, axis_value in (("cold", 0.0), ("hot", 1.0)):  # y, not z, in 2-D
+        s["boundary_conditions"][bc]["boundary"] = core.AutoSubDomain(
+            lambda x, v=axis_value: core.near(x[1], v))
+    s.update(mesh=core.UnitSquareMesh(n, n), function_space=None,
+             periodic_boundary=PeriodicX())
+    s["solver_settings"]["solver_parameters"]["maximum_iterations"] = 20000
+    t0 = time.perf_counter()
+    solver = run_main(s, device=device)
+    wall = time.perf_counter() - t0
+    V = solver.function_space
+    T, X = solver.result.values, V.dof_coords
+    inner = (X[:, 1] > 1e-9) & (X[:, 1] < 1 - 1e-9)
+    left = np.nonzero(core.near(X[:, 0], 0.0) & inner)[0]
+    right = np.nonzero(core.near(X[:, 0], 1.0) & inner)[0]
+    left, right = left[np.argsort(X[left, 1])], right[np.argsort(X[right, 1])]
+    gap = float(np.abs(T[left] - T[right]).max())
+    swing = float(np.ptp(T[np.abs(X[:, 1] - 0.5) < 1e-9]))
+    print(f"[periodic] {n} x {n}: {V.ndof} dofs, {len(V.periodic_slaves)} slaves "
+          f"on {device}, {solver.last_krylov} {solver.last_iterations} iterations, "
+          f"krylov {solver.timers.totals['krylov']:.2f} s, main() {wall:.2f} s "
+          f"(the slave map is a host loop); max|T(0, y) - T(1, y)| = {gap:.3e} "
+          f"(tol 1e-8), T varies by {swing:.3f} along y = 0.5")
+    check(len(V.periodic_slaves) == n + 1, f"{len(V.periodic_slaves)} slaves")
+    check(solver.last_krylov == "CG", f"solved by {solver.last_krylov}")
+    check(np.isfinite(T).all() and gap <= 1e-8, f"periodic gap {gap}")
+    check(swing > 0.01, "the periodic solution does not vary in x")
+
+
+def phase_restart(device="cuda", n=16, n_other=12):
+    """Checkpoints: two transient steps at n, ``save_state`` and
+    ``save_function``; a fresh solver on the same mesh takes the state back
+    (``load_state``); a solver on ``UnitCubeMesh(n_other)`` takes the saved
+    field as its initial field by file name, interpolated, and takes the
+    step that the same field handed over as a ``Function`` gives."""
+    import tempfile
+
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.io import checkpoint
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops.pointlocate import (
+        interpolate_nonmatching_mesh,
+    )
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    first = run_main(transient_settings(core, V, 2), device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, field = (os.path.join(tmp, f) for f in ("state.npz", "T.npz"))
+        checkpoint.save_state(state, first)
+        checkpoint.save_function(field, first.w_current, t=first.current_time,
+                                 step=first.current_step)
+        again = ScalarTransportSolver(transient_settings(core, V, 2), device=device)
+        again.init_solver()
+        checkpoint.load_state(state, again)
+        same = (np.array_equal(again.w_current.values, first.w_current.values)
+                and np.array_equal(again.w_prev.values, first.w_prev.values)
+                and again.current_step == first.current_step
+                and again.current_time == first.current_time)
+        W = core.FunctionSpace(core.UnitCubeMesh(n_other, n_other, n_other), "CG", 1)
+        s = transient_settings(core, W, 1)
+        s["initial_values"] = {"temperature": field}
+        other = ScalarTransportSolver(s, device=device)
+        other.init_solver()
+        start = other.w_current.values.copy()
+        want = interpolate_nonmatching_mesh(first.w_current, W)
+        other = run_main(s, device=device)
+    err = float(np.abs(start - want.values).max())
+    s = transient_settings(core, W, 1)
+    s["initial_values"] = {"temperature": want}
+    direct = run_main(s, device=device)
+    rel = _rel_l2(other.result.values, direct.result.values)
+    print(f"[restart] n={n}: state at step {first.current_step}, t = "
+          f"{first.current_time:g} taken back bit-equal: {same}; as the initial "
+          f"field at n={n_other} by file name: max diff to the interpolated "
+          f"field {err:.1e} (tol 1e-12); one step from it on {device} vs the "
+          f"step from that field as a Function: rel-L2 {rel:.1e} (tol 1e-12)")
+    check(same, "load_state did not restore the saved state")
+    check(err <= 1e-12, f"restart field differs from the interpolation: {err}")
+    check(np.isfinite(other.result.values).all() and rel <= 1e-12,
+          f"the restarted step differs: rel-L2 {rel}")
 
 
 def phase_default_device(n=16):
@@ -1549,11 +1976,18 @@ def main():
     k34 = phase_k3_k4()
     phase_default_device()
     steady = phase_main_path()
-    transient = phase_transient(V=steady.pop("V"))
+    V = steady.pop("V")
+    transient = phase_transient(V=V)
+    phase_determinism(transient.pop("solver"))
+    phase_fast_path(V=V, T_loop=transient.pop("T"))
+    del V
     phase_advection()
     phase_nonlinear()
     phase_save()
     phase_transient_cli()
+    phase_dg()
+    phase_periodic()
+    phase_restart()
     phase_body_source()
     phase_cli()
     lat = phase_lattice()

@@ -6,7 +6,9 @@ It imports ``torch``, numpy and scipy only: never ``jax`` and never
 ``fenicssolver_tpu``.  It covers the scalar-transport solver
 (``ScalarTransportSolver``: steady and Crank-Nicolson transient heat,
 advection with SUPG, Newton for k(T) and radiation, point sources, CG
-P1-P3) with dense-LU, Jacobi-CG, BiCGStab/GMRES and geometric-multigrid CG
+P1-P3, periodic spaces, ``.npz`` checkpoints), its DG counterpart
+(``ScalarTransportDGSolver``: SIPG and upwind fluxes) and the assemble-once
+transient fast path (``solvers/fast_paths.py``), with dense-LU, Jacobi-CG, BiCGStab/GMRES and geometric-multigrid CG
 solves whose level operator is a hand-written CUDA kernel
 (``ops/cuda_kernels.py``, ``csrc/stencil.cu``); the JAX package's benchmark
 workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
@@ -25,6 +27,7 @@ _SOLVER_EXPORTS = {
     "SolverBase": "fenicssolver_tpu_torch.solvers.solver_base",
     "SolverError": "fenicssolver_tpu_torch.solvers.solver_base",
     "ScalarTransportSolver": "fenicssolver_tpu_torch.solvers.scalar_transport",
+    "ScalarTransportDGSolver": "fenicssolver_tpu_torch.solvers.scalar_transport_dg",
     "main": "fenicssolver_tpu_torch.main",
     "load_settings": "fenicssolver_tpu_torch.main",
 }

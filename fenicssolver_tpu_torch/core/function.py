@@ -2,9 +2,10 @@
 
 Port of ``fenicssolver_tpu/core/function.py`` (host numpy), trimmed to
 ``Function`` (with point evaluation through ``ops/pointlocate.py``) and
-``interpolate`` (between meshes too).  Values live in a numpy array on the
-host between solves; solvers move them to the device as tensors.
-Checkpoint loading and ``project`` raise ``NotImplementedError``.
+``interpolate`` (between meshes too), ``Function(space, "file.npz")``
+(``io/checkpoint.py``) and ``project`` (``ops/assembly.l2_project``).
+Values live in a numpy array on the host between solves; solvers move them
+to the device as tensors.
 """
 
 from __future__ import annotations
@@ -75,10 +76,9 @@ class Function:
         if values is None:
             self.values = np.zeros(space.ndof, dtype=np.float64)
         elif isinstance(values, str):
-            raise NotImplementedError(
-                "loading a Function from a file is not ported to "
-                "fenicssolver_tpu_torch yet; it comes with io/checkpoint.py"
-            )
+            from ..io import checkpoint
+
+            self.values = checkpoint.load_function_values(values, space)
         else:
             self.values = np.asarray(values, dtype=np.float64).reshape(space.ndof)
         self._name = name or "f"
@@ -93,7 +93,9 @@ class Function:
         if isinstance(other, Function):
             self.values[:] = other.values
         elif isinstance(other, Constant):
-            self.values[:] = float(other.value)
+            self.values[:] = np.tile(
+                np.atleast_1d(other.value), self.space.ndof
+            )[: self.space.ndof]
         else:
             self.values[:] = other
         return self
@@ -143,11 +145,22 @@ class Function:
 def interpolate(value, space):
     """Nodal interpolation of an Expression/Constant/number/Function."""
     f = Function(space)
-    coords = space.dof_coords
+    coords = (
+        space.scalar_space.dof_coords
+        if isinstance(space, VectorFunctionSpace)
+        else space.dof_coords
+    )
+    vdim = getattr(space, "vdim", 1)
     if isinstance(value, Expression):
-        f.values[:] = np.asarray(value.eval_at(coords)).reshape(-1)
+        vals = np.asarray(value.eval_at(coords))
+        if vdim > 1 and vals.ndim == 1:
+            vals = np.tile(vals[:, None], (1, vdim))
+        f.values[:] = vals.reshape(-1)
     elif isinstance(value, Constant):
-        f.values[:] = float(value.value)
+        if vdim > 1:
+            f.values[:] = np.tile(np.atleast_1d(value.value), coords.shape[0])
+        else:
+            f.values[:] = float(value.value)
     elif isinstance(value, numbers.Number):
         f.values[:] = float(value)
     elif isinstance(value, (tuple, list, np.ndarray)):
@@ -172,7 +185,7 @@ def interpolate(value, space):
 
 
 def project(value, space, **kw):
-    raise NotImplementedError(
-        "project is not ported to fenicssolver_tpu_torch yet; it comes with "
-        "ops/assembly.py's l2_project"
-    )
+    """L2 projection onto a space (consistent mass-matrix solve)."""
+    from ..ops.assembly import l2_project
+
+    return l2_project(value, space, **kw)

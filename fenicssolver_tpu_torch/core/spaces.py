@@ -1,13 +1,14 @@
-"""Function spaces and dof maps (Lagrange: scalar P1-P3, vector P1).
+"""Function spaces and dof maps (Lagrange: scalar CG P1-P3 and DG, vector P1).
 
 Port of ``fenicssolver_tpu/core/spaces.py`` (host numpy), trimmed to the
-scalar CG ``FunctionSpace`` of degree 1, 2 or 3 (``:100-157``, with
-``facet_dofs``' edge lookup, ``:215-262``) and the P1
-``VectorFunctionSpace``.  A space is plain host-side index arrays:
-``cell_dofs`` (num_cells, ndof_per_cell) plus nodal dof coordinates;
-vector spaces interleave components node-major (dof = node*vdim + comp).
-DG spaces, vector spaces above P1, mixed spaces, component views (``sub``)
-and periodic constraints raise ``NotImplementedError``.
+scalar ``FunctionSpace`` (CG of degree 1, 2 or 3, ``:100-157``, with
+``facet_dofs``' edge lookup, ``:215-262``; DG of degree 0 to 3 with
+cell-wise dofs, ``:158-173``), the periodic constraint
+(``constrained_domain``, ``:174-212``) and the P1 ``VectorFunctionSpace``.
+A space is plain host-side index arrays: ``cell_dofs`` (num_cells,
+ndof_per_cell) plus nodal dof coordinates; vector spaces interleave
+components node-major (dof = node*vdim + comp).  Vector spaces above P1,
+mixed spaces and component views (``sub``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,11 +60,16 @@ class MixedFunctionSpace:
 
 
 class FunctionSpace:
-    """Scalar continuous Lagrange space, P1, P2 or P3.
+    """Scalar Lagrange space: continuous (P1, P2 or P3) or discontinuous
+    (``"DG"``: the same nodes, numbered cell by cell; degree 0 is one value
+    a cell).
 
-    The DG dof maps and periodic constraints of the reference arrive with
-    ``solvers/scalar_transport_dg.py``; asking for them raises
-    ``NotImplementedError``."""
+    ``constrained_domain``: a ``SubDomain`` whose ``inside`` marks the
+    master boundary and whose ``map`` takes a slave point onto it (dolfin's
+    periodic boundary).  The element dofs then name the master, so that
+    assembly sums periodic pairs together; the slave dofs
+    (``periodic_slaves``) are orphan rows that a solve fixes and mirrors
+    from ``_periodic_master`` afterwards."""
 
     def __init__(self, mesh: Mesh, family="CG", degree=1, constrained_domain=None):
         if isinstance(family, FiniteElement):
@@ -72,23 +78,17 @@ class FunctionSpace:
         self.mesh = mesh
         self.family = "CG" if family in ("CG", "Lagrange", "P") else "DG"
         self.degree = int(degree)
-        if self.family != "CG":
-            raise NotImplementedError(
-                f"{self.family}{self.degree} spaces are not ported to "
-                "fenicssolver_tpu_torch yet (CG P1-P3 only); DG comes with "
-                "core/spaces.py's DG dof maps and solvers/scalar_transport_dg.py "
-                "(see ROADMAP.md)"
-            )
-        if constrained_domain is not None:
-            raise NotImplementedError(
-                "periodic constraints are not ported to fenicssolver_tpu_torch "
-                "yet; they come with core/spaces.py's periodic map"
-            )
         self.value_shape = ()
         self.vdim = 1
         tdim = mesh.tdim
-        self.ndof_el = elements.num_dofs(tdim, self.degree)
-        if self.degree == 1:
+        self.ndof_el = (
+            elements.num_dofs(tdim, max(self.degree, 1))
+            if not (self.family == "DG" and self.degree == 0)
+            else 1
+        )
+        if self.family == "DG":
+            self._dg_dofs(mesh)
+        elif self.degree == 1:
             self.cell_dofs = mesh.cells_array.copy()
             self.ndof = mesh.num_vertices()
             self.dof_coords = mesh.coords.copy()
@@ -106,10 +106,58 @@ class FunctionSpace:
             self._p3_dofs(mesh)
         else:
             raise ValueError("only P1/P2/P3 CG supported")
-        self.constrained_domain = None
+        self.constrained_domain = constrained_domain
         self._periodic_master = None
         self.periodic_slaves = np.zeros(0, dtype=np.int64)
+        if constrained_domain is not None:
+            self._build_periodic_map(constrained_domain)
+            self.cell_dofs = self._periodic_master[self.cell_dofs].astype(
+                np.int32
+            )
+            self.periodic_slaves = np.nonzero(
+                self._periodic_master != np.arange(self.ndof)
+            )[0]
         self.element = FiniteElement(self.family, mesh.ufl_cell(), self.degree)
+
+    def _dg_dofs(self, mesh):
+        """Cell-wise dofs: one a cell at its midpoint (degree 0), else the
+        Lagrange nodes of each cell, numbered cell by cell."""
+        nc = mesh.num_cells()
+        if self.degree == 0:
+            self.cell_dofs = np.arange(nc, dtype=np.int32)[:, None]
+            self.ndof = nc
+            self.dof_coords = mesh.midpoints("cell")
+            return
+        k = elements.num_dofs(mesh.tdim, self.degree)
+        self.cell_dofs = np.arange(nc * k, dtype=np.int32).reshape(nc, k)
+        self.ndof = nc * k
+        ref = elements.dof_reference_coords(mesh.tdim, self.degree)
+        X = mesh.coords[mesh.cells_array]  # (nc, nv, gdim)
+        lam = np.concatenate([1 - ref.sum(axis=1, keepdims=True), ref], axis=1)
+        self.dof_coords = np.einsum("kv,cvg->ckg", lam, X).reshape(-1, mesh.gdim)
+
+    def _build_periodic_map(self, domain):
+        """Map slave dofs onto master dofs via the domain's ``map`` method:
+        each dof outside the master boundary is mapped, and takes the master
+        dof found at the mapped point (within 1e-10), if there is one."""
+        from scipy.spatial import cKDTree
+
+        master = np.arange(self.ndof, dtype=np.int32)
+        coords = self.dof_coords
+        inside = domain._eval_points(coords, np.ones(len(coords), bool))
+        master_idx = np.nonzero(inside)[0]
+        if master_idx.size:
+            tree = cKDTree(coords[master_idx])
+            for s in np.nonzero(~inside)[0]:
+                y = np.zeros(self.mesh.gdim)
+                try:
+                    domain.map(coords[s], y)
+                except Exception:
+                    continue
+                d, j = tree.query(y)
+                if d < 1e-10:
+                    master[s] = master_idx[j]
+        self._periodic_master = master
 
     def _p3_dofs(self, mesh):
         """dofs: [vertices | 2 per edge (near the lower vertex first: cell
@@ -161,6 +209,8 @@ class FunctionSpace:
     def facet_dofs(self, facet_ids):
         """All dofs living on the given facets: vertices, and for P2/P3 the
         facet edges' dofs and (3D P3) the facet bubble."""
+        if self.family == "DG":
+            raise NotImplementedError("Dirichlet on DG handled weakly")
         mesh = self.mesh
         fv = mesh.facets()[facet_ids]
         dofs = [np.unique(fv.ravel())]
@@ -240,7 +290,6 @@ class VectorFunctionSpace:
                 "fenicssolver_tpu_torch yet (vector P1 only); they come with "
                 "the elasticity solvers (see ROADMAP.md)"
             )
-        # the scalar space raises for DG and periodic constraints
         self.scalar_space = FunctionSpace(mesh, family, degree, constrained_domain)
         s = self.scalar_space
         self.mesh = mesh
@@ -255,9 +304,16 @@ class VectorFunctionSpace:
             (cd[:, :, None] * self.vdim) + np.arange(self.vdim)[None, None, :]
         ).reshape(cd.shape[0], -1).astype(np.int32)
         self.dof_coords = np.repeat(s.dof_coords, self.vdim, axis=0)
-        self.constrained_domain = None
+        self.constrained_domain = constrained_domain
+        comps = np.arange(self.vdim)[None, :]
+        self.periodic_slaves = (
+            s.periodic_slaves[:, None] * self.vdim + comps
+        ).reshape(-1)
         self._periodic_master = None
-        self.periodic_slaves = np.zeros(0, dtype=np.int64)
+        if s._periodic_master is not None:
+            self._periodic_master = (
+                s._periodic_master[:, None] * self.vdim + comps
+            ).reshape(-1)
         self.element = VectorElement(
             self.family, mesh.ufl_cell(), self.degree, dim=self.vdim
         )

@@ -5,7 +5,7 @@ numpy, unchanged): ``data/mesh.xml`` and its ``*_facet_region.xml`` /
 ``*_physical_region.xml`` sidecars load bit-exactly, with dolfin's facet
 numbering (see ``core.mesh.Mesh._compute_facets``); the dolfin XML writers;
 and the VTU writer and ``PVDFile`` time series behind ``SolverBase.save``.
-The HDF5/XDMF readers raise ``NotImplementedError``.
+The HDF5/XDMF readers (which need ``h5py``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ def read_mesh(filename):
     if filename.endswith((".h5", ".hdf5", ".xdmf")):
         raise NotImplementedError(
             f"reading {filename!r}: the HDF5/XDMF readers are not ported to "
-            "fenicssolver_tpu_torch yet; they come with the rest of io/meshio.py"
+            "fenicssolver_tpu_torch yet; they come with the rest of "
+            "io/meshio.py, which needs h5py"
         )
     raise ValueError(f"unsupported mesh format: {filename}")
 

@@ -1,10 +1,12 @@
 """CSR sparse matrix on the device.
 
 Port of ``fenicssolver_tpu/la/sparse.py``: the static sparsity is computed
-once on the host from the dof map (``native.build_csr_pattern``); the
-values live in a flat ``data`` tensor.  The matvec is PyTorch's sparse CSR
-product (``torch.sparse_csr_tensor @ x``), as the JAX package computes its
-CSR matvec outside any hand-written kernel.
+once from the dof maps, and the values live in a flat ``data`` tensor.  Dof
+maps given as CUDA tensors are sorted on the card (``torch.unique`` of the
+row * ndof + col keys); host arrays and CPU tensors go through
+``native.build_csr_pattern``.  Both routes give the same arrays.  The
+matvec is PyTorch's sparse CSR product (``torch.sparse_csr_tensor @ x``),
+as the JAX package computes its CSR matvec outside any hand-written kernel.
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ class CSRPattern(NamedTuple):
 
 
 class CSRMatrix:
-    """A ``CSRPattern`` plus values; the sparse tensor is built on first use."""
+    """A ``CSRPattern`` plus values; the sparse tensor and the diagonal are
+    built on first use and kept (``data`` is not written after that)."""
 
     def __init__(self, pattern: CSRPattern, data: torch.Tensor):
         self.pattern = pattern
         self.data = data
         self._sp = None
+        self._diag = None
 
     @property
     def shape(self):
@@ -57,7 +61,9 @@ class CSRMatrix:
         return csr_matvec(self, x)
 
     def diagonal(self):
-        return csr_diagonal(self)
+        if self._diag is None:
+            self._diag = csr_diagonal(self)
+        return self._diag
 
     def todense(self):
         p = self.pattern
@@ -66,7 +72,8 @@ class CSRMatrix:
         return A
 
 
-def build_pattern(cell_dofs_list, ndof, ensure_diagonal=True, device=None):
+def build_pattern(cell_dofs_list, ndof, ensure_diagonal=True, device=None,
+                  on_device=None):
     """Build a CSR pattern from one or more (n_ent, k) dof maps.
 
     Returns (pattern, positions) where positions[i] maps each (entity, a, b)
@@ -74,11 +81,29 @@ def build_pattern(cell_dofs_list, ndof, ensure_diagonal=True, device=None):
     for element matrices.  ``ensure_diagonal`` adds an (i, i) slot for every
     dof so constrained rows always have a diagonal to pin.  Index tensors
     are int32 on ``device``.
+
+    ``on_device``: sort the keys with torch on the maps' device instead of
+    on the host; by default, when every map is a CUDA tensor.  Both routes
+    return identical arrays.
     """
     from .. import config
-    from .. import native as _native
 
     device = config.resolve_device(device)
+    if on_device is None:
+        on_device = bool(cell_dofs_list) and all(
+            torch.is_tensor(cd) and cd.is_cuda for cd in cell_dofs_list
+        )
+    if on_device:
+        return _build_pattern_torch(cell_dofs_list, ndof, ensure_diagonal, device)
+    maps = [cd.cpu().numpy() if torch.is_tensor(cd) else cd
+            for cd in cell_dofs_list]
+    return _build_pattern_native(maps, ndof, ensure_diagonal, device)
+
+
+def _build_pattern_native(cell_dofs_list, ndof, ensure_diagonal, device):
+    """Keys built with numpy, sorted by ``native.build_csr_pattern``."""
+    from .. import native as _native
+
     keys = []
     sizes = []
     for cd in cell_dofs_list:
@@ -110,6 +135,53 @@ def build_pattern(cell_dofs_list, ndof, ensure_diagonal=True, device=None):
         rows=_dev(rows_u),
         n=int(ndof),
         nnz=int(nnz),
+    )
+    return pattern, positions
+
+
+def _build_pattern_torch(cell_dofs_list, ndof, ensure_diagonal, device):
+    """The same pattern with the keys built and sorted by torch on the maps'
+    device: one ``torch.unique`` of all keys gives the stored entries in
+    row-major order and, as its inverse, every entry's slot.  The int64 keys
+    and inverse (8 B an element-matrix entry each) are freed before the
+    function returns; the int32 results stay."""
+    maps = [torch.as_tensor(cd) for cd in cell_dofs_list]
+    src = maps[0].device
+    sizes = [cd.shape[0] * cd.shape[1] ** 2 for cd in maps]
+    total = sum(sizes) + (ndof if ensure_diagonal else 0)
+    all_keys = torch.empty(total, dtype=torch.int64, device=src)
+    off = 0
+    for cd, s in zip(maps, sizes):
+        cd = cd.to(torch.int64)
+        n, k = cd.shape
+        # key (e, a, b) = dof[e, a] * ndof + dof[e, b]
+        torch.add(cd[:, :, None] * ndof, cd[:, None, :],
+                  out=all_keys[off : off + s].view(n, k, k))
+        off += s
+    if ensure_diagonal:
+        torch.mul(torch.arange(ndof, dtype=torch.int64, device=src), ndof + 1,
+                  out=all_keys[off:])
+    uniq, inverse = torch.unique(all_keys, sorted=True, return_inverse=True)
+    del all_keys
+    inverse = inverse.to(torch.int32)
+    rows_u = torch.div(uniq, ndof, rounding_mode="floor")
+    cols_u = (uniq - rows_u * ndof).to(torch.int32)
+    del uniq
+    indptr = torch.zeros(ndof + 1, dtype=torch.int64, device=src)
+    torch.cumsum(torch.bincount(rows_u, minlength=ndof), 0, out=indptr[1:])
+    positions = []
+    off = 0
+    for s in sizes:
+        positions.append(inverse[off : off + s].clone().to(device))
+        off += s
+    del inverse
+    nnz = int(cols_u.shape[0])
+    pattern = CSRPattern(
+        indptr=indptr.to(torch.int32).to(device),
+        indices=cols_u.to(device),
+        rows=rows_u.to(torch.int32).to(device),
+        n=int(ndof),
+        nnz=nnz,
     )
     return pattern, positions
 

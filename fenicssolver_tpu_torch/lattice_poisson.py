@@ -42,6 +42,7 @@ from .la import gmg
 from .la.krylov import cg
 from .la.sparse import CSRMatrix, CSRPattern
 from .ops import cuda_kernels
+from .ops.assembly import OrderedScatter
 from .ops.stencil_assembly import GREF_P1_3D, assemble_stencil, box_geometry
 from .ops.structured import LatticePattern, box_cells
 
@@ -138,8 +139,10 @@ def run_csr(n, tol=1e-6, maxiter=3000, dtype=None, device=None):
     rows = np.repeat(np.arange(ndof), np.diff(pat.indptr))
     pattern = CSRPattern(indptr=_i32(pat.indptr), indices=_i32(pat.indices),
                          rows=_i32(rows), n=ndof, nnz=nnz)
-    slots = _i32(slots_np).reshape(-1)
-    cells_T = _i32(cd.T).reshape(-1)
+    # the scatter targets, sorted once: the sums below do not depend on the
+    # run (ops/assembly.OrderedScatter)
+    into_slots = OrderedScatter(_i32(slots_np).reshape(-1))
+    into_dofs = OrderedScatter(_i32(cd.T).reshape(-1))
     del slots_np, rows
     JinvT, detJ = box_geometry((n, n, n), dtype=dtype, device=device)
     fr = _free3(n, dtype, device).reshape(-1)
@@ -148,15 +151,13 @@ def run_csr(n, tol=1e-6, maxiter=3000, dtype=None, device=None):
     config.synchronize(device)
     t1 = time.perf_counter()
     Ae = cuda_kernels.p1_stiffness(JinvT, detJ, GREF_P1_3D)  # (4, 4, nc)
-    data = torch.zeros(nnz, dtype=dtype, device=device).index_add_(
-        0, slots, Ae.reshape(-1)
-    )
-    be = (detJ / 24.0).expand(4, detJ.shape[0]).reshape(-1)  # f = 1
-    b = torch.zeros(ndof, dtype=dtype, device=device).index_add_(0, cells_T, be)
+    data = into_slots.add_(torch.zeros(nnz, dtype=dtype, device=device), Ae)
+    be = (detJ / 24.0).expand(4, detJ.shape[0])  # f = 1
+    b = into_dofs.add_(torch.zeros(ndof, dtype=dtype, device=device), be)
     A = CSRMatrix(pattern, data)
     config.synchronize(device)
     t2 = time.perf_counter()
-    del JinvT, detJ, Ae, be, slots, cells_T
+    del JinvT, detJ, Ae, be, into_slots, into_dofs
 
     def matvec(x):
         return torch.addcmul(fr * (A @ (fr * x)), omf, x)

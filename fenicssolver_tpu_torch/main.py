@@ -21,7 +21,6 @@ import sys
 _NOT_PORTED = {
     "CoupledNavierStokesSolver": "solvers/navier_stokes.py",
     "NavierStokesSolver": "solvers/navier_stokes.py",
-    "ScalarTransportDGSolver": "solvers/scalar_transport_dg.py",
     "NSDGSolver": "solvers/navier_stokes_dg.py",
     "LinearElasticitySolver": "solvers/linear_elasticity.py",
     "NonlinearElasticitySolver": "solvers/nonlinear_elasticity.py",
@@ -63,6 +62,10 @@ def main(case_input, device=None):
         from .solvers.scalar_transport import ScalarTransportSolver
 
         solver = ScalarTransportSolver(settings, device=device)
+    elif solver_name == "ScalarTransportDGSolver":
+        from .solvers.scalar_transport_dg import ScalarTransportDGSolver
+
+        solver = ScalarTransportDGSolver(settings, device=device)
     elif solver_name in _NOT_PORTED:
         raise NotImplementedError(
             f"solver {solver_name} is not ported to fenicssolver_tpu_torch yet; "
@@ -78,6 +81,7 @@ def main(case_input, device=None):
     sf = solver.report_settings.get("saving_freq")
     last_step = solver.steps_taken - 1
     if sf and sf > 0 and getattr(solver, "_last_saved_step", None) != last_step:
+        # the loop has advanced current_time to the end of this last step
         solver.save(solver.result_filename())
     ndof = getattr(getattr(solver, "function_space", None), "ndof", None)
     iters = getattr(solver, "last_iterations", None)

@@ -5,10 +5,10 @@ residual kernels over cell/facet batches:
 
     kernel(u_e, geom_e, aux_e) -> (k,) per-element residual contribution
 
-* residual  R(u): ``torch.func.vmap`` of the kernel, ``index_add_`` into
-  the global vector
+* residual  R(u): ``torch.func.vmap`` of the kernel, summed into the
+  global vector
 * Jacobian  J(u): ``torch.func.jacfwd`` of the kernel per element, vmapped,
-  ``index_add_`` into a static CSR pattern
+  summed into a static CSR pattern
 * linear problems: A = J(0), b = -R(0)  (forms are affine in u)
 
 Both assemblers read ``term.aux`` when called and keep no copy of it, so a
@@ -17,13 +17,20 @@ form refreshes its lagged solution so, and bumps ``Form.aux_version``).
 
 Cells are processed in chunks of ``CHUNK_CELLS`` so the batched forward-mode
 intermediates stay bounded on the device (the Jacobian of a P1 tet kernel
-holds a few hundred values per cell per tangent).  On CUDA, ``index_add_``
-uses atomics, so the order of the sums, and the last bits, change from run
-to run.
+holds a few hundred values per cell per tangent).
+
+The sums are deterministic.  ``index_add_`` on CUDA adds with atomics, in an
+order that changes from run to run, and so do the last bits of the result.
+The targets (the dof maps and the slot maps ``term.pos``) are static after
+``Form.finalize``, so each chunk's targets are sorted once (stable) into an
+``OrderedScatter``, which then sums every target's run of values in that
+fixed order (as one sparse CSR product with a 0/1 selection matrix).  On CPU tensors ``index_add_`` is already ordered and is used
+as it is.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -33,11 +40,72 @@ from torch.utils._pytree import tree_map
 
 from ..core.expression import Constant, Expression
 from ..core.function import Function
+from ..core.spaces import VectorFunctionSpace
 from ..la.sparse import CSRMatrix, build_pattern
 from . import geometry
 
 #: cells per vmapped chunk in assembly (bounds device memory at 12.6M cells)
 CHUNK_CELLS = 1 << 20
+
+
+_ONES = {}  # (device, dtype) -> a tensor of ones, shared by the selectors
+
+
+def _ones(n, dtype, device):
+    key = (device, dtype)
+    if key not in _ONES or _ONES[key].numel() < n:
+        _ONES[key] = torch.ones(n, dtype=dtype, device=device)
+    return _ONES[key][:n]
+
+
+class OrderedScatter:
+    """``out[index[i]] += values[i]`` for a static 1-D ``index``, summed in a
+    fixed order.
+
+    ``ordered`` (default: ``index`` is a CUDA tensor): sort the index once,
+    stable; the values that meet in one target are then the columns of one
+    row of a 0/1 selection matrix in CSR form, whose product with the values
+    (PyTorch's sparse CSR product, the solvers' own operator product) adds
+    each row front to back; the row sums go to their distinct targets.  The
+    result is the same in every run.  Otherwise plain ``index_add_``
+    (ordered on the CPU; atomics, in any order, on CUDA)."""
+
+    def __init__(self, index, ordered=None):
+        index = index.reshape(-1)
+        self.ordered = index.is_cuda if ordered is None else bool(ordered)
+        if not self.ordered:
+            self.index = index
+            return
+        sorted_index, order = torch.sort(index, stable=True)
+        targets, lengths = torch.unique_consecutive(sorted_index,
+                                                    return_counts=True)
+        itype = torch.int32 if index.numel() < 2**31 else torch.int64
+        self.targets = targets.long()
+        self.crow = torch.zeros(targets.numel() + 1, dtype=itype,
+                                device=index.device)
+        self.crow[1:] = torch.cumsum(lengths, 0)
+        self.cols = order.to(itype)  # ascending within a row: the sort is stable
+        self._selectors = {}
+
+    def _selector(self, dtype):
+        if dtype not in self._selectors:
+            n = self.cols.numel()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+                warnings.filterwarnings("ignore", message="Sparse invariant checks")
+                self._selectors[dtype] = torch.sparse_csr_tensor(
+                    self.crow, self.cols, _ones(n, dtype, self.cols.device),
+                    size=(self.targets.numel(), n), check_invariants=False,
+                )
+        return self._selectors[dtype]
+
+    def add_(self, out, values):
+        values = values.reshape(-1)
+        if not self.ordered:
+            return out.index_add_(0, self.index, values)
+        # the targets are distinct: no two row sums meet in one element
+        return out.index_add_(0, self.targets,
+                              self._selector(values.dtype) @ values)
 
 
 @dataclass
@@ -46,14 +114,22 @@ class CellTerm:
     ctx: geometry.CellContext
     aux: Any = None  # dict of per-cell tensors (axis 0 = cell)
     pos: Optional[torch.Tensor] = None  # nnz slots for the (k,k) element matrix
+    ordered: Optional[bool] = None  # see ``OrderedScatter``
+    scatters: Any = None  # ``_scatters(term)``'s cache
 
 
 @dataclass
 class FacetTerm:
+    """A term over exterior facets (``FacetContext``: the dofs of the owning
+    cell) or interior facets (``InteriorFacetContext``: the dofs of the plus
+    and the minus cell, one after the other)."""
+
     kernel: Callable  # (u_e, fgeom_e, aux_e) -> (k,)
-    ctx: geometry.FacetContext
+    ctx: Any
     aux: Any = None
     pos: Optional[torch.Tensor] = None
+    ordered: Optional[bool] = None
+    scatters: Any = None
 
 
 @dataclass
@@ -66,15 +142,20 @@ class Form:
     pattern: Any = None
     aux_version: int = 0  # bumped on an in-place ``term.aux`` refresh
 
-    def finalize(self):
-        """Build the CSR pattern covering all terms and fill slot maps, on
-        the device of the terms' tensors."""
+    def finalize(self, ordered=None, pattern_on_device=None):
+        """Build the CSR pattern covering all terms, fill the slot maps and
+        sort each chunk's scatter targets, on the device of the terms'
+        tensors.  ``ordered``: see ``OrderedScatter``; ``pattern_on_device``:
+        see ``la.sparse.build_pattern`` (both default to what the device
+        needs)."""
         terms = self.cell_terms + self.facet_terms
-        maps = [t.ctx.cell_dofs.cpu().numpy() for t in terms]
-        device = terms[0].ctx.cell_dofs.device if terms else None
-        self.pattern, positions = build_pattern(maps, self.space.ndof, device=device)
+        maps = [t.ctx.cell_dofs for t in terms]
+        device = maps[0].device if terms else None
+        self.pattern, positions = build_pattern(
+            maps, self.space.ndof, device=device, on_device=pattern_on_device)
         for t, pos in zip(terms, positions):
-            t.pos = pos
+            t.pos, t.ordered, t.scatters = pos, ordered, None
+            _scatters(t)
         return self
 
 
@@ -83,16 +164,33 @@ def _vmap_dims(term):
     return (0, ctx_axes, 0 if term.aux is not None else None)
 
 
+def _chunk_bounds(term):
+    n = term.ctx.cell_dofs.shape[0]
+    return [(s, min(s + CHUNK_CELLS, n)) for s in range(0, n, CHUNK_CELLS)]
+
+
 def _chunks(term):
     """(start, stop, ctx slice, aux slice) over the term's batch, in chunks
     of ``CHUNK_CELLS``."""
-    n = term.ctx.cell_dofs.shape[0]
-    step = CHUNK_CELLS
-    for s in range(0, n, step):
-        e = min(s + step, n)
+    for s, e in _chunk_bounds(term):
         ctx = type(term.ctx)(*(a[s:e] for a in term.ctx))
         aux = None if term.aux is None else tree_map(lambda a: a[s:e], term.aux)
         yield s, e, ctx, aux
+
+
+def _scatters(term):
+    """Per chunk of ``CHUNK_CELLS``: (the scatter of the residual into the
+    dofs, the scatter of the element matrices into ``term.pos`` or None
+    before ``Form.finalize``).  Built once for a chunk size and kept."""
+    if term.scatters is None or term.scatters[0] != CHUNK_CELLS:
+        k = term.ctx.cell_dofs.shape[1]
+        term.scatters = (CHUNK_CELLS, [
+            (OrderedScatter(term.ctx.cell_dofs[s:e], term.ordered),
+             None if term.pos is None else
+             OrderedScatter(term.pos[s * k * k : e * k * k], term.ordered))
+            for s, e in _chunk_bounds(term)
+        ])
+    return term.scatters[1]
 
 
 def assemble_residual(form, u):
@@ -100,9 +198,8 @@ def assemble_residual(form, u):
     R = torch.zeros(form.space.ndof, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
         fn = torch.func.vmap(term.kernel, in_dims=_vmap_dims(term))
-        for _, _, ctx, aux in _chunks(term):
-            r = fn(u[ctx.cell_dofs], ctx, aux)
-            R.index_add_(0, ctx.cell_dofs.reshape(-1), r.reshape(-1))
+        for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term), _scatters(term)):
+            into_dofs.add_(R, fn(u[ctx.cell_dofs], ctx, aux))
     return R
 
 
@@ -110,13 +207,11 @@ def assemble_jacobian(form, u):
     """J(u) as CSRMatrix via per-element forward-mode autodiff."""
     data = torch.zeros(form.pattern.nnz, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
-        k = term.ctx.cell_dofs.shape[1]
         fn = torch.func.vmap(
             torch.func.jacfwd(term.kernel, argnums=0), in_dims=_vmap_dims(term)
         )
-        for s, e, ctx, aux in _chunks(term):
-            Ae = fn(u[ctx.cell_dofs], ctx, aux)
-            data.index_add_(0, term.pos[s * k * k : e * k * k], Ae.reshape(-1))
+        for (_, _, ctx, aux), (_, into_pos) in zip(_chunks(term), _scatters(term)):
+            into_pos.add_(data, fn(u[ctx.cell_dofs], ctx, aux))
     return CSRMatrix(pattern=form.pattern, data=data)
 
 
@@ -250,7 +345,71 @@ def coeff_at_qp(value, qpx, t=None, quad_pts=None):
         if quad_pts is None:
             raise ValueError("Function coefficient needs reference quad points")
         space = value.space
+        if isinstance(space, VectorFunctionSpace):
+            sd = space.scalar_space
+            phi, _ = elements.tabulate(sd.mesh.tdim, sd.degree, quad_pts)
+            ue = value.values.reshape(-1, space.vdim)[sd.cell_dofs]  # (nc,k,v)
+            return np.einsum("qk,ckv->cqv", phi, ue)
         phi, _ = elements.tabulate(space.mesh.tdim, space.degree, quad_pts)
         ue = value.values[space.cell_dofs]
         return np.einsum("qk,ck->cq", phi, ue)
     raise TypeError(f"cannot evaluate coefficient of type {type(value)}")
+
+
+# ---------------------------------------------------------------------------
+# L2 projection (dolfin ``project`` parity; consistent mass matrix + CG)
+# ---------------------------------------------------------------------------
+
+
+def l2_project(value, space, quad_degree=None, rhs_values=None, device=None,
+               dtype=None):
+    """Project a coefficient (or a per-cell, per-quadrature-point array) onto
+    a CG space: the consistent mass matrix, Jacobi-CG to 1e-12."""
+    from .. import config
+    from ..la.krylov import cg, jacobi_preconditioner
+
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    mesh = space.mesh
+    deg = space.degree
+    qdeg = quad_degree or (2 * deg + 1)
+    vector = isinstance(space, VectorFunctionSpace)
+    scalar = space.scalar_space if vector else space
+    tab = geometry.basis_tables(mesh.tdim, deg, qdeg)
+    ctx = geometry.build_cell_context(space, qdeg, device=device, dtype=dtype)
+    vdim = space.vdim if vector else 1
+
+    vals = coeff_at_qp(value, ctx.qpx, quad_pts=tab.qp) if rhs_values is None \
+        else rhs_values  # (nc, nq, ...) given directly
+    nc = mesh.num_cells()
+    nq = tab.qw.shape[0]
+    if np.isscalar(vals):
+        vals = np.full((nc, nq) + ((vdim,) if vdim > 1 else ()), float(vals))
+
+    def _t(a):  # a copy: ``vals`` may be a read-only broadcast
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    vals, phi, qw = _t(vals), _t(tab.phi), _t(tab.qw)
+    detJ = ctx.detJ
+    Me_s = torch.einsum("q,qa,qb->ab", qw, phi, phi)  # scalar mass, shared
+    if vdim == 1:
+        be = torch.einsum("q,qa,cq,c->ca", qw, phi, vals, detJ)
+        Me = Me_s
+    else:
+        # block-diagonal vector mass; rhs per component interleaved node-major
+        be = torch.einsum("q,qa,cqv,c->cav", qw, phi, vals, detJ).reshape(nc, -1)
+        k = scalar.ndof_el * vdim
+        Me = torch.zeros((k, k), dtype=dtype, device=device)
+        for c in range(vdim):
+            Me[c::vdim, c::vdim] = Me_s
+    cd = ctx.cell_dofs
+    pattern, (pos,) = build_pattern([cd], space.ndof, device=device)
+    Ae = Me[None, :, :] * detJ[:, None, None]
+    data = torch.zeros(pattern.nnz, dtype=dtype, device=device)
+    OrderedScatter(pos).add_(data, Ae)
+    A = CSRMatrix(pattern=pattern, data=data)
+    b = torch.zeros(space.ndof, dtype=dtype, device=device)
+    OrderedScatter(cd).add_(b, be)
+    x, _, _ = cg(A, b, M=jacobi_preconditioner(A.diagonal()), tol=1e-12,
+                 maxiter=2000)
+    return Function(space, x.cpu().numpy().astype(np.float64))

@@ -1,4 +1,5 @@
-"""Per-cell and per-facet geometric contexts for batched element kernels.
+"""Per-cell and per-facet geometric contexts for batched element kernels
+(cells, exterior facets, and interior facets with their two cells).
 
 Port of ``fenicssolver_tpu/ops/geometry.py``.  The affine geometry (Jacobian
 inverse, |detJ|, physical quadrature points) of the whole cell batch is
@@ -48,6 +49,27 @@ class FacetContext(NamedTuple):
     qpx: torch.Tensor  # (nf, nq, gdim) physical facet quadrature points
     Jinv: torch.Tensor  # (nf, tdim, gdim) owning cell Jinv
     detJ: torch.Tensor  # (nf,) owning cell |detJ|
+
+
+class InteriorFacetContext(NamedTuple):
+    """Device-resident per-facet geometry for interior ('+'/'-') facets.
+
+    Cell vertices are sorted ascending, so both adjacent cells see the facet
+    through the same sorted-vertex barycentric parameterization, and the
+    quadrature points on the two traces coincide pointwise: no permutation
+    table is needed.
+    """
+
+    cell_dofs: torch.Tensor  # (nf, 2k) dofs of [plus cell | minus cell]
+    local_plus: torch.Tensor  # (nf,)
+    local_minus: torch.Tensor  # (nf,)
+    detF: torch.Tensor  # (nf,)
+    normal: torch.Tensor  # (nf, gdim) out of the plus cell
+    qpx: torch.Tensor  # (nf, nq, gdim)
+    Jinv_plus: torch.Tensor  # (nf, tdim, gdim)
+    Jinv_minus: torch.Tensor
+    h_plus: torch.Tensor  # (nf,) cell sizes for penalty scaling
+    h_minus: torch.Tensor
 
 
 def basis_tables(tdim, degree, quad_degree):
@@ -140,21 +162,12 @@ def build_cell_context(space, quad_degree, device=None, dtype=None, cells=None):
     )
 
 
-def build_facet_context(space, facet_ids, quad_degree, device=None, dtype=None):
-    """The batch of the given exterior facets as tensors on ``device``."""
-    from .. import config
-
-    device = config.resolve_device(device)
-    dtype = dtype or config.default_float()
-    mesh = space.mesh
+def _facet_frame(mesh, facet_ids, cells_of, quad_degree):
+    """Host geometry of a facet batch: (detF = area / reference volume, unit
+    normal out of the cells ``cells_of``, physical quadrature points)."""
     coords_np = mesh.coords
-    facet_ids = np.asarray(facet_ids, dtype=np.int32)
     tdim = mesh.tdim
-    info = mesh._compute_facets()
-    cells_of = info["facet_cells"][facet_ids, 0]
-    local = info["facet_local"][facet_ids, 0]
-    fv = info["facet_vertices"][facet_ids]
-    X = coords_np[fv]  # (nf, tdim, gdim) facet vertex coords
+    X = coords_np[mesh._compute_facets()["facet_vertices"][facet_ids]]
     if tdim == 1:
         area = np.ones(len(facet_ids))
         refvol = 1.0
@@ -177,14 +190,34 @@ def build_facet_context(space, facet_ids, quad_degree, device=None, dtype=None):
     sign = np.sign(np.einsum("fg,fg->f", fmid - cell_mid, n))
     sign[sign == 0] = 1.0
     n = n * sign[:, None]
-    detF = area / refvol
     _, fpts, _ = elements.facet_quadrature_in_cell(tdim, quad_degree)
     lam_f = np.concatenate([1 - fpts.sum(axis=1, keepdims=True), fpts], axis=1)
     qpx = np.einsum("qv,fvg->fqg", lam_f, X)
-    # owning-cell geometry, computed for the owning cells only
-    Xt = torch.as_tensor(coords_np, dtype=torch.float64, device=device)
-    own = torch.as_tensor(mesh.cells_array[cells_of], dtype=torch.int64, device=device)
-    _, detJ, Jinv = _affine_geometry(Xt, own, tdim)
+    return area / refvol, n, qpx
+
+
+def _cell_geometry(mesh, cells_of, device):
+    """|detJ| and Jinv of the cells ``cells_of`` only, in f64 on ``device``."""
+    Xt = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
+    own = torch.as_tensor(mesh.cells_array[cells_of], dtype=torch.int64,
+                          device=device)
+    _, detJ, Jinv = _affine_geometry(Xt, own, mesh.tdim)
+    return detJ, Jinv
+
+
+def build_facet_context(space, facet_ids, quad_degree, device=None, dtype=None):
+    """The batch of the given exterior facets as tensors on ``device``."""
+    from .. import config
+
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    mesh = space.mesh
+    facet_ids = np.asarray(facet_ids, dtype=np.int32)
+    info = mesh._compute_facets()
+    cells_of = info["facet_cells"][facet_ids, 0]
+    local = info["facet_local"][facet_ids, 0]
+    detF, n, qpx = _facet_frame(mesh, facet_ids, cells_of, quad_degree)
+    detJ, Jinv = _cell_geometry(mesh, cells_of, device)
 
     def _t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -201,6 +234,49 @@ def build_facet_context(space, facet_ids, quad_degree, device=None, dtype=None):
         qpx=_t(qpx),
         Jinv=Jinv.to(dtype),
         detJ=detJ.to(dtype),
+    )
+
+
+def build_interior_facet_context(space, facet_ids, quad_degree, device=None,
+                                 dtype=None):
+    """The batch of the given interior facets as tensors on ``device``: the
+    dofs of the plus and the minus cell side by side, the normal out of the
+    plus cell."""
+    from .. import config
+
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    mesh = space.mesh
+    if mesh.tdim < 2:
+        raise NotImplementedError("interior facet contexts need tdim >= 2")
+    facet_ids = np.asarray(facet_ids, dtype=np.int32)
+    info = mesh._compute_facets()
+    cp = info["facet_cells"][facet_ids, 0]
+    cm = info["facet_cells"][facet_ids, 1]
+    assert (cm >= 0).all(), "interior facet context on a boundary facet"
+    detF, n, qpx = _facet_frame(mesh, facet_ids, cp, quad_degree)
+    _, Jinv_p = _cell_geometry(mesh, cp, device)
+    _, Jinv_m = _cell_geometry(mesh, cm, device)
+    h = mesh.cell_sizes()
+
+    def _t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def _i(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    return InteriorFacetContext(
+        cell_dofs=_i(np.concatenate([space.cell_dofs[cp], space.cell_dofs[cm]],
+                                    axis=1)),
+        local_plus=_i(info["facet_local"][facet_ids, 0]),
+        local_minus=_i(info["facet_local"][facet_ids, 1]),
+        detF=_t(detF),
+        normal=_t(n),
+        qpx=_t(qpx),
+        Jinv_plus=Jinv_p.to(dtype),
+        Jinv_minus=Jinv_m.to(dtype),
+        h_plus=_t(h[cp]),
+        h_minus=_t(h[cm]),
     )
 
 

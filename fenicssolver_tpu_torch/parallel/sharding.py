@@ -7,8 +7,10 @@ its own cells only: their dofs and their element stiffness matrices, from
 ``torch.func.vmap(torch.func.jacfwd(kernel))`` of the residual kernel,
 cell axis last (``Ae_T (k, k, nc_shard)``).  The operator is applied
 matrix-free (partial assembly): per shard, the gather ``x[dofs_T]`` ->
-K5 ``element_matvec`` -> ``index_add_`` into an ndof vector; ``_psum`` sums
-the shard partials on ``devices[0]``.  Jacobi-PCG (``la/krylov.cg``) runs on
+K5 ``element_matvec`` -> the sum into an ndof vector, in a fixed order
+(``ops/assembly.OrderedScatter``: the shard's dof map is sorted once, so the
+result does not change from run to run); ``_psum`` sums the shard partials
+on ``devices[0]``.  Jacobi-PCG (``la/krylov.cg``) runs on
 the full vectors.
 
 Deviations from the reference:
@@ -47,6 +49,7 @@ from .partition import partition_cells
 class _Shard(NamedTuple):
     device: torch.device
     dofs_T: torch.Tensor  # (k, nc_shard) int64
+    into_dofs: assembly.OrderedScatter  # sums (k, nc_shard) values by dof
     Ae_T: torch.Tensor  # (k, k, nc_shard) element matrices, cell axis last
 
 
@@ -109,8 +112,9 @@ class ShardedEllipticSolver:
                     lambda a: torch.as_tensor(a, device=dev)[rows], aux
                 )
             Ae_T = _element_matrices(kernel, ctx, aux_p, self.dtype)
+            dofs_T = ctx.cell_dofs.T.contiguous()
             self._shards.append(
-                _Shard(dev, ctx.cell_dofs.T.contiguous(), Ae_T)
+                _Shard(dev, dofs_T, assembly.OrderedScatter(dofs_T), Ae_T)
             )
             del ctx, aux_p
         self._diag = _psum(
@@ -123,9 +127,8 @@ class ShardedEllipticSolver:
 
     def _scatter(self, sh, values_T):
         """(k, nc_shard) element values summed into an ndof vector."""
-        return torch.zeros(self.ndof, dtype=self.dtype, device=sh.device).index_add_(
-            0, sh.dofs_T.reshape(-1), values_T.reshape(-1)
-        )
+        out = torch.zeros(self.ndof, dtype=self.dtype, device=sh.device)
+        return sh.into_dofs.add_(out, values_T)
 
     def matvec(self, x):
         """``K x`` (no constraints) for ``x`` on ``devices[0]``."""

@@ -43,6 +43,10 @@ def _bcast(val, like):
 
 
 class ScalarTransportSolver(SolverBase):
+    # the form reads dt and the lagged solution and no acceleration: step 0
+    # has every term of the later steps
+    _FORM_CACHEABLE_AT_STEP0 = True
+
     # misspellings that appear in the reference and its example cases
     _SCALAR_ALIASES = {
         "eletric_potential": "electric_potential",
@@ -508,7 +512,7 @@ class ScalarTransportSolver(SolverBase):
 
     def _solve_linear(self, F, extra, u, dirichlet, spd=True):
         with self.timers.phase("assembly"):
-            A, b = assembly.assemble_linear_system(F, dtype=self.dtype)
+            A, b = self._linear_system(F)
             b = b - extra
         x0 = torch.as_tensor(u.values, dtype=self.dtype, device=self.device)
         x = self.solve_static(A, b, dirichlet, x0=x0, spd=spd)

@@ -6,7 +6,10 @@ settings, mesh and space loading (``:118-258``), ``translate_value`` (with
 per-step time series) and the boundary helpers, the time loop
 (``:385-547``: ``get_time_step`` with ``time_series``, ``get_acceleration``,
 ``init_solver``, ``solve_current_step`` with the cached transient form,
-``solve_transient``, ``save`` through ``io/meshio.PVDFile``),
+``solve_transient``, ``save`` through ``io/meshio.PVDFile``), restart values and initial fields
+from ``.npz`` checkpoints (``io/checkpoint.py``), periodic spaces
+(``generate_function_space(periodic_boundary)``; the slave dofs are fixed
+during a solve and mirrored from their masters after it),
 ``solve_linear_problem``, ``solve_nonlinear_problem`` (Newton) and
 ``solve_static`` (``:839-1149``): a dense LU below ``DENSE_LIMIT``; for SPD
 systems Jacobi-CG, or CG preconditioned by the geometric multigrid V-cycle
@@ -16,8 +19,15 @@ BiCGStab breaks down or stalls.
 Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cuda``);
 tensors are created there in ``config.default_float()``.  Features outside
 the port raise ``NotImplementedError`` naming the module that will bring
-them: ``"amg"``, ``distributed``, periodic constraints.  ``spmv: "bell"``
+them: ``"amg"``, ``distributed``, HDF5/XDMF meshes.  ``spmv: "bell"``
 (the reference's default, a block-ELL layout) maps to the CSR matvec.
+
+Deviations from the reference's time loop: a saved step carries the time
+its field belongs to (the end of the step; the reference's loop writes the
+step's start time); a solver whose form has the same terms at step 0 as
+later (``_FORM_CACHEABLE_AT_STEP0``) caches its transient form from step 0;
+and on a cached form the operator is kept between steps, only the
+right-hand side being assembled again.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from .. import config
 from ..core.expression import Constant, Expression
 from ..core.function import Function, interpolate
 from ..core.mesh import Mesh, MeshFunction
-from ..core.spaces import FunctionSpace
+from ..core.spaces import FunctionSpace, VectorFunctionSpace
 from ..la import krylov
 from ..la.direct import DENSE_LIMIT, dense_solve
 from ..la.krylov import SolverError
@@ -155,7 +165,9 @@ class SolverBase:
         if filename.endswith(".xml"):
             self._read_xml_mesh(filename)
         elif filename.endswith((".h5", ".hdf5", ".xdmf")):
-            raise not_ported(f"reading {filename!r}", "io/meshio.py's HDF5/XDMF readers")
+            raise not_ported(
+                f"reading {filename!r}",
+                "io/meshio.py's HDF5/XDMF readers, which need h5py")
         else:
             raise SolverError(f"unsupported mesh format: {filename}")
 
@@ -182,7 +194,9 @@ class SolverBase:
                 self.mesh, fam, deg, constrained_domain=periodic_boundary
             )
         elif "vector_name" in self.settings:
-            raise not_ported("vector function spaces", "core/spaces.py")
+            self.function_space = VectorFunctionSpace(
+                self.mesh, fam, deg, constrained_domain=periodic_boundary
+            )
         else:
             raise SolverError(
                 "only scalar or vector solvers use the base generate_function_space"
@@ -239,8 +253,8 @@ class SolverBase:
         if callable(value) and self.transient_settings["transient"]:
             return self.translate_value(value(self.get_current_time()))
         if isinstance(value, str):
-            if os.path.exists(value):
-                raise not_ported("restart values from a file", "io/checkpoint.py")
+            if os.path.exists(value):  # a checkpoint, mapped onto the space
+                return Function(function_space or self.function_space, value)
             return Expression(value, degree=self.settings["fe_degree"])
         if value is None:
             raise TypeError("None type supplied as value to be translated")
@@ -288,12 +302,12 @@ class SolverBase:
             from ..ops.pointlocate import interpolate_nonmatching_mesh
 
             return interpolate_nonmatching_mesh(v0, self.function_space)
+        if isinstance(v0, str) and os.path.exists(v0):
+            return Function(self.function_space, v0)  # a checkpoint
         return interpolate(self._as_interp(v0), self.function_space)
 
     def _as_interp(self, v0):
-        if isinstance(v0, str):
-            if os.path.exists(v0):
-                raise not_ported("initial values from a file", "io/checkpoint.py")
+        if isinstance(v0, str) and not os.path.exists(v0):
             return Expression(v0, degree=self.settings["fe_degree"])
         if isinstance(v0, (tuple, list)) and len(v0) and isinstance(v0[0], str):
             return Expression(tuple(v0), degree=self.settings["fe_degree"])
@@ -347,6 +361,10 @@ class SolverBase:
     #: aux keys holding the lagged solution gather (refreshable between
     #: steps without a form rebuild): the CN history of scalar transport
     _HISTORY_AUX = ("Tprev",)
+    #: whether the form of step 0 has the terms of every later step, so that
+    #: the cached transient form can be taken from step 0.  A dynamics form
+    #: gains its inertia term at step 1 and must keep this False.
+    _FORM_CACHEABLE_AT_STEP0 = False
 
     def _cached_form_eligible(self):
         """Transient form caching (``solver_parameters.cache_transient_form``)
@@ -364,7 +382,9 @@ class SolverBase:
 
     def _refresh_cached_form(self, form):
         """Swap the lagged-solution aux of every term for a gather of the
-        last computed solution, in place, and bump ``form.aux_version``."""
+        last computed solution, in place, and bump ``form.aux_version``.
+        Nothing else of the form changes, which ``_history_refreshes``
+        records for ``_linear_system``."""
         lag = torch.as_tensor(self.w_current.values, dtype=self.dtype,
                               device=self.device)
         for term in form.cell_terms + form.facet_terms:
@@ -374,6 +394,7 @@ class SolverBase:
                 if key in term.aux:
                     term.aux[key] = lag[term.ctx.cell_dofs]
         form.aux_version += 1
+        self._history_refreshes = getattr(self, "_history_refreshes", 0) + 1
 
     def solve_current_step(self):
         # The lagged state of this step is the last computed solution, i.e.
@@ -398,7 +419,9 @@ class SolverBase:
                 )
             # cache only once the step-1 structure exists (dynamics forms
             # gain the inertia term at time_iter_ >= 1)
-            if self._cached_form_eligible() and self.current_step >= 1:
+            if self._cached_form_eligible() and (
+                self.current_step >= 1 or self._FORM_CACHEABLE_AT_STEP0
+            ):
                 self._transient_form_cache = (F, Dirichlet_bcs)
         self.w_current = self.solve_form(F, self.w_current, Dirichlet_bcs)
         self.w_pp.assign(self.w_prev)
@@ -413,7 +436,8 @@ class SolverBase:
     def solve_transient(self):
         """The time loop: one ``solve_current_step`` a step until
         ``ending_time`` (one step for a steady run), saving every
-        ``saving_freq`` steps (step 0 excluded, as in the reference)."""
+        ``saving_freq`` steps (step 0 excluded, as in the reference), each
+        under the time its field belongs to: the end of the step."""
         import time as _time
 
         self.init_solver()
@@ -428,18 +452,18 @@ class SolverBase:
             dt = self.get_time_step(self.current_step) if ts["transient"] else 1.0
             self.solve_current_step()
             self.steps_taken += 1
+            # the time the solved field belongs to
+            t_field = self.current_time + (dt if ts["transient"] else 0.0)
             self.logger.info(
                 "Current step = %d time = %g elapsed = %.3fs",
-                self.current_step,
-                self.current_time + (dt if ts["transient"] else 0.0),
-                _time.perf_counter() - t0,
+                self.current_step, t_field, _time.perf_counter() - t0,
             )
             pf = self.report_settings.get("plotting_freq")
             if pf and pf > 0 and self.current_step > 0 and self.current_step % pf == 0:
                 if self.report_settings.get("plotting_interactive"):
                     self.plot()
             if sf and sf > 0 and self.current_step > 0 and self.current_step % sf == 0:
-                self.save(self.result_filename())
+                self.save(self.result_filename(), time=t_field)
             if not ts["transient"]:
                 break
             self.current_step += 1
@@ -464,9 +488,10 @@ class SolverBase:
     def result_filename(self):
         return self.report_settings.get("result_filename") or "result_file.pvd"
 
-    def save(self, result_filename):
-        """Append ``w_current`` at the current time to the PVD time series
-        ``result_filename`` (one VTU a call)."""
+    def save(self, result_filename, time=None):
+        """Append ``w_current`` to the PVD time series ``result_filename``
+        (one VTU a call) at ``time`` (default: ``current_time``; the time
+        loop passes the end time of the step it has just solved)."""
         from ..io.meshio import PVDFile
 
         self._last_saved_path = result_filename
@@ -474,7 +499,9 @@ class SolverBase:
         stream = getattr(self, "_result_stream", None)
         if stream is None or stream.filename != result_filename:
             self._result_stream = PVDFile(result_filename)
-        self._result_stream.write(self.w_current, getattr(self, "current_time", 0.0))
+        if time is None:
+            time = getattr(self, "current_time", 0.0)
+        self._result_stream.write(self.w_current, time)
 
     # ------------------------------------------------------------------
     # algebraic solve dispatch (reference ``SolverBase.py:592-672``)
@@ -490,6 +517,24 @@ class SolverBase:
         if sp.get("preconditioner") == "amg":
             raise not_ported("preconditioner='amg'", "la/amg.py")
 
+    def _periodic_slaves(self):
+        """(slave dofs, master of every dof) of a periodic space, or None."""
+        s = getattr(self.function_space, "periodic_slaves", None)
+        if s is None or len(s) == 0:
+            return None
+        return s, self.function_space._periodic_master
+
+    def _copy_periodic(self, x):
+        """``x`` with every periodic slave set to its master's value."""
+        info = self._periodic_slaves()
+        if info is None:
+            return x
+        slaves, master = info
+        x = x.clone()
+        x[torch.as_tensor(slaves, device=x.device)] = x[
+            torch.as_tensor(master[slaves], dtype=torch.int64, device=x.device)]
+        return x
+
     def solve_static(self, A, b, dirichlet, x0=None, spd=True):
         """Solve A u = b with Dirichlet data applied symmetrically.
 
@@ -499,7 +544,9 @@ class SolverBase:
         Jacobi-BiCGStab and, when its relative residual is above
         ``10 * tol`` or not finite, Jacobi-GMRES(80) at ``maxiter // 10``
         restarts (reference ``:1110-1141``).  ``last_krylov`` names the
-        method that produced the result."""
+        method that produced the result.  Periodic slave dofs (orphan rows
+        after the master remap of ``core.spaces``) are fixed to 0 during the
+        solve and mirrored from their masters after it."""
         sp = self._solver_params()
         self._check_ported(sp)
         n = A.pattern.n
@@ -508,6 +555,12 @@ class SolverBase:
         else:
             free = torch.ones(n, dtype=b.dtype, device=b.device)
             ubc = torch.zeros_like(b)
+        pinfo = self._periodic_slaves()
+        if pinfo is not None:
+            slaves = torch.as_tensor(pinfo[0], device=b.device)
+            free, ubc = free.clone(), ubc.clone()
+            free[slaves] = 0.0
+            ubc[slaves] = 0.0
         if sp.get("spmv", "bell") == "bell":
             self.logger.info(
                 "spmv='bell' (block-ELL) maps to the CSR matvec in "
@@ -519,7 +572,7 @@ class SolverBase:
                 Ac = assembly.constrain_csr(A, free)
                 self.last_iterations = "direct"
                 self.last_krylov = "direct"
-                return dense_solve(Ac, rhs)
+                return self._copy_periodic(dense_solve(Ac, rhs))
         op = assembly.constrained_operator(A.matvec, free)
         diag = free * A.diagonal() + (1.0 - free)
         M = krylov.jacobi_preconditioner(diag)
@@ -548,7 +601,7 @@ class SolverBase:
         if sp.get("monitor_convergence"):
             self.logger.info("Krylov solve (%s): %d iters, rel residual %.3e",
                              self.last_krylov, it, res)
-        return x
+        return self._copy_periodic(x)
 
     def _gmg_preconditioner(self, free, spd=True):
         """The V-cycle on BoxMesh lattices (SPD systems, scalar P1), or None
@@ -560,33 +613,67 @@ class SolverBase:
             all(nn % 2 == 0 for nn in info["n"])
             or int(np.prod([nn + 1 for nn in info["n"]])) <= 800
         )  # odd n cannot coarsen: the "coarse" dense solve would be huge
+        # a periodic space's operator couples the two ends of the lattice,
+        # which the lattice stencil of the hierarchy does not
         if not (spd and coarsenable and type(V) is FunctionSpace
-                and V.degree == 1 and V.family == "CG"):
+                and V.degree == 1 and V.family == "CG"
+                and self._periodic_slaves() is None):
             self.logger.warning(
-                "preconditioner=gmg needs a scalar P1 space on a BoxMesh "
-                "lattice; falling back to Jacobi"
+                "preconditioner=gmg needs a scalar P1 space without periodic "
+                "constraints on a BoxMesh lattice; falling back to Jacobi"
             )
             return None
         from ..la import gmg as _gmg
 
+        # _gmg_cache: (key, hierarchy, the mask tensor it was built for)
+        cache = getattr(self, "_gmg_cache", None)
+        if cache is not None and cache[2] is free and cache[0][0] == id(info):
+            # the same mask tensor again (a cached transient form hands it in
+            # each step): no copy to the host to compare contents
+            return _gmg.preconditioner(cache[1])
         free_np = free.cpu().numpy() > 0.5
         # key on the MASK CONTENT, not its count: two Dirichlet layouts with
         # equal constrained-dof counts must not share a hierarchy
         key = (id(info), hash(free_np.tobytes()))
-        cache = getattr(self, "_gmg_cache", None)
-        if cache is None or cache[0] != key:
+        if cache is not None and cache[0] == key:
+            G = cache[1]
+        else:
             with self.timers.phase("gmg_setup"):
                 free3 = free_np.reshape(tuple(nn + 1 for nn in info["n"]))
                 G = _gmg.build_gmg(
                     *info["n"], extent=info["extent"], free3=free3,
                     dtype=free.dtype, device=free.device,
                 )
-            self._gmg_cache = (key, G)
-        return _gmg.preconditioner(self._gmg_cache[1])
+        self._gmg_cache = (key, G, free)
+        return _gmg.preconditioner(G)
+
+    def _linear_system(self, form):
+        """(A, b) of the affine ``form``: A = J(0), b = -R(0).
+
+        On the cached transient form A is kept between steps: the refresh
+        swaps only the lagged solution, which enters b alone.  A kept A is
+        used only for the cached form object itself, and only while every
+        bump of its ``aux_version`` since A was assembled came from
+        ``_refresh_cached_form``; anything else assembles both again."""
+        cache = getattr(self, "_transient_form_cache", None)
+        cached = cache is not None and (
+            cache[0][0] if isinstance(cache[0], tuple) else cache[0]) is form
+        refreshes = getattr(self, "_history_refreshes", 0)
+        kept = getattr(self, "_kept_operator", None)
+        if (cached and kept is not None and kept[0] is form
+                and form.aux_version - kept[2] == refreshes - kept[3]):
+            self.timers.counts["operator_kept"] += 1
+            zero = torch.zeros(form.space.ndof, dtype=self.dtype,
+                               device=form.pattern.indptr.device)
+            return kept[1], -assembly.assemble_residual(form, zero)
+        A, b = assembly.assemble_linear_system(form, dtype=self.dtype)
+        self._kept_operator = (
+            (form, A, form.aux_version, refreshes) if cached else None)
+        return A, b
 
     def solve_linear_problem(self, form, u, dirichlet, spd=True):
         with self.timers.phase("assembly"):
-            A, b = assembly.assemble_linear_system(form, dtype=self.dtype)
+            A, b = self._linear_system(form)
         x0 = torch.as_tensor(u.values, dtype=self.dtype, device=self.device)
         x = self.solve_static(A, b, dirichlet, x0=x0, spd=spd)
         u.values = x.cpu().numpy().astype(np.float64)

@@ -32,6 +32,7 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.main",
     "fenicssolver_tpu_torch.core",
     "fenicssolver_tpu_torch.io.meshio",
+    "fenicssolver_tpu_torch.io.checkpoint",
     "fenicssolver_tpu_torch.ops.pointlocate",
     "fenicssolver_tpu_torch.ops.structured",
     "fenicssolver_tpu_torch.ops.geometry",
@@ -50,6 +51,8 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.utils.timers",
     "fenicssolver_tpu_torch.solvers.solver_base",
     "fenicssolver_tpu_torch.solvers.scalar_transport",
+    "fenicssolver_tpu_torch.solvers.scalar_transport_dg",
+    "fenicssolver_tpu_torch.solvers.fast_paths",
 ]
 
 
@@ -244,11 +247,15 @@ def _feature_settings(change):
 
 @pytest.mark.parametrize("change", ["amg", "distributed", "restart_file"])
 def test_unported_features_raise(change):
+    """AMG and distributed solves wait for their modules; a restart file is
+    read by io/checkpoint.py now, which takes ``.npz`` files only."""
     from fenicssolver_tpu_torch.solvers.scalar_transport import (
         ScalarTransportSolver,
     )
 
-    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
+    error, match = ((ValueError, r"\.npz") if change == "restart_file" else
+                    (NotImplementedError, "fenicssolver_tpu_torch"))
+    with pytest.raises(error, match=match):
         ScalarTransportSolver(_feature_settings(change)).solve()
 
 
@@ -270,29 +277,72 @@ def test_formerly_unported_features_run(change):
     assert dofs.size and np.allclose(T[dofs], 300.0)
 
 
+def _periodic_x():
+    """A periodic domain: x = 0 is the master boundary, x = 1 maps onto it."""
+    from fenicssolver_tpu_torch.core import SubDomain, near
+
+    class PeriodicX(SubDomain):
+        def inside(self, x, on_boundary):
+            return near(x[0], 0.0)
+
+        def map(self, x, y):
+            y[:] = x
+            y[0] = x[0] - 1.0
+
+    return PeriodicX()
+
+
 @pytest.mark.parametrize(
-    "what", ["P2_periodic", "DG", "vector", "vector_sub", "vector_periodic",
-             "mixed", "xdmf"]
+    "what", ["vector", "vector_sub", "mixed", "xdmf", "hdf5", "hdf5_solver",
+             "fast_path_ns"]
 )
 def test_unported_spaces_and_readers_raise(what, tmp_path):
     mesh = UnitCubeMesh(2, 2, 2)
-    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
-        if what == "P2_periodic":  # P2 is ported; periodic maps are not
-            FunctionSpace(mesh, "CG", 2, constrained_domain=object())
-        elif what == "DG":
-            FunctionSpace(mesh, "DG", 1)
-        elif what == "vector":  # P1 is ported; P2 is not
+    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch") as e:
+        if what == "vector":  # P1 is ported; P2 is not
             VectorFunctionSpace(mesh, "CG", 2)
         elif what == "vector_sub":
             VectorFunctionSpace(mesh, "CG", 1).sub(0)
-        elif what == "vector_periodic":
-            VectorFunctionSpace(mesh, "CG", 1, constrained_domain=object())
         elif what == "mixed":
             MixedFunctionSpace([FunctionSpace(mesh, "CG", 1)] * 2)
-        else:
+        elif what in ("xdmf", "hdf5"):
             from fenicssolver_tpu_torch.io import meshio
 
-            meshio.read_mesh(str(tmp_path / "m.xdmf"))
+            meshio.read_mesh(str(tmp_path / ("m.xdmf" if what == "xdmf"
+                                             else "m.h5")))
+        elif what == "hdf5_solver":
+            from fenicssolver_tpu_torch.solvers.scalar_transport import (
+                ScalarTransportSolver,
+            )
+
+            path = tmp_path / "m.h5"
+            path.write_bytes(b"")
+            ScalarTransportSolver(_settings(None, mesh=str(path)))
+        else:
+            from fenicssolver_tpu_torch.solvers import fast_paths
+
+            fast_paths.compile_transient_ns(None, 0.1, 1)
+    if what in ("xdmf", "hdf5", "hdf5_solver"):
+        assert "io/meshio.py" in str(e.value) and "h5py" in str(e.value)
+
+
+@pytest.mark.parametrize("what", ["P2_periodic", "DG", "vector_periodic"])
+def test_formerly_unported_spaces_build(what):
+    """Periodic and DG spaces, which raised before, are built now."""
+    mesh = UnitCubeMesh(2, 2, 2)
+    if what == "P2_periodic":
+        V = FunctionSpace(mesh, "CG", 2, constrained_domain=_periodic_x())
+        assert len(V.periodic_slaves) == 25  # 9 vertices + 16 edges at x = 1
+    elif what == "DG":
+        V = FunctionSpace(mesh, "DG", 1)
+        assert V.ndof == 4 * mesh.num_cells() and V.family == "DG"
+        with pytest.raises(NotImplementedError, match="weakly"):
+            V.facet_dofs([0])
+    else:
+        V = VectorFunctionSpace(mesh, "CG", 1, constrained_domain=_periodic_x())
+        assert len(V.periodic_slaves) == 27
+        assert (V._periodic_master[V.periodic_slaves] % 3
+                == V.periodic_slaves % 3).all()
 
 
 def test_lazy_exports():
