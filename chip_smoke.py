@@ -39,7 +39,8 @@ non-zero and no result line is printed):
    build or refresh, assembly with A kept or rebuilt, GMG setup, Krylov,
    iterations, K2 launches); checks the CN decay to 1e-2, <= 60 iterations
    and K2 on every step; then one more form build under cProfile, and the
-   form's pattern from the card beside, and identical to, the host's;
+   form's pattern from the card, and at n = 64 the card's pattern beside,
+   and identical to, the host's;
 6b'. determinism: two assemblies of that form are bit-equal, beside the
    assembly time with ``index_add_``'s atomics and the times of one chunk's
    scatter by ``index_add_``, by ``index_put_(accumulate=True)``, by
@@ -68,6 +69,32 @@ non-zero and no result line is printed):
    solver on another;
 7. a body-source case at n=32 whose CUDA solve must match the CPU solve;
 8. the bundled JSON case ``data/TestHeatTransfer.json`` on the card;
+8b. elasticity: the cantilever of
+   tests/test_linear_elasticity.py on ``BoxMesh(320, 32, 32)``, vector P1
+   (1,048,707 dofs, 1,966,080 tets), f64, steel, clamped at x = 0, a tip
+   force at x = 10, rtol 1e-8, through ``main(settings)`` on the default
+   device: the recorded preconditioner must be ``amg`` (smoothed
+   aggregation with the rigid-body near-nullspace, set up on the host),
+   CG within ``MAX_CG_CANTILEVER`` iterations, the tip deflection within 8%
+   of Euler-Bernoulli, ``von_Mises`` finite; prints the AMG set-up's
+   seconds by level with rows and nnz, form and assembly seconds, the
+   chunk for k = 12, the peak memory, the iterations, the wall ms a V-cycle
+   and a CG iteration and the device's idle share over ten iterations; then
+   thermal free expansion on ``UnitSquareMesh(256)`` (sliding supports,
+   +50 K, AMG-CG) against the exact field to 1e-9; then the vector P2
+   cantilever (k = 30) at 20 x 3 x 3 on the card against the port's CPU
+   solve (1e-8, equal iterations);
+8c. modal: ``solve_modal(6)`` of a clamped P1 beam at 99,072 dofs; the
+   recorded backend must be ``lobpcg`` (LOBPCG with the AMG V-cycle on the
+   card), the frequencies within 1e-4 of scipy's shift-invert ``eigsh`` on
+   the same K and M;
+8d. the body-source heat case with ``preconditioner: "amg"`` against
+   ``"gmg"`` (1e-8); the standing wave of tests/test_wave.py, P2, at the
+   test's size to the test's bounds and at 255 x 255 (261,121 dofs; energy
+   conserved to 1e-9 from the first step to the last); the magnetostatic
+   slab of tests/test_maxwell.py at 120 x 120, P2 (1e-8); an elasticity
+   JSON case on ``data/mesh.xml`` through ``python -m
+   fenicssolver_tpu_torch``;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
@@ -1331,38 +1358,44 @@ def profile_form(solver, top=10):
           + "; ".join(f"{w} {t:.2f}" for t, w in own))
 
 
-def profile_pattern(form):
+def profile_pattern(form, n_host=64):
     """The CSR pattern of ``form``'s dof maps built on the card
-    (``torch.unique`` of the keys) beside the host route for the same maps
-    (copy to the host, numpy keys, ``native.build_csr_pattern``); the two
-    must be identical."""
+    (``torch.unique`` of the keys), timed at the form's size; and, for the
+    P1 dof map of ``UnitCubeMesh(n_host)``, the card's route beside the host
+    route (copy to the host, numpy keys, ``native.build_csr_pattern``): the
+    two must be identical.  The host route is held at ``n_host`` because its
+    sort takes most of a minute at n = 128."""
     import torch
 
+    import fenicssolver_tpu_torch.core as core
     from fenicssolver_tpu_torch.la import sparse
+
+    def build(maps, ndof, dev, on_device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = sparse.build_pattern(maps, ndof, device=dev, on_device=on_device)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _peak_gib()
 
     maps = [t.ctx.cell_dofs for t in form.cell_terms + form.facet_terms]
     ndof, dev = form.space.ndof, maps[0].device
     entries = sum(m.shape[0] * m.shape[1] ** 2 for m in maps)
-    out = {}
-    for route, on_device in (("card", True), ("host", False)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out[route] = sparse.build_pattern(maps, ndof, device=dev,
-                                          on_device=on_device)
-        torch.cuda.synchronize()
-        out[route + "_s"] = time.perf_counter() - t0
-        out[route + "_peak"] = _peak_gib()
-    (pc, posc), (ph, posh) = out["card"], out["host"]
+    (pf, _), full_s, full_peak = build(maps, ndof, dev, True)
+    V = core.FunctionSpace(core.UnitCubeMesh(n_host, n_host, n_host), "CG", 1)
+    small = [torch.as_tensor(V.cell_dofs.astype("int64"), device=dev)]
+    (pc, posc), card_s, _ = build(small, V.ndof, dev, True)
+    (ph, posh), host_s, _ = build(small, V.ndof, dev, False)
     same = (all(torch.equal(getattr(pc, f), getattr(ph, f))
                 and getattr(pc, f).dtype == torch.int32
                 for f in ("indptr", "indices", "rows"))
             and all(torch.equal(a, b) for a, b in zip(posc, posh))
             and pc.nnz == ph.nnz)
-    print(f"[pattern] {ndof} dofs, {entries:,} element entries, {pc.nnz:,} "
-          f"stored: on the card {out['card_s']:.3f} s (peak device memory "
-          f"{out['card_peak']:.2f} GiB in it), on the host {out['host_s']:.2f} s "
-          f"(copy, numpy keys, native sort); identical: {same}")
+    print(f"[pattern] {ndof} dofs, {entries:,} element entries, {pf.nnz:,} "
+          f"stored: on the card {full_s:.3f} s (peak device memory "
+          f"{full_peak:.2f} GiB in it); at n = {n_host} ({V.ndof} dofs, "
+          f"{pc.nnz:,} stored): on the card {card_s:.3f} s, on the host "
+          f"{host_s:.2f} s (copy, numpy keys, native sort); identical: {same}")
     check(same, "the card's CSR pattern differs from the host's")
 
 
@@ -1444,15 +1477,18 @@ def phase_determinism(solver, device="cuda"):
 
 
 class CountCG:
-    """Records the iterations of every ``la/krylov.cg`` call while active."""
+    """Records the iterations of every ``la/krylov.cg`` call while active,
+    and the operator, right-hand side and keyword arguments of the last."""
 
     def __enter__(self):
         from fenicssolver_tpu_torch.la import krylov
 
         self.krylov, self.inner, self.iterations = krylov, krylov.cg, []
+        self.last = None
 
-        def cg(*args, **kwargs):
-            x, it, res = self.inner(*args, **kwargs)
+        def cg(A, b, **kwargs):
+            self.last = (A, b, kwargs)
+            x, it, res = self.inner(A, b, **kwargs)
             self.iterations.append(it)
             return x, it, res
 
@@ -1915,6 +1951,491 @@ def phase_restart(device="cuda", n=16, n_other=12):
           f"the restarted step differs: rel-L2 {rel}")
 
 
+
+# -- elasticity, modal analysis, AMG on a scalar case, wave and Maxwell -------
+
+STEEL = {"elastic_modulus": 200e9, "poisson_ratio": 0.3, "density": 7800,
+         "thermal_expansion_coefficient": 2e-6}
+#: the cantilever of tests/test_linear_elasticity.py at full width:
+#: 1,966,080 tets, 349,569 nodes, 1,048,707 dofs
+N_CANTILEVER = (320, 32, 32)
+#: bound on its AMG-CG iterations at rtol 1e-8.  The reference's hierarchy
+#: for this beam is one smoothed level and then a stall (its unknown-based
+#: aggregation with six rigid-body columns no longer shrinks the second
+#: level), so the coarsest level, 470,868 rows, is "solved" by a degree-12
+#: Chebyshev sweep, and the count grows with the mesh: 89 at 19,683 dofs,
+#: 144-145 at 139,587, and 348 and 375 in two runs here (so many CG steps
+#: amplify the last bits of the products, which differ between processes)
+MAX_CG_CANTILEVER = 600
+
+
+def elasticity_settings(V, bcs, rtol=1e-12, **extra):
+    """tests/test_linear_elasticity.py's settings for steel on the vector
+    space V (or, with ``mesh=`` in ``extra``, on a mesh)."""
+    s = {
+        "solver_name": "LinearElasticitySolver", "mesh": None,
+        "function_space": V, "boundary_conditions": bcs,
+        "temperature_distribution": None, "material": dict(STEEL),
+        "solver_settings": {
+            "transient_settings": {"transient": False, "starting_time": 0,
+                                   "time_step": 0.1, "ending_time": 1},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": rtol,
+                                  "maximum_iterations": 2000,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": {"plotting_freq": 0, "saving_freq": 0,
+                            "plotting_interactive": False, "logging_level": 40},
+    }
+    s.update(extra)
+    return s
+
+
+def cantilever(core, n, degree, L=10.0, b=1.0, h=1.0, Fy=1e6):
+    """(V, bcs, Euler-Bernoulli tip deflection) of the beam clamped at x = 0
+    with the force Fy spread over the face x = L."""
+    mesh = core.BoxMesh(core.Point(0, 0, 0), core.Point(L, b, h), *n)
+    V = core.VectorFunctionSpace(mesh, "CG", degree)
+    bcs = {
+        "fixed": {"boundary": core.AutoSubDomain(lambda x: core.near(x[0], 0.0)),
+                  "boundary_id": 1, "type": "Dirichlet",
+                  "value": core.Constant((0, 0, 0))},
+        "tip": {"boundary": core.AutoSubDomain(lambda x: core.near(x[0], L)),
+                "boundary_id": 2, "type": "force", "value": (0.0, Fy, 0.0)},
+    }
+    return V, bcs, Fy * L**3 / (3 * STEEL["elastic_modulus"] * (b * h**3 / 12.0))
+
+
+def tip_deflection(V, u, L=10.0):
+    X = V.scalar_space.dof_coords
+    return float(u.values.reshape(-1, V.vdim)[abs(X[:, 0] - L) < 1e-9, 1].mean())
+
+
+def profile_amg_cg(op, rhs, amg, iterations=10, cycles=10):
+    """Of the AMG-CG solve whose operator, right-hand side and hierarchy are
+    given: wall ms a V-cycle (synchronised over ``cycles`` applications) and
+    an iteration (``iterations`` CG iterations from zero), and over those
+    iterations the device-busy ms and so the idle share (``torch.profiler``,
+    as ``profile_vcycle`` reckons it)."""
+    import torch
+
+    from fenicssolver_tpu_torch.la import krylov
+
+    def sync():
+        if rhs.is_cuda:
+            torch.cuda.synchronize()
+
+    amg(rhs)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(cycles):
+        amg(rhs)
+    sync()
+    cycle_ms = (time.perf_counter() - t0) / cycles * 1e3
+
+    def some_iterations():
+        return krylov.cg(op, rhs, M=amg, tol=0.0, maxiter=iterations)
+
+    some_iterations()
+    sync()
+    t0 = time.perf_counter()
+    some_iterations()
+    sync()
+    iter_ms = (time.perf_counter() - t0) / iterations * 1e3
+    prof = _profiled(some_iterations, 1) if rhs.is_cuda else None
+    if prof is None:
+        dev = "device busy not measured"
+    else:
+        busy, _, events = prof
+        busy, events = busy / iterations, events / iterations
+        dev = (f"device busy {busy:.4f} ms an iteration ({events:.0f} device "
+               f"events), idle {100 * (1 - busy / iter_ms):.1f}%")
+    return cycle_ms, iter_ms, dev
+
+
+def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)):
+    """The elasticity path: the cantilever of tests/test_linear_elasticity.py
+    through ``main(settings)`` on the default device, vector P1, f64, steel,
+    rtol 1e-8, by AMG-CG with the rigid-body near-nullspace; then the
+    test's thermal free expansion on ``UnitSquareMesh(n_thermal)`` against
+    the exact field, and the vector P2 cantilever (k = 30) on the card
+    against the port's CPU solve."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops import assembly
+
+    on_card = device is None or str(device).startswith("cuda")
+    V, bcs, beam = cantilever(core, n, 1)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CountCG() as cap:
+        solver = run_main(elasticity_settings(V, bcs, rtol=1e-8), device=device)
+    wall = time.perf_counter() - t0
+    dev = solver.device
+    if on_card:
+        check(dev.type == "cuda", f"the elasticity case ran on {dev}")
+    tt = solver.timers.totals
+    amg = solver.last_amg
+    tip = tip_deflection(V, solver.result)
+    vm = solver.von_Mises(solver.result)
+    print(f"[elasticity] cantilever {n}: {solver.mesh.num_cells()} tets, "
+          f"{V.ndof} dofs on {dev}, {solver.dtype}: main() {wall:.2f} s; form "
+          f"{tt['form']:.2f} s, assembly {tt['assembly']:.2f} s (k = "
+          f"{V.ndof_el}: {assembly.chunk_cells(V.ndof_el)} cells a chunk), AMG "
+          f"set-up {tt['amg_setup']:.2f} s (host), Krylov {tt['krylov']:.2f} s; "
+          f"preconditioner {solver.last_preconditioner}, "
+          f"{solver.last_iterations} CG iterations, rel residual "
+          f"{solver.last_relres:.3e}"
+          + (f"; peak {_peak_gib():.2f} GiB" if on_card else ""))
+    for li, lv in enumerate(amg.levels):
+        print(f"[elasticity] AMG level {li}: {lv['rows']} rows, {lv['nnz']} "
+              f"nnz, set-up {lv['setup_s']:.2f} s")
+    print(f"[elasticity] AMG coarsest level: {amg.coarse_rows} rows, "
+          + ("dense inverse" if amg.coarse_dense is not None
+             else "coarsening stalled: degree-12 Chebyshev sweep")
+          + f"; set-up in all {amg.setup_seconds:.2f} s")
+    op, rhs, kw = cap.last
+    cycle_ms, iter_ms, busy = profile_amg_cg(op, rhs, kw["M"])
+    print(f"[elasticity] V-cycle {cycle_ms:.3f} ms, CG iteration {iter_ms:.3f} "
+          f"ms (wall, synchronised); {busy}")
+    print(f"[elasticity] tip deflection {tip:.6e} m, Euler-Bernoulli "
+          f"{beam:.6e} m ({100 * (tip / beam - 1):+.2f}%, tol 8%); von Mises "
+          f"max {vm.values.max():.4e} Pa")
+    check(solver.last_preconditioner == "amg",
+          f"preconditioner {solver.last_preconditioner}, not amg")
+    check(kw["M"] is amg, "CG did not run with the AMG hierarchy")
+    check(solver.last_iterations <= MAX_CG_CANTILEVER
+          and solver.last_relres <= 1e-8,
+          f"{solver.last_iterations} CG iterations, rel residual "
+          f"{solver.last_relres}")
+    check(abs(tip - beam) / beam < 0.08, f"tip deflection {tip} vs {beam}")
+    check(np.isfinite(vm.values).all(), "von Mises is not finite")
+    del solver, amg, cap, op, rhs, kw
+
+    # thermal stress: sliding supports, a uniform temperature, no load
+    mesh = core.UnitSquareMesh(n_thermal, n_thermal)
+    V = core.VectorFunctionSpace(mesh, "CG", 1)
+    bcs = {
+        "left": {"boundary": core.AutoSubDomain(lambda x: core.near(x[0], 0.0)),
+                 "boundary_id": 1, "type": "Dirichlet",
+                 "value": (core.Constant(0), None)},
+        "bottom": {"boundary": core.AutoSubDomain(lambda x: core.near(x[1], 0.0)),
+                   "boundary_id": 2, "type": "Dirichlet",
+                   "value": (None, core.Constant(0))},
+    }
+    s = elasticity_settings(V, bcs, rtol=1e-13)
+    s["temperature_distribution"] = core.Expression("293 + 50", degree=1)
+    s["solver_settings"]["solver_parameters"]["preconditioner"] = "amg"
+    solver = run_main(s, device=device)
+    E, nu, alpha, dT = (STEEL["elastic_modulus"], STEEL["poisson_ratio"],
+                        STEEL["thermal_expansion_coefficient"], 50.0)
+    mu, lmbda = E / (2 * (1 + nu)), E * nu / ((1 + nu) * (1 - 2 * nu))
+    e = E * alpha * dT / ((1 - 2 * nu) * 2 * (mu + lmbda))
+    err = _rel_l2(solver.result.values.reshape(-1, 2),
+                  e * V.scalar_space.dof_coords)
+    print(f"[elasticity] thermal free expansion {n_thermal} x {n_thermal}: "
+          f"{V.ndof} dofs on {solver.device}, {solver.last_preconditioner}-"
+          f"{solver.last_krylov} {solver.last_iterations} iterations; rel-L2 vs "
+          f"the exact expansion {err:.3e} (tol 1e-9)")
+    check(solver.last_preconditioner == "amg",
+          f"thermal case preconditioned by {solver.last_preconditioner}")
+    check(err < 1e-9, f"thermal expansion rel-L2 {err}")
+
+    # vector P2 (k = 30) on the card against the CPU
+    res = {}
+    for where in (device, "cpu"):
+        V, bcs, beam = cantilever(core, n_p2, 2)
+        sol = run_main(elasticity_settings(V, bcs), device=where)
+        res[where] = (sol.result.values.copy(), sol.last_iterations,
+                      sol.last_preconditioner, tip_deflection(V, sol.result),
+                      sol.device)
+    (ug, ig, pg, tg, dg), (uc, ic, pc, _, _) = res[device], res["cpu"]
+    rel = _rel_l2(ug, uc)
+    print(f"[elasticity] P2 cantilever {n_p2}: {V.ndof} dofs, k = {V.ndof_el} "
+          f"({assembly.chunk_cells(V.ndof_el)} cells a chunk): {dg} {pg}-CG "
+          f"{ig} iterations, cpu {ic}; rel-L2 {rel:.3e} (tol 1e-8); tip "
+          f"{100 * (tg / beam - 1):+.2f}% from Euler-Bernoulli")
+    check(pg == "amg" and pc == "amg", f"P2 preconditioners {pg}, {pc}")
+    check(rel <= 1e-8, f"P2 card vs CPU rel-L2 {rel}")
+    check(ig == ic, f"P2 iterations {ig} on the card, {ic} on the CPU")
+    check(abs(tg - beam) / beam < 0.08, f"P2 tip deflection {tg} vs {beam}")
+
+
+def phase_modal(device=None, n=(128, 15, 15), n_modes=6):
+    """``solve_modal`` of a clamped P1 beam (5 x 0.5 x 0.5, steel): LOBPCG
+    with the AMG V-cycle on the device against scipy's shift-invert
+    ``eigsh`` on the same K and M (host)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la.sparse_algebra import sp_submatrix
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver,
+    )
+
+    mesh = core.BoxMesh(core.Point(0, 0, 0), core.Point(5.0, 0.5, 0.5), *n)
+    V = core.VectorFunctionSpace(mesh, "CG", 1)
+    bcs = {"fixed": {
+        "boundary": core.AutoSubDomain(lambda x: core.near(x[0], 0.0)),
+        "boundary_id": 1, "type": "Dirichlet", "value": core.Constant((0, 0, 0))}}
+    solver = LinearElasticitySolver(elasticity_settings(V, bcs), device=device)
+    t0 = time.perf_counter()
+    freqs, modes = solver.solve_modal(n_modes)
+    wall = time.perf_counter() - t0
+    K, M, free = solver.modal_matrices()
+    t0 = time.perf_counter()
+    Kf, Mf = (sp_submatrix(m.to_host(), free) for m in (K, M))
+    Ks, Ms = (sp.csr_matrix((m.data, m.indices, m.indptr), shape=m.shape).tocsc()
+              for m in (Kf, Mf))
+    vals = np.sort(spl.eigsh(Ks, k=n_modes, M=Ms, sigma=0, which="LM")[0])
+    host = time.perf_counter() - t0
+    ref = np.sqrt(vals) / (2 * np.pi)
+    rel = float(np.abs(freqs / ref - 1).max())
+    print(f"[modal] clamped beam {n}: {V.ndof} dofs on {solver.device}; "
+          f"backend {solver.last_modal_backend}, "
+          f"{getattr(solver, 'last_modal_iterations', None)} LOBPCG iterations, "
+          f"solve_modal {wall:.2f} s (assembly and AMG set-up included); "
+          f"scipy eigsh on the host {host:.2f} s; f = "
+          + ", ".join(f"{f:.3f}" for f in freqs)
+          + f" Hz; max relative difference {rel:.3e} (tol 1e-4)")
+    check(solver.last_modal_backend == "lobpcg",
+          f"the modes came from {solver.last_modal_backend}, not LOBPCG")
+    check(rel <= 1e-4, f"modal frequencies differ by {rel}")
+    check(all(np.isfinite(m.values).all() for m in modes), "a mode is not finite")
+
+
+def phase_amg_scalar(device="cuda", n=32):
+    """The steady heat case of ``phase_body_source`` preconditioned by AMG
+    against the same case preconditioned by GMG."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.solvers.scalar_transport import (
+        ScalarTransportSolver,
+    )
+
+    res = {}
+    for prec in ("amg", "gmg"):
+        V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+        s = heat_settings(core, V, body_source=1000.0)
+        s["solver_settings"]["solver_parameters"]["preconditioner"] = prec
+        sol = ScalarTransportSolver(s, device=device)
+        res[prec] = (sol.solve().values.copy(), sol.last_iterations,
+                     sol.last_preconditioner)
+    (Ta, ia, pa), (Tg, ig, pg) = res["amg"], res["gmg"]
+    rel = _rel_l2(Ta, Tg)
+    print(f"[amg-scalar] heat n={n} with a body source on {device}: amg-CG {ia} "
+          f"iterations, gmg-CG {ig} iterations; rel-L2 {rel:.3e} (tol 1e-8)")
+    check(pa == "amg" and pg == "gmg", f"preconditioners ran: {pa}, {pg}")
+    check(rel <= 1e-8, f"amg vs gmg rel-L2 {rel}")
+
+
+def _on_plane(core, axis, value):
+    """The sub-domain of the points with coordinate ``axis`` at ``value``."""
+    return core.AutoSubDomain(lambda x: core.near(x[axis], value))
+
+
+def wave_settings(core, n, dt, t_end, c=2.0):
+    """tests/test_wave.py's settings on ``UnitSquareMesh(n)``, P2: the (1,1)
+    mode at rest, u = 0 on the four edges.  Returns (settings, mode)."""
+    import numpy as np
+
+    Q = core.FunctionSpace(core.UnitSquareMesh(n, n), "CG", 2)
+    X = Q.dof_coords
+    mode = np.sin(np.pi * X[:, 0]) * np.sin(np.pi * X[:, 1])
+    bcs = {
+        f"b{i}": {"boundary": _on_plane(core, a, w), "boundary_id": i + 1,
+                  "values": [{"variable": "amplitude", "type": "Dirichlet",
+                              "value": 0.0}]}
+        for i, (a, w) in enumerate([(0, 0.0), (0, 1.0), (1, 0.0), (1, 1.0)])
+    }
+    return {
+        "solver_name": "WavePropagationSolver", "function_space": Q,
+        "boundary_conditions": bcs, "scalar_name": "amplitude",
+        "initial_values": {"amplitude": mode, "amplitude_velocity": 0.0},
+        "material": {"wave_speed": c},
+        "solver_settings": {
+            "transient_settings": {"transient": True, "starting_time": 0.0,
+                                   "time_step": dt, "ending_time": t_end},
+            "reference_values": {},
+            "solver_parameters": {"relative_tolerance": 1e-12,
+                                  "maximum_iterations": 500},
+        },
+        "report_settings": {"plotting_freq": 0, "saving_freq": 0,
+                            "logging_level": 40},
+    }, mode
+
+
+def phase_wave(device=None, n=255, n_test=16, dt=0.0025, t_end=0.2):
+    """tests/test_wave.py's standing mode u = cos(w t) sin(pi x) sin(pi y),
+    P2, Newmark, with the test's time step and end time, through
+    ``main(settings)``: at the test's own size to the test's own bounds
+    (error under 2e-3, final energy within 5e-3 of c^2 pi^2 / 4), and on
+    ``UnitSquareMesh(n)``.  The start-up value u^{-1} = u0 - dt v0 +
+    dt^2/2 a0 leaves the Dirichlet dofs of a0 free, as the reference does:
+    a disturbance of order dt^2 / h that the test's bounds cover only up to
+    n ~ 90 (the reference reads 1.05e-3 at n = 64).  At n the run is
+    therefore held to what Newmark guarantees whatever the start: the
+    discrete energy after the first step is the energy after the last, to
+    1e-9; the distance from the exact mode is printed and bounded by
+    2e-2."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.solvers.wave import WavePropagationSolver
+
+    c = 2.0
+    E0 = c * c * np.pi**2 / 4.0
+    energies = []
+    inner = WavePropagationSolver.solve_current_step
+
+    def step_and_energy(self):
+        inner(self)
+        if self.current_step == 0 or self.current_time + 1.5 * dt >= t_end:
+            energies.append(self.energy())
+
+    for size in (n_test, n):
+        s, mode = wave_settings(core, size, dt, t_end, c)
+        del energies[:]
+        WavePropagationSolver.solve_current_step = step_and_energy
+        try:
+            t0 = time.perf_counter()
+            solver = run_main(s, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            WavePropagationSolver.solve_current_step = inner
+        ref = np.cos(c * np.pi * np.sqrt(2.0) * t_end) * mode
+        err = float(np.linalg.norm(solver.result.values - ref)
+                    / np.linalg.norm(mode))
+        E_first, E_end = energies[0], energies[-1]
+        drift = abs(E_end / E_first - 1)
+        print(f"[wave] standing mode {size} x {size} P2: "
+              f"{solver.function_space.ndof} dofs on {solver.device}, "
+              f"{solver.steps_taken} Newmark steps of {dt} in {wall:.2f} s, last "
+              f"step {solver.last_krylov} {solver.last_iterations} iterations; "
+              f"error {err:.3e}; energy {E_end:.6f} after the last step, "
+              f"{E_first:.6f} after the first (drift {drift:.2e}, tol 1e-9), "
+              f"c^2 pi^2/4 = {E0:.6f} ({abs(E_end / E0 - 1):.2e})")
+        check(drift <= 1e-9, f"the energy drifted by {drift}")
+        if size == n_test:
+            check(err < 2e-3, f"standing mode error {err} at the test's size")
+            check(abs(E_end / E0 - 1) <= 5e-3, f"energy {E_end} vs {E0}")
+        else:
+            check(err < 2e-2, f"standing mode error {err}")
+
+
+def phase_maxwell(device=None, n=120):
+    """tests/test_maxwell.py's magnetostatic slab (a current sheet in
+    0.4 < x < 0.6) at P2 against its exact piecewise-quadratic A_z."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.solvers.maxwell import (
+        magnetic_permeability_in_vacuum as MU0,
+    )
+
+    J0, X1, X2 = 2.0e6, 0.4, 0.6
+    Q = core.FunctionSpace(core.UnitSquareMesh(n, n), "CG", 2)
+    bcs = {
+        name: {"boundary": _on_plane(core, 0, w), "boundary_id": i + 1,
+               "values": [{"variable": "magnetic_potential",
+                           "type": "Dirichlet", "value": 0.0}]}
+        for i, (name, w) in enumerate([("left", 0.0), ("right", 1.0)])
+    }
+    s = {
+        "solver_name": "MaxwellEMSolver", "function_space": Q,
+        "boundary_conditions": bcs, "scalar_name": "magnetic_potential",
+        "body_source": core.Expression("J0*(x[0] > x1)*(x[0] < x2)", degree=0,
+                                       J0=J0, x1=X1, x2=X2),
+        "initial_values": {"magnetic_potential": 0.0},
+        "material": {"relative_magnetic_permeability": 1.0},
+        "solver_settings": {
+            "transient_settings": {"transient": False, "starting_time": 0.0,
+                                   "time_step": 0.002, "ending_time": 0.02},
+            "reference_values": {},
+            "solver_parameters": {"relative_tolerance": 1e-13,
+                                  "maximum_iterations": 20000},
+        },
+        "report_settings": {"plotting_freq": 0, "saving_freq": 0,
+                            "logging_level": 40},
+    }
+    solver = run_main(s, device=device)
+    nu, w = 1.0 / MU0, X2 - X1
+    A1 = J0 * w / (2.0 * nu)  # |A'| outside the strip
+    x = Q.dof_coords[:, 0]
+    ref = np.where(x <= X1, A1 * x, np.where(
+        x >= X2, A1 * (1.0 - x),
+        A1 * X1 + A1 * (x - X1) - (J0 / (2.0 * nu)) * (x - X1) ** 2))
+    err = _rel_l2(solver.result.values, ref)
+    B, _ = solver.magnetic_flux_density_qp(solver.result)
+    Bmax, Bref = float(B.abs().max()), MU0 * J0 * w / 2.0
+    print(f"[maxwell] magnetostatic slab {n} x {n} P2: {Q.ndof} dofs on "
+          f"{solver.device}, {solver.last_krylov} {solver.last_iterations} "
+          f"iterations; rel-L2 vs the exact A_z {err:.3e} (tol 1e-8); max|B| "
+          f"{Bmax:.6e} vs mu0 J0 w / 2 = {Bref:.6e} T")
+    check(err < 1e-8, f"slab rel-L2 {err}")
+    check(abs(Bmax / Bref - 1) <= 1e-6, f"max|B| {Bmax} vs {Bref}")
+
+
+def phase_elasticity_cli(on="cuda"):
+    """An elasticity JSON case on ``data/mesh.xml`` (clamped on boundary 1,
+    pulled along z on boundary 2, vector P2), written into a temporary
+    directory, through ``python -m fenicssolver_tpu_torch`` with
+    ``FST_DEVICE`` unset (``on="cpu"``: set to ``cpu``)."""
+    import tempfile
+
+    env = {k: v for k, v in os.environ.items() if k != "FST_DEVICE"}
+    env["PYTHONPATH"] = HERE
+    if on == "cpu":
+        env["FST_DEVICE"] = "cpu"
+    settings = {
+        "solver_name": "LinearElasticitySolver",
+        "mesh": os.path.join(HERE, "data", "mesh.xml"),
+        "fe_degree": 2, "fe_family": "CG", "periodic_boundary": None,
+        "material": dict(STEEL),
+        "boundary_conditions": {
+            "fixed": {"boundary_id": 1, "type": "Dirichlet", "value": [0, 0, 0]},
+            "pulled": {"boundary_id": 2, "type": "stress",
+                       "value": [0.0, 0.0, 1e6]},
+        },
+        "solver_settings": {
+            "transient_settings": {"transient": False, "starting_time": 0,
+                                   "time_step": 0.1, "ending_time": 1},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-10,
+                                  "maximum_iterations": 2000,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": {"plotting_freq": 0, "saving_freq": 1,
+                            "plotting_interactive": False, "logging_level": 40,
+                            "result_filename": "u.pvd"},
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        case = os.path.join(tmp, "elasticity.json")
+        with open(case, "w") as f:
+            json.dump(settings, f)
+        proc = subprocess.run(
+            [sys.executable, "-m", "fenicssolver_tpu_torch", case],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        u = (_pvd_last_values(os.path.join(tmp, "u.pvd"), "f")
+             if proc.returncode == 0 else None)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"[elasticity-cli] FST_DEVICE {'unset' if on != 'cpu' else 'cpu'}: rc "
+          f"{proc.returncode}; {line}")
+    check(proc.returncode == 0, f"elasticity CLI: {proc.stderr[-2000:]}")
+    check("LinearElasticitySolver" in line and f" on {on}" in line,
+          f"the elasticity CLI case did not run on {on}")
+    uz = u.reshape(-1, 3)[:, 2]
+    check(bool((abs(u) < 1).all()) and uz.max() > 0,
+          "the saved displacement is not a pull along z")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -1990,6 +2511,12 @@ def main():
     phase_restart()
     phase_body_source()
     phase_cli()
+    phase_elasticity()
+    phase_modal()
+    phase_amg_scalar()
+    phase_wave()
+    phase_maxwell()
+    phase_elasticity_cli()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()

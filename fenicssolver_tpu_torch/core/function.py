@@ -1,9 +1,10 @@
 """Discrete FE functions: a dof-value array bound to a space.
 
-Port of ``fenicssolver_tpu/core/function.py`` (host numpy), trimmed to
-``Function`` (with point evaluation through ``ops/pointlocate.py``) and
-``interpolate`` (between meshes too), ``Function(space, "file.npz")``
-(``io/checkpoint.py``) and ``project`` (``ops/assembly.l2_project``).
+Port of ``fenicssolver_tpu/core/function.py`` (host numpy): ``Function``
+(with point evaluation through ``ops/pointlocate.py``, ``split``, ``sub``
+and ``set_sub`` on mixed and vector spaces), ``interpolate`` (between
+meshes too), ``Function(space, "file.npz")`` (``io/checkpoint.py``) and
+``project`` (``ops/assembly.l2_project``).
 Values live in a numpy array on the host between solves; solvers move them
 to the device as tensors.
 """
@@ -15,7 +16,7 @@ import numbers
 import numpy as np
 
 from .expression import Constant, Expression
-from .spaces import VectorFunctionSpace
+from .spaces import MixedFunctionSpace, VectorFunctionSpace
 
 
 class _VectorView:
@@ -109,6 +110,30 @@ class Function:
     def name(self):
         return self._name
 
+    def split(self, deepcopy=True):
+        """Split a mixed-space function into per-subspace Functions."""
+        W = self.space
+        if not isinstance(W, MixedFunctionSpace):
+            raise TypeError("split() requires a mixed function space")
+        return tuple(
+            Function(sub, self.values[W.slice_of(i)].copy())
+            for i, sub in enumerate(W.subspaces)
+        )
+
+    def set_sub(self, i, values):
+        W = self.space
+        self.values[W.slice_of(i)] = np.asarray(values).ravel()
+
+    def sub(self, i, deepcopy=False):
+        W = self.space
+        if isinstance(W, MixedFunctionSpace):
+            return Function(W.subspaces[i], self.values[W.slice_of(i)].copy())
+        if isinstance(W, VectorFunctionSpace):
+            return Function(
+                W.scalar_space, self.values.reshape(-1, W.vdim)[:, i].copy()
+            )
+        raise TypeError("sub() on a scalar function")
+
     def nodal_values(self):
         """(nnodes, vdim) for vector spaces, (nnodes,) for scalar."""
         W = self.space
@@ -136,7 +161,11 @@ class Function:
     @property
     def value_shape(self):
         W = self.space
-        return (W.vdim,) if isinstance(W, VectorFunctionSpace) else ()
+        if isinstance(W, VectorFunctionSpace):
+            return (W.vdim,)
+        if isinstance(W, MixedFunctionSpace):
+            return ("mixed",)
+        return ()
 
     def __repr__(self):
         return f"<Function '{self._name}' on {self.space}>"
@@ -144,6 +173,8 @@ class Function:
 
 def interpolate(value, space):
     """Nodal interpolation of an Expression/Constant/number/Function."""
+    if isinstance(space, MixedFunctionSpace):
+        raise TypeError("interpolate into mixed space: interpolate per subspace")
     f = Function(space)
     coords = (
         space.scalar_space.dof_coords

@@ -1,14 +1,14 @@
-"""Function spaces and dof maps (Lagrange: scalar CG P1-P3 and DG, vector P1).
+"""Function spaces and dof maps (Lagrange: scalar, vector and mixed).
 
-Port of ``fenicssolver_tpu/core/spaces.py`` (host numpy), trimmed to the
-scalar ``FunctionSpace`` (CG of degree 1, 2 or 3, ``:100-157``, with
-``facet_dofs``' edge lookup, ``:215-262``; DG of degree 0 to 3 with
-cell-wise dofs, ``:158-173``), the periodic constraint
-(``constrained_domain``, ``:174-212``) and the P1 ``VectorFunctionSpace``.
+Port of ``fenicssolver_tpu/core/spaces.py`` (host numpy): the scalar
+``FunctionSpace`` (CG of degree 1, 2 or 3 with ``facet_dofs``' edge lookup;
+DG of degree 0 to 3 with cell-wise dofs), the periodic constraint
+(``constrained_domain``), ``VectorFunctionSpace`` at any of those degrees,
+``MixedFunctionSpace`` and the views ``V.sub(i)`` / ``W.sub(i).sub(j)``.
 A space is plain host-side index arrays: ``cell_dofs`` (num_cells,
 ndof_per_cell) plus nodal dof coordinates; vector spaces interleave
-components node-major (dof = node*vdim + comp).  Vector spaces above P1,
-mixed spaces and component views (``sub``) raise ``NotImplementedError``.
+components node-major (dof = node*vdim + comp); mixed spaces concatenate
+their subspaces with offsets.
 """
 
 from __future__ import annotations
@@ -26,12 +26,6 @@ __all__ = [
     "VectorFunctionSpace",
     "MixedFunctionSpace",
 ]
-
-_NOT_PORTED = (
-    "{what} is not ported to fenicssolver_tpu_torch yet; it comes with "
-    "core/spaces.py's mixed spaces (see ROADMAP.md)"
-)
-
 
 class FiniteElement:
     def __init__(self, family, cell=None, degree=1, quad_scheme=None):
@@ -51,12 +45,7 @@ class VectorElement(FiniteElement):
 
 class MixedElement:
     def __init__(self, elements_):
-        raise NotImplementedError(_NOT_PORTED.format(what="MixedElement"))
-
-
-class MixedFunctionSpace:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format(what="MixedFunctionSpace"))
+        self.sub_elements = list(elements_)
 
 
 class FunctionSpace:
@@ -278,18 +267,55 @@ class FunctionSpace:
         return f"<FunctionSpace {self.family}{self.degree} ndof={self.ndof}>"
 
 
+class _SubspaceView:
+    """View of one component of a vector space or one block of a mixed space
+    (dolfin ``V.sub(i)``)."""
+
+    def __init__(self, parent, index, kind):
+        self.parent = parent
+        self.index = index
+        self.kind = kind  # 'component' (of vector) or 'block' (of mixed)
+        self.mesh = parent.mesh
+
+    def global_dofs(self, local_dofs):
+        """Map subspace-local dof ids to the parent's global dof ids."""
+        if self.kind == "component":
+            return np.asarray(local_dofs) * self.parent.vdim + self.index
+        return self.parent.sub_offsets[self.index] + np.asarray(local_dofs)
+
+    def sub(self, j):
+        if self.kind == "block":
+            inner = self.parent.subspaces[self.index]
+            if isinstance(inner, VectorFunctionSpace):
+                return _NestedComponentView(self.parent, self.index, j)
+        raise IndexError("no further subspaces")
+
+    def collapse(self):
+        if self.kind == "block":
+            return self.parent.subspaces[self.index]
+        return self.parent.scalar_space
+
+
+class _NestedComponentView:
+    """``W.sub(block).sub(component)`` for mixed-of-vector spaces."""
+
+    def __init__(self, mixed, block, comp):
+        self.mixed = mixed
+        self.block = block
+        self.comp = comp
+
+    def global_dofs(self, local_dofs):
+        sub = self.mixed.subspaces[self.block]
+        off = self.mixed.sub_offsets[self.block]
+        return off + np.asarray(local_dofs) * sub.vdim + self.comp
+
+
 class VectorFunctionSpace:
-    """Vector P1 Lagrange space; components interleaved node-major:
+    """Vector Lagrange space; components interleaved node-major:
     ``dof = scalar_dof * vdim + c``."""
 
     def __init__(self, mesh: Mesh, family="CG", degree=1, dim=None,
                  constrained_domain=None):
-        if int(degree) != 1:
-            raise NotImplementedError(
-                f"vector P{int(degree)} spaces are not ported to "
-                "fenicssolver_tpu_torch yet (vector P1 only); they come with "
-                "the elasticity solvers (see ROADMAP.md)"
-            )
         self.scalar_space = FunctionSpace(mesh, family, degree, constrained_domain)
         s = self.scalar_space
         self.mesh = mesh
@@ -337,11 +363,9 @@ class VectorFunctionSpace:
         return (sd * self.vdim + component).astype(np.int32)
 
     def sub(self, i):
-        raise NotImplementedError(
-            "VectorFunctionSpace.sub (component views) is not ported to "
-            "fenicssolver_tpu_torch yet; it comes with core/spaces.py's mixed "
-            "spaces and the elasticity solvers (see ROADMAP.md)"
-        )
+        if not 0 <= i < self.vdim:
+            raise IndexError(i)
+        return _SubspaceView(self, i, "component")
 
     @property
     def num_sub_spaces(self):
@@ -355,3 +379,54 @@ class VectorFunctionSpace:
             f"<VectorFunctionSpace {self.family}{self.degree} vdim={self.vdim} "
             f"ndof={self.ndof}>"
         )
+
+
+class MixedFunctionSpace:
+    """Concatenation of subspaces over one mesh (Taylor-Hood etc.): subspace
+    k's dofs occupy ``[offset_k, offset_k + ndof_k)``."""
+
+    def __init__(self, subspaces):
+        self.subspaces = list(subspaces)
+        self.mesh = self.subspaces[0].mesh
+        self.degree = max(s.degree for s in self.subspaces)
+        self.sub_offsets = np.cumsum([0] + [s.ndof for s in self.subspaces])[:-1]
+        self.ndof = int(sum(s.ndof for s in self.subspaces))
+        self.ndof_el = int(sum(s.ndof_el for s in self.subspaces))
+        parts = [
+            s.cell_dofs + off for s, off in zip(self.subspaces, self.sub_offsets)
+        ]
+        self.cell_dofs = np.concatenate(parts, axis=1).astype(np.int32)
+        self.value_shape = ("mixed",)
+        self.vdim = 1
+        self.element = MixedElement([s.element for s in self.subspaces])
+
+    def num_dofs(self):
+        return self.ndof
+
+    def dim(self):
+        return self.ndof
+
+    def ufl_element(self):
+        return self.element
+
+    def sub(self, i):
+        return _SubspaceView(self, i, "block")
+
+    @property
+    def dof_coords(self):
+        """The subspaces' dof coordinates, one after the other."""
+        return np.concatenate([s.dof_coords for s in self.subspaces], axis=0)
+
+    @property
+    def num_sub_spaces(self):
+        return len(self.subspaces)
+
+    def slice_of(self, i):
+        off = self.sub_offsets[i]
+        return slice(int(off), int(off + self.subspaces[i].ndof))
+
+    def split_array(self, x):
+        return [x[self.slice_of(i)] for i in range(len(self.subspaces))]
+
+    def __repr__(self):
+        return f"<MixedFunctionSpace {self.subspaces} ndof={self.ndof}>"

@@ -15,7 +15,8 @@ from . import config
 from .core.function import Function
 from .core.mesh import Mesh
 from .la.gmg import GMGData, GMGLevel
-from .la.sparse import CSRMatrix, CSRPattern
+from .la.sparse import CSRMatrix, CSRPattern, csr_from_scipy
+from .la.sparse_algebra import HostCSR
 from .ops.geometry import CellContext
 
 
@@ -116,3 +117,65 @@ def cell_context(ctx, device=None, dtype=None):
 def function(space, values):
     """A ``Function`` on the port's ``space`` holding a solution vector."""
     return Function(space, np.asarray(values, dtype=np.float64))
+
+
+def host_csr(indptr, indices, data, shape):
+    """A ``sparse_algebra.HostCSR`` from CSR arrays (a scipy matrix's or the
+    reference's ``HostCSR``'s ``indptr``, ``indices``, ``data``, ``shape``)."""
+    return HostCSR(
+        np.asarray(indptr, dtype=np.int64),
+        np.asarray(indices, dtype=np.int64),
+        np.asarray(data, dtype=np.float64),
+        tuple(int(s) for s in shape),
+    )
+
+
+def amg_hierarchy(levels, coarse_inv=None, coarse_cheb=None, free_mask=None,
+                  presmooth=2, postsmooth=2, device=None, dtype=None):
+    """An ``la.amg.AMGPreconditioner`` from the state of a hierarchy that was
+    built elsewhere, with no set-up of its own.
+
+    ``levels``: one dict a smoothed level with ``A``, ``P`` and ``R`` as
+    ``(indptr, indices, data, shape)`` tuples, the vectors ``l1`` and
+    ``diag`` and the number ``lam1`` (the reference's level dicts, as numpy);
+    ``coarse_inv``: the dense coarse inverse, or ``coarse_cheb``: the dict
+    (``A``, ``l1``, ``lam1``) of a stalled coarse level; ``free_mask``: the
+    0/1 mask of the dofs the hierarchy covers, or None for all."""
+    from .la.amg import AMGPreconditioner, csr_from_scipy_rect
+
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    amg = AMGPreconditioner.__new__(AMGPreconditioner)
+    amg.presmooth, amg.postsmooth = int(presmooth), int(postsmooth)
+    amg.device, amg._dtype = device, dtype
+
+    def _square(a):
+        return csr_from_scipy(host_csr(*a), device=device, dtype=dtype)
+
+    def _rect(a):
+        return csr_from_scipy_rect(host_csr(*a), device, dtype)
+
+    amg.levels = [
+        dict(A=_square(lv["A"]), P=_rect(lv["P"]), R=_rect(lv["R"]),
+             diag=_tensor(lv["diag"], device, dtype),
+             l1=_tensor(lv["l1"], device, dtype), lam1=float(lv["lam1"]),
+             rows=int(lv["A"][3][0]), nnz=int(len(lv["A"][1])), setup_s=0.0)
+        for lv in levels
+    ]
+    amg.coarse_dense = amg._coarse_cheb = None
+    if coarse_inv is not None:
+        amg.coarse_dense = _tensor(coarse_inv, device, dtype)
+        amg.coarse_rows = int(amg.coarse_dense.shape[0])
+    else:
+        amg._coarse_cheb = dict(
+            A=_square(coarse_cheb["A"]),
+            l1=_tensor(coarse_cheb["l1"], device, dtype),
+            lam1=float(coarse_cheb["lam1"]))
+        amg.coarse_rows = int(coarse_cheb["A"][3][0])
+    amg.setup_seconds = 0.0
+    amg._free_idx = None
+    if free_mask is not None:
+        free = np.asarray(free_mask).astype(bool)
+        amg._free_idx = torch.as_tensor(np.nonzero(free)[0], device=device)
+        amg._n_full, amg._free_np = int(free.shape[0]), free
+    return amg

@@ -1,7 +1,8 @@
 """Krylov solvers on the device: CG, BiCGStab, restarted GMRES and FGMRES.
 
 Port of ``fenicssolver_tpu/la/krylov.py:17-401`` (``cg``, ``bicgstab``,
-``gmres``, ``fgmres`` and the Jacobi preconditioner).  The operator and the
+``gmres``, ``fgmres`` and the Jacobi, block-Jacobi and Chebyshev
+preconditioners).  The operator and the
 preconditioner are plain functions of a tensor, so every solver runs on an
 assembled CSR matrix or matrix-free.
 
@@ -53,6 +54,58 @@ def jacobi_preconditioner(diag, eps=1e-300):
     return M
 
 
+def block_jacobi_preconditioner(diag_blocks_inv, block):
+    """Inverse of bsize x bsize diagonal blocks, applied blockwise."""
+
+    def M(x):
+        xb = x.reshape(-1, block)
+        return torch.einsum("nij,nj->ni", diag_blocks_inv, xb).reshape(-1)
+
+    return M
+
+
+def chebyshev_preconditioner(op, diag, degree=4, lmin_ratio=0.06, lmax=None):
+    """Chebyshev-Jacobi smoothing as a fixed-cost preconditioner (the
+    Chebyshev smoother PETSc's multigrid levels use).  ``lmax`` is estimated
+    with ten power iterations on the Jacobi-scaled operator if not given:
+    the set-up reads that one scalar from the device; an application reads
+    nothing."""
+    one = torch.ones((), dtype=diag.dtype, device=diag.device)
+    inv_d = torch.where(diag.abs() > 1e-300, 1.0 / diag, one)
+
+    def scaled_op(x):
+        return inv_d * op(x)
+
+    if lmax is None:
+        x = torch.sin(torch.arange(diag.shape[0], dtype=diag.dtype,
+                                   device=diag.device))  # deterministic
+        for _ in range(10):
+            x = scaled_op(x)
+            x = x / torch.linalg.norm(x)
+        lmax = torch.dot(x, scaled_op(x)).item() * 1.1
+    lmax = float(lmax)
+    lmin = lmax * lmin_ratio
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+
+    def M(b):
+        # Chebyshev iteration on D^{-1}A x = D^{-1}b, x0 = 0 (Saad recurrence)
+        r = inv_d * b
+        d = r / theta
+        x = d
+        rho = 1.0 / sigma
+        for _ in range(degree - 1):
+            r = r - scaled_op(d)
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = rho_new * rho * d + (2.0 * rho_new / delta) * r
+            x = x + d
+            rho = rho_new
+        return x
+
+    return M
+
+
 def _norm(x):
     return math.sqrt(torch.dot(x, x).item())
 
@@ -63,9 +116,10 @@ def _nonfinite(method, value, k):
     )
 
 
-def cg(A, b, x0=None, M=None, tol=1e-8, maxiter=1000):
+def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
     """Preconditioned conjugate gradients.  Returns (x, iters, relres) with
-    ``iters`` an int and ``relres`` a float.
+    ``iters`` an int and ``relres`` a float.  Stops at a residual norm of
+    ``max(tol * |b|, atol)``.
 
     Raises ``SolverError`` when the residual norm becomes non-finite."""
     op = _as_op(A)
@@ -76,7 +130,7 @@ def cg(A, b, x0=None, M=None, tol=1e-8, maxiter=1000):
     p = z
     rz = torch.dot(r, z)
     bnorm = _norm(b)
-    target = tol * bnorm
+    target = max(tol * bnorm, atol)
     k = 0
     while True:
         rnorm = _norm(r)  # the one sync per iteration
@@ -97,9 +151,10 @@ def cg(A, b, x0=None, M=None, tol=1e-8, maxiter=1000):
     return x, k, rnorm / max(bnorm, 1e-300)
 
 
-def bicgstab(A, b, x0=None, M=None, tol=1e-8, maxiter=1000):
+def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
     """Preconditioned BiCGStab (PETSc ``bicgstab`` parity).  Returns
-    (x, iters, relres).
+    (x, iters, relres).  Stops at a residual norm of
+    ``max(tol * |b|, atol)``.
 
     A breakdown (``rhat . v = 0``, a non-finite residual) ends the loop and
     is reported by a non-finite ``relres``; it does not raise."""
@@ -109,7 +164,7 @@ def bicgstab(A, b, x0=None, M=None, tol=1e-8, maxiter=1000):
     r = b - op(x)
     rhat = r
     bnorm = _norm(b)
-    target = tol * bnorm
+    target = max(tol * bnorm, atol)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)

@@ -28,9 +28,20 @@ class CSRPattern(NamedTuple):
     nnz: int
 
 
+def sparse_csr(indptr, indices, data, size):
+    """``torch.sparse_csr_tensor`` without the invariant checks and without
+    PyTorch's warnings about them and about the layout's beta state."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+        warnings.filterwarnings("ignore", message="Sparse invariant checks")
+        return torch.sparse_csr_tensor(indptr, indices, data, size=size,
+                                       check_invariants=False)
+
+
 class CSRMatrix:
     """A ``CSRPattern`` plus values; the sparse tensor and the diagonal are
-    built on first use and kept (``data`` is not written after that)."""
+    built on first use and kept (``data`` is not written after that).
+    ``matvec`` takes a vector (n,) or a block of columns (n, m)."""
 
     def __init__(self, pattern: CSRPattern, data: torch.Tensor):
         self.pattern = pattern
@@ -45,13 +56,7 @@ class CSRMatrix:
     def _sparse(self):
         if self._sp is None:
             p = self.pattern
-            with warnings.catch_warnings():
-                warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
-                warnings.filterwarnings("ignore", message="Sparse invariant checks")
-                self._sp = torch.sparse_csr_tensor(
-                    p.indptr, p.indices, self.data, size=(p.n, p.n),
-                    check_invariants=False,
-                )
+            self._sp = sparse_csr(p.indptr, p.indices, self.data, (p.n, p.n))
         return self._sp
 
     def matvec(self, x):
@@ -70,6 +75,48 @@ class CSRMatrix:
         A = torch.zeros((p.n, p.n), dtype=self.data.dtype, device=self.data.device)
         A[p.rows.long(), p.indices.long()] = self.data
         return A
+
+    def to_host(self):
+        """The matrix as a ``sparse_algebra.HostCSR`` (numpy, float64)."""
+        from .sparse_algebra import HostCSR
+
+        p = self.pattern
+        return HostCSR(
+            p.indptr.cpu().numpy().astype(np.int64),
+            p.indices.cpu().numpy().astype(np.int64),
+            self.data.detach().cpu().numpy().astype(np.float64),
+            (p.n, p.n),
+        )
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        h = self.to_host()
+        return sp.csr_matrix((h.data, h.indices, h.indptr), shape=h.shape)
+
+
+def csr_from_scipy(S, device=None, dtype=None):
+    """A square ``CSRMatrix`` on ``device`` from a scipy CSR matrix or a
+    ``sparse_algebra.HostCSR`` (columns sorted within each row)."""
+    from .. import config
+
+    device = config.resolve_device(device)
+    dtype = dtype or config.default_float()
+    S = S.tocsr()
+    n = S.shape[0]
+    indptr = np.asarray(S.indptr).astype(np.int32)
+    indices = np.asarray(S.indices).astype(np.int32)
+    rows = np.repeat(np.arange(n, dtype=np.int32), np.diff(indptr))
+    pattern = CSRPattern(
+        indptr=torch.as_tensor(indptr, device=device),
+        indices=torch.as_tensor(indices, device=device),
+        rows=torch.as_tensor(rows, device=device),
+        n=int(n),
+        nnz=int(indices.shape[0]),
+    )
+    data = torch.tensor(np.asarray(S.data, dtype=np.float64),
+                        device=device).to(dtype)
+    return CSRMatrix(pattern=pattern, data=data)
 
 
 def build_pattern(cell_dofs_list, ndof, ensure_diagonal=True, device=None,

@@ -22,13 +22,10 @@ _NOT_PORTED = {
     "CoupledNavierStokesSolver": "solvers/navier_stokes.py",
     "NavierStokesSolver": "solvers/navier_stokes.py",
     "NSDGSolver": "solvers/navier_stokes_dg.py",
-    "LinearElasticitySolver": "solvers/linear_elasticity.py",
     "NonlinearElasticitySolver": "solvers/nonlinear_elasticity.py",
     "LargeDeformationSolver": "solvers/large_deformation.py",
     "PlasticitySolver": "solvers/plasticity.py",
     "FSISolver": "solvers/fsi.py",
-    "MaxwellEMSolver": "solvers/maxwell.py",
-    "WavePropagationSolver": "solvers/wave.py",
     "CompressibleNSSolver": "solvers/compressible_ns.py",
 }
 
@@ -66,6 +63,18 @@ def main(case_input, device=None):
         from .solvers.scalar_transport_dg import ScalarTransportDGSolver
 
         solver = ScalarTransportDGSolver(settings, device=device)
+    elif solver_name == "LinearElasticitySolver":
+        from .solvers.linear_elasticity import LinearElasticitySolver
+
+        solver = LinearElasticitySolver(settings, device=device)
+    elif solver_name == "MaxwellEMSolver":
+        from .solvers.maxwell import MaxwellEMSolver
+
+        solver = MaxwellEMSolver(settings, device=device)
+    elif solver_name == "WavePropagationSolver":
+        from .solvers.wave import WavePropagationSolver
+
+        solver = WavePropagationSolver(settings, device=device)
     elif solver_name in _NOT_PORTED:
         raise NotImplementedError(
             f"solver {solver_name} is not ported to fenicssolver_tpu_torch yet; "

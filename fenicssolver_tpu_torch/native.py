@@ -6,7 +6,10 @@ with g++ into the port's own build directory (``fenicssolver_tpu_torch/
 _build/``, listed in ``.gitignore``) and never touches the JAX package's
 ``native/libfstnative.so``.  The build writes a temporary file and renames
 it, so parallel workers cannot race.  Each entry point keeps the
-reference's pure-numpy fallback for machines without a toolchain.
+reference's pure-numpy fallback for machines without a toolchain
+(``aggregate`` and ``csr_spgemm`` return None and their callers in
+``la/amg.py`` and ``la/sparse_algebra.py`` take the numpy route).
+``build_ell`` is not bound: the block-ELL layout is not ported.
 """
 
 from __future__ import annotations
@@ -60,6 +63,14 @@ def _load():
     lib.build_facets.restype = ctypes.c_int64
     lib.build_facets.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int32, i64p, i32p, i32p, i32p,
+    ]
+    lib.aggregate.restype = ctypes.c_int64
+    lib.aggregate.argtypes = [i32p, i32p, ctypes.c_int64, i64p]
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.csr_spgemm.restype = ctypes.c_int64
+    lib.csr_spgemm.argtypes = [
+        ctypes.c_int64, ctypes.c_int64,
+        i64p, i64p, f64p, i64p, i64p, f64p, i64p, i64p, f64p,
     ]
     _lib = lib
     return _lib
@@ -140,3 +151,50 @@ def build_facets(cells):
         facet_cells.reshape(nf, 2),
         facet_local.reshape(nf, 2),
     )
+
+
+def aggregate(indptr, indices, n):
+    """Greedy aggregation for AMG; returns (agg ids (n,), n_aggregates) or
+    None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int32)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    agg = np.empty(n, dtype=np.int64)
+    n_agg = lib.aggregate(
+        _ptr(indptr, ctypes.c_int32), _ptr(indices, ctypes.c_int32), n,
+        _ptr(agg, ctypes.c_int64),
+    )
+    return agg, int(n_agg)
+
+
+def csr_spgemm(m, n, Ap, Ai, Ax, Bp, Bi, Bx):
+    """C = A(m x k) @ B(k x n) on host CSR (int64 indptr/indices, f64 data)
+    by the native Gustavson row merge; returns (indptr, indices, data) with
+    sorted columns, or None when the native library is unavailable (the
+    caller then takes ``la/sparse_algebra``'s sort-reduce formulation).
+
+    Two calls: the symbolic one gets null outputs and only returns nnz (it
+    does not fill ``Cp``); the numeric one fills all three arrays."""
+    lib = _load()
+    if lib is None:
+        return None
+    c_i64, c_f64 = ctypes.c_int64, ctypes.c_double
+    Ap = np.ascontiguousarray(Ap, dtype=np.int64)
+    Ai = np.ascontiguousarray(Ai, dtype=np.int64)
+    Ax = np.ascontiguousarray(Ax, dtype=np.float64)
+    Bp = np.ascontiguousarray(Bp, dtype=np.int64)
+    Bi = np.ascontiguousarray(Bi, dtype=np.int64)
+    Bx = np.ascontiguousarray(Bx, dtype=np.float64)
+    operands = (
+        _ptr(Ap, c_i64), _ptr(Ai, c_i64), _ptr(Ax, c_f64),
+        _ptr(Bp, c_i64), _ptr(Bi, c_i64), _ptr(Bx, c_f64),
+    )
+    nnz = lib.csr_spgemm(m, n, *operands, None, None, None)
+    Cp = np.empty(m + 1, dtype=np.int64)
+    Ci = np.empty(nnz, dtype=np.int64)
+    Cx = np.empty(nnz, dtype=np.float64)
+    lib.csr_spgemm(m, n, *operands,
+                   _ptr(Cp, c_i64), _ptr(Ci, c_i64), _ptr(Cx, c_f64))
+    return Cp, Ci, Cx

@@ -15,9 +15,13 @@ Both assemblers read ``term.aux`` when called and keep no copy of it, so a
 caller may swap an aux tensor in place between calls (the cached transient
 form refreshes its lagged solution so, and bumps ``Form.aux_version``).
 
-Cells are processed in chunks of ``CHUNK_CELLS`` so the batched forward-mode
-intermediates stay bounded on the device (the Jacobian of a P1 tet kernel
-holds a few hundred values per cell per tangent).
+Cells are processed in chunks so the batched forward-mode intermediates
+stay bounded on the device.  ``vmap(jacfwd)`` carries one tangent per
+element dof through every intermediate of the kernel, so what it holds per
+cell grows like k^2 (k = dofs an element): ``chunk_cells(k)`` divides a fixed
+budget of bytes by that, capped at ``CHUNK_CELLS`` (scalar P1 tets, k = 4,
+keep their 2^20 cells a chunk; a vector P1 tet, k = 12, gets 1/9 of that
+and a vector P2 tet, k = 30, 1/56).
 
 The sums are deterministic.  ``index_add_`` on CUDA adds with atomics, in an
 order that changes from run to run, and so do the last bits of the result.
@@ -30,7 +34,6 @@ as it is.
 
 from __future__ import annotations
 
-import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -40,12 +43,25 @@ from torch.utils._pytree import tree_map
 
 from ..core.expression import Constant, Expression
 from ..core.function import Function
-from ..core.spaces import VectorFunctionSpace
-from ..la.sparse import CSRMatrix, build_pattern
+from ..core.spaces import MixedFunctionSpace, VectorFunctionSpace
+from ..la.sparse import CSRMatrix, build_pattern, sparse_csr
 from . import geometry
 
-#: cells per vmapped chunk in assembly (bounds device memory at 12.6M cells)
+#: most cells per vmapped chunk in assembly (bounds device memory at 12.6M cells)
 CHUNK_CELLS = 1 << 20
+#: what ``vmap(jacfwd)`` of a residual kernel holds per cell: about 25
+#: values for each of the k x k entries of the element matrix (the tangents
+#: of the gradients, fluxes and the result), 8 bytes each
+JACFWD_BYTES_PER_ENTRY = 200
+#: bytes of forward-mode intermediates a chunk may hold: 2^20 cells at k = 4
+CHUNK_BYTES = CHUNK_CELLS * JACFWD_BYTES_PER_ENTRY * 4 * 4
+
+
+def chunk_cells(ndof_el):
+    """Cells per chunk for elements of ``ndof_el`` dofs: ``CHUNK_BYTES`` over
+    the bytes ``vmap(jacfwd)`` holds per cell, at most ``CHUNK_CELLS``."""
+    k = max(int(ndof_el), 1)
+    return max(1, min(CHUNK_CELLS, CHUNK_BYTES // (JACFWD_BYTES_PER_ENTRY * k * k)))
 
 
 _ONES = {}  # (device, dtype) -> a tensor of ones, shared by the selectors
@@ -90,13 +106,9 @@ class OrderedScatter:
     def _selector(self, dtype):
         if dtype not in self._selectors:
             n = self.cols.numel()
-            with warnings.catch_warnings():
-                warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
-                warnings.filterwarnings("ignore", message="Sparse invariant checks")
-                self._selectors[dtype] = torch.sparse_csr_tensor(
-                    self.crow, self.cols, _ones(n, dtype, self.cols.device),
-                    size=(self.targets.numel(), n), check_invariants=False,
-                )
+            self._selectors[dtype] = sparse_csr(
+                self.crow, self.cols, _ones(n, dtype, self.cols.device),
+                (self.targets.numel(), n))
         return self._selectors[dtype]
 
     def add_(self, out, values):
@@ -164,14 +176,20 @@ def _vmap_dims(term):
     return (0, ctx_axes, 0 if term.aux is not None else None)
 
 
+def _chunk_size(term):
+    """Cells per chunk of ``term``: a function of its element size alone."""
+    return chunk_cells(term.ctx.cell_dofs.shape[1])
+
+
 def _chunk_bounds(term):
     n = term.ctx.cell_dofs.shape[0]
-    return [(s, min(s + CHUNK_CELLS, n)) for s in range(0, n, CHUNK_CELLS)]
+    step = _chunk_size(term)
+    return [(s, min(s + step, n)) for s in range(0, n, step)]
 
 
 def _chunks(term):
     """(start, stop, ctx slice, aux slice) over the term's batch, in chunks
-    of ``CHUNK_CELLS``."""
+    of ``_chunk_size(term)`` cells."""
     for s, e in _chunk_bounds(term):
         ctx = type(term.ctx)(*(a[s:e] for a in term.ctx))
         aux = None if term.aux is None else tree_map(lambda a: a[s:e], term.aux)
@@ -179,12 +197,13 @@ def _chunks(term):
 
 
 def _scatters(term):
-    """Per chunk of ``CHUNK_CELLS``: (the scatter of the residual into the
-    dofs, the scatter of the element matrices into ``term.pos`` or None
-    before ``Form.finalize``).  Built once for a chunk size and kept."""
-    if term.scatters is None or term.scatters[0] != CHUNK_CELLS:
+    """Per chunk of ``_chunk_size(term)`` cells: (the scatter of the residual
+    into the dofs, the scatter of the element matrices into ``term.pos`` or
+    None before ``Form.finalize``).  Built once for a chunk size and kept."""
+    size = _chunk_size(term)
+    if term.scatters is None or term.scatters[0] != size:
         k = term.ctx.cell_dofs.shape[1]
-        term.scatters = (CHUNK_CELLS, [
+        term.scatters = (size, [
             (OrderedScatter(term.ctx.cell_dofs[s:e], term.ordered),
              None if term.pos is None else
              OrderedScatter(term.pos[s * k * k : e * k * k], term.ordered))
@@ -368,6 +387,8 @@ def l2_project(value, space, quad_degree=None, rhs_values=None, device=None,
     from .. import config
     from ..la.krylov import cg, jacobi_preconditioner
 
+    if isinstance(space, MixedFunctionSpace):
+        raise TypeError("project into mixed space unsupported; project per part")
     device = config.resolve_device(device)
     dtype = dtype or config.default_float()
     mesh = space.mesh

@@ -55,7 +55,7 @@ class _Shard(NamedTuple):
 
 def _element_matrices(kernel, ctx, aux, dtype):
     """Element stiffness matrices of the cell batch ``ctx``, written chunk by
-    chunk (``assembly.CHUNK_CELLS``) into a preallocated (k, k, nc)."""
+    chunk (``assembly.chunk_cells(k)`` cells) into a preallocated (k, k, nc)."""
     nc, k = ctx.cell_dofs.shape
     term = assembly.CellTerm(kernel=kernel, ctx=ctx, aux=aux)
     fn = torch.func.vmap(torch.func.jacfwd(kernel, argnums=0),

@@ -109,7 +109,7 @@ def compile_transient_ns(solver, dt, n_steps, **kwargs):
 
 def compile_transient_elasticity_dynamics(solver, dt, n_steps, **kwargs):
     raise _waits_for("compile_transient_elasticity_dynamics",
-                     "solvers/linear_elasticity.py")
+                     "solvers/large_deformation.py")
 
 
 def compile_transient_ns_ipcs(solver, dt, n_steps, **kwargs):

@@ -164,9 +164,6 @@ class ScalarTransportSolver(SolverBase):
             return ("scalar", arr)
         return ("array", np.asarray(arr))
 
-    def _tensor(self, a):
-        return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
-
     @staticmethod
     def _apply_coeff(spec, aux_name, aux, T_q, grad_q):
         """Apply k * grad within a kernel: returns (nq, g) flux."""

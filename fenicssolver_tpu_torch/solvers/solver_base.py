@@ -13,14 +13,19 @@ during a solve and mirrored from their masters after it),
 ``solve_linear_problem``, ``solve_nonlinear_problem`` (Newton) and
 ``solve_static`` (``:839-1149``): a dense LU below ``DENSE_LIMIT``; for SPD
 systems Jacobi-CG, or CG preconditioned by the geometric multigrid V-cycle
-on BoxMesh lattices; for the others Jacobi-BiCGStab, then GMRES(80) when
-BiCGStab breaks down or stalls.
+on BoxMesh lattices (``preconditioner: "gmg"``) or by the
+smoothed-aggregation AMG V-cycle (``"amg"``, ``la/amg.py``); for the others
+Jacobi-BiCGStab, then GMRES(80) when BiCGStab breaks down or stalls; and
+``solve_amg`` (``:1333-1395``), AMG-CG with the rigid-body near-nullspace
+for vector spaces.  ``last_preconditioner`` names the preconditioner the
+last Krylov solve ran with (``"jacobi"``, ``"gmg"``, ``"amg"``,
+``"chebyshev"``), so that a fallback after a failed set-up shows.
 
 Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cuda``);
 tensors are created there in ``config.default_float()``.  Features outside
 the port raise ``NotImplementedError`` naming the module that will bring
-them: ``"amg"``, ``distributed``, HDF5/XDMF meshes.  ``spmv: "bell"``
-(the reference's default, a block-ELL layout) maps to the CSR matvec.
+them: ``distributed``, HDF5/XDMF meshes.  ``spmv: "bell"`` (the reference's
+default, a block-ELL layout) maps to the CSR matvec, in the AMG levels too.
 
 Deviations from the reference's time loop: a saved step carries the time
 its field belongs to (the end of the step; the reference's loop writes the
@@ -96,6 +101,12 @@ class SolverBase:
         # inner-solve iteration count of the most recent linear solve
         self.last_iterations = None
         self.last_relres = None
+        # which preconditioner the most recent Krylov solve ran with
+        self.last_preconditioner = None
+
+    def _tensor(self, a):
+        """A copy of ``a`` as a tensor on the solver's device, in its dtype."""
+        return torch.tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------------
     # settings / mesh / spaces
@@ -479,11 +490,16 @@ class SolverBase:
     # output
     # ------------------------------------------------------------------
     def plot(self):
-        # plotting never fails a solve (reference behaviour)
-        self.logger.warning(
-            "plotting is not ported to fenicssolver_tpu_torch yet "
-            "(utils/plotting.py); skipped"
-        )
+        try:
+            from ..utils import plotting
+
+            plotting.plot(self.result)
+            if self.report_settings.get("plotting_interactive"):
+                import matplotlib.pyplot as plt
+
+                plt.show()
+        except Exception as e:  # plotting never fails a solve
+            self.logger.warning("plotting skipped: %s", e)
 
     def result_filename(self):
         return self.report_settings.get("result_filename") or "result_file.pvd"
@@ -514,8 +530,6 @@ class SolverBase:
     def _check_ported(self, sp):
         if sp.get("distributed"):
             raise not_ported("solver_parameters.distributed", "parallel/")
-        if sp.get("preconditioner") == "amg":
-            raise not_ported("preconditioner='amg'", "la/amg.py")
 
     def _periodic_slaves(self):
         """(slave dofs, master of every dof) of a periodic space, or None."""
@@ -540,7 +554,10 @@ class SolverBase:
 
         Small systems use a dense LU.  Larger SPD systems use CG,
         preconditioned by Jacobi or (``preconditioner = "gmg"`` on a BoxMesh
-        lattice) by the geometric multigrid V-cycle; the others use
+        lattice) by the geometric multigrid V-cycle or (``"amg"``) by the
+        smoothed-aggregation V-cycle, which falls back to Jacobi with a
+        warning when its set-up throws (``last_preconditioner`` says which
+        ran); the others use
         Jacobi-BiCGStab and, when its relative residual is above
         ``10 * tol`` or not finite, Jacobi-GMRES(80) at ``maxiter // 10``
         restarts (reference ``:1110-1141``).  ``last_krylov`` names the
@@ -572,12 +589,23 @@ class SolverBase:
                 Ac = assembly.constrain_csr(A, free)
                 self.last_iterations = "direct"
                 self.last_krylov = "direct"
+                self.last_preconditioner = None
                 return self._copy_periodic(dense_solve(Ac, rhs))
         op = assembly.constrained_operator(A.matvec, free)
         diag = free * A.diagonal() + (1.0 - free)
         M = krylov.jacobi_preconditioner(diag)
+        self.last_preconditioner = "jacobi"
         if sp.get("preconditioner") == "gmg":
-            M = self._gmg_preconditioner(free, spd) or M
+            G = self._gmg_preconditioner(free, spd)
+            if G is not None:
+                M, self.last_preconditioner = G, "gmg"
+        elif sp.get("preconditioner") == "amg":
+            try:
+                with self.timers.phase("amg_setup"):
+                    M = self._amg_preconditioner(A, free)
+                self.last_preconditioner = "amg"
+            except Exception as e:  # a degenerate set-up
+                self.logger.warning("AMG setup failed (%s); Jacobi fallback", e)
         tol = sp.get("relative_tolerance", 1e-8)
         maxiter = sp.get("maximum_iterations", 2000)
         with self.timers.phase("krylov"):
@@ -726,8 +754,62 @@ class SolverBase:
         u_current.values = x.cpu().numpy().astype(np.float64)
         return u_current
 
+    def _amg_preconditioner(self, A, free):
+        """The smoothed-aggregation hierarchy of the constrained ``A`` (set
+        up on the host in f64, stored on ``A``'s device in its dtype), with
+        the rigid-body near-nullspace on a vector space."""
+        from ..la.amg import AMGPreconditioner, rigid_body_modes
+
+        V = self.function_space
+        nullspace = None
+        if isinstance(V, VectorFunctionSpace):
+            nullspace = rigid_body_modes(V.scalar_space.dof_coords, V.vdim)
+        amg = AMGPreconditioner(
+            assembly.constrain_csr(A, free).to_host(),
+            nullspace=nullspace,
+            free_mask=free.cpu().numpy() > 0.5,
+            dtype=A.data.dtype,
+            device=A.data.device,
+        )
+        self.last_amg = amg
+        return amg
+
     def solve_amg(self, form, u, dirichlet):
-        raise not_ported("AMG-preconditioned solves", "la/amg.py")
+        """Smoothed-aggregation AMG-preconditioned CG with the rigid-body
+        near-nullspace for vector problems (reference ``:1333-1395``, on CSR
+        levels).  When the AMG set-up throws, Chebyshev-Jacobi takes its
+        place with a warning; ``last_preconditioner`` says which ran."""
+        with self.timers.phase("assembly"):
+            A, b = self._linear_system(form)
+        if dirichlet is not None and dirichlet.any:
+            free, ubc = dirichlet.free_mask, dirichlet.u_bc
+        else:
+            free, ubc = torch.ones_like(b), torch.zeros_like(b)
+        rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
+        sp = self._solver_params()
+        self._check_ported(sp)
+        op = assembly.constrained_operator(A.matvec, free)
+        try:
+            with self.timers.phase("amg_setup"):
+                M = self._amg_preconditioner(A, free)
+            self.last_preconditioner = "amg"
+        except Exception as e:  # robust fallback: Chebyshev-Jacobi
+            self.logger.warning("AMG setup failed (%s); Chebyshev fallback", e)
+            diag = free * A.diagonal() + (1.0 - free)
+            M = krylov.chebyshev_preconditioner(op, diag, degree=5)
+            self.last_preconditioner = "chebyshev"
+        with self.timers.phase("krylov"):
+            x, it, res = krylov.cg(
+                op, rhs, M=M, tol=sp.get("relative_tolerance", 1e-8),
+                maxiter=10000,
+            )
+        self.last_krylov = "CG"
+        self.last_iterations = int(it)
+        self.last_relres = float(res)
+        if sp.get("monitor_convergence"):
+            self.logger.info("AMG-CG: %d iters, rel res %.3e", it, res)
+        u.values = x.cpu().numpy().astype(np.float64)
+        return u
 
     # hooks implemented by physics solvers -----------------------------------
     def generate_form(self, time_iter_, trial, test, w_current, w_prev):

@@ -117,6 +117,54 @@ def test_chunked_assembly_matches_one_batch(monkeypatch):
     assert _rel(b2, b) < TOL
 
 
+@pytest.mark.parametrize("k,cells", [(1, 1 << 20), (3, 1 << 20), (4, 1 << 20),
+                                     (10, 167772), (12, 116508), (30, 18641)])
+def test_chunk_follows_the_element_size(k, cells):
+    """A fixed budget of bytes a chunk over what ``vmap(jacfwd)`` holds per
+    cell (~k^2): scalar P1 keeps 2^20 cells, vector P1 and P2 tets get
+    fewer."""
+    assert tasm.chunk_cells(k) == cells
+    assert tasm.chunk_cells(k) * k * k * tasm.JACFWD_BYTES_PER_ENTRY <= max(
+        tasm.CHUNK_BYTES, tasm.JACFWD_BYTES_PER_ENTRY * k * k)
+
+
+def test_chunk_size_is_a_function_of_the_term_alone(monkeypatch):
+    """Vector P1 on a cube: the term's chunk is ``chunk_cells(12)``, its
+    scatters are built once for it, and an assembly cut into several chunks
+    equals the one-chunk result exactly."""
+    import fenicssolver_tpu_torch.core as tcore
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver,
+    )
+    from tests.test_linear_elasticity import solver_settings
+
+    V = tcore.VectorFunctionSpace(tcore.UnitCubeMesh(3, 3, 2), "CG", 1)
+    s = LinearElasticitySolver(solver_settings(V, {}))
+    s.init_solver()
+    s.current_step = 0
+    s.settings["body_source"] = tcore.Constant((0.0, 0.0, -1.0))
+    s.body_source = s.settings["body_source"]
+    form, _ = s.generate_form(0, None, None, s.w_current, s.w_prev)
+    term = form.cell_terms[0]
+    assert tasm._chunk_size(term) == tasm.chunk_cells(12) == 116508
+    assert len(tasm._chunk_bounds(term)) == 1
+    u0 = torch.zeros(V.ndof, dtype=torch.float64)
+    A1 = tasm.assemble_jacobian(form, u0).data.clone()
+    b1 = -tasm.assemble_residual(form, u0)
+    kept = term.scatters
+    tasm.assemble_jacobian(form, u0)
+    assert term.scatters is kept  # cached for this chunk size
+    # a smaller budget: the same term now takes 108 / 25 -> 5 chunks
+    monkeypatch.setattr(tasm, "CHUNK_BYTES",
+                        25 * 144 * tasm.JACFWD_BYTES_PER_ENTRY)
+    assert tasm._chunk_size(term) == 25
+    assert len(tasm._chunk_bounds(term)) == 5
+    A2 = tasm.assemble_jacobian(form, u0).data
+    b2 = -tasm.assemble_residual(form, u0)
+    assert term.scatters is not kept and term.scatters[0] == 25
+    assert torch.equal(A2, A1) and torch.equal(b2, b1)
+
+
 def _bc_settings(core, V, kind):
     """tests/test_heat_transfer.py boundary sets: Dirichlet top, a heat flux
     (or an HTC) at the bottom, zero flux on the left."""

@@ -291,3 +291,75 @@ def test_newton_matches_jax():
                                 rtol=1e-14, atol=1e-14,
                                 error_on_nonconvergence=False)
     assert (its, conv) == (2, False)
+
+
+@pytest.mark.parametrize("lmax", [None, 1.7])
+@pytest.mark.parametrize("degree", [1, 4])
+def test_chebyshev_preconditioner_matches_jax(degree, lmax):
+    """One application to 1e-12, and CG preconditioned by it: equal
+    iteration counts.  With ``lmax=None`` both estimate it by ten power
+    iterations from the same start vector."""
+    A, b = _spd()
+    Aj, At = jnp.asarray(A), torch.as_tensor(A)
+    dj, dt = jnp.diag(Aj), torch.as_tensor(np.diag(A).copy())
+    Mj = jkry.chebyshev_preconditioner(lambda v: Aj @ v, dj, degree=degree, lmax=lmax)
+    Mt = tkry.chebyshev_preconditioner(lambda v: At @ v, dt, degree=degree, lmax=lmax)
+    assert _rel(Mt(torch.as_tensor(b)), Mj(jnp.asarray(b))) < 1e-12
+    xj, itj, _ = jkry.cg(lambda v: Aj @ v, jnp.asarray(b), M=Mj, tol=1e-10, maxiter=500)
+    xt, itt, _ = tkry.cg(lambda v: At @ v, torch.as_tensor(b), M=Mt, tol=1e-10,
+                         maxiter=500)
+    assert itt == int(itj)
+    assert _rel(xt, xj) < 1e-10
+
+
+def test_chebyshev_application_reads_nothing_back(monkeypatch):
+    """The set-up reads one scalar (``lmax``); an application reads none."""
+    A, b = _spd()
+    At = torch.as_tensor(A)
+    reads = []
+    inner = torch.Tensor.item
+    monkeypatch.setattr(torch.Tensor, "item",
+                        lambda self: reads.append(1) or inner(self))
+    M = tkry.chebyshev_preconditioner(lambda v: At @ v,
+                                      torch.as_tensor(np.diag(A).copy()), degree=5)
+    assert len(reads) == 1
+    M(torch.as_tensor(b))
+    assert len(reads) == 1
+
+
+@pytest.mark.parametrize("block", [2, 3])
+def test_block_jacobi_preconditioner_matches_jax(block):
+    rng = np.random.default_rng(block)
+    nb = 12
+    blocks = rng.standard_normal((nb, block, block)) + 4 * np.eye(block)
+    inv = np.linalg.inv(blocks)
+    x = rng.standard_normal(nb * block)
+    yj = jkry.block_jacobi_preconditioner(jnp.asarray(inv), block)(jnp.asarray(x))
+    yt = tkry.block_jacobi_preconditioner(torch.as_tensor(inv), block)(
+        torch.as_tensor(x))
+    assert _rel(yt, yj) < 1e-12
+    for i in range(nb):  # it inverts each diagonal block
+        assert np.allclose(blocks[i] @ yt.numpy()[i * block:(i + 1) * block],
+                           x[i * block:(i + 1) * block], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab"])
+def test_atol_stops_the_iteration_as_in_jax(method):
+    """``atol`` is an absolute floor under ``tol * |b|``: both packages stop
+    at the same early iteration with the same iterate; without it the solve
+    runs on to ``tol``.  (Both methods on the SPD system: on the nonsymmetric
+    one BiCGStab amplifies rounding beyond any comparison.)"""
+    A, b = _spd()
+    Aj, At = jnp.asarray(A), torch.as_tensor(A)
+    atol = 1e-2 * np.linalg.norm(b)
+    solve_j, solve_t = getattr(jkry, method), getattr(tkry, method)
+    xj, itj, rj = solve_j(lambda v: Aj @ v, jnp.asarray(b), tol=1e-12, atol=atol,
+                          maxiter=500)
+    xt, itt, rt = solve_t(lambda v: At @ v, torch.as_tensor(b), tol=1e-12,
+                          atol=atol, maxiter=500)
+    assert itt == int(itj) > 0
+    assert _rel(xt, xj) < 1e-12
+    assert 1e-12 < rt <= 1e-2 and rt == pytest.approx(float(rj), rel=1e-9)
+    _, it_full, r_full = solve_t(lambda v: At @ v, torch.as_tensor(b), tol=1e-12,
+                                 maxiter=500)
+    assert it_full > itt and r_full <= 1e-12

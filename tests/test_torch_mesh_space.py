@@ -138,8 +138,9 @@ def test_vector_space_dof_map_matches(mesh):
         _same(tV.facet_dofs(ids), jV.facet_dofs(ids))
         for c in range(tV.vdim):
             _same(tV.facet_dofs(ids, component=c), jV.facet_dofs(ids, component=c))
-    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch"):
-        tV.sub(0)
+    local = np.arange(tV.scalar_space.ndof)
+    for c in range(tV.vdim):  # component views, as in the reference
+        _same(tV.sub(c).global_dofs(local), jV.sub(c).global_dofs(local))
 
 
 def test_vector_space_cell_context_matches_interop():
