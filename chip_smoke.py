@@ -95,6 +95,23 @@ non-zero and no result line is printed):
    slab of tests/test_maxwell.py at 120 x 120, P2 (1e-8); an elasticity
    JSON case on ``data/mesh.xml`` through ``python -m
    fenicssolver_tpu_torch``;
+8e. nonlinear solids, through ``main(settings)`` on the default device:
+   the hyperelastic twist of examples/test_nonlinear_elasticity.py at
+   ``UnitCubeMesh(24, 16, 16)`` (21,675 dofs, Newton with Jacobi-GMRES(80)
+   updates, one line a Newton step, the Hessian's memory a cell against its
+   chunk; at 4^3 the card against the CPU to 1e-9); the contact cases of
+   examples/test_contact_mechanics.py (a plane at 64 x 64 for two penalties:
+   force balance, the forces within 2%, the penetration ratio; the ball at
+   24 x 24); the J2 bar of tests/test_plasticity.py at ``UnitCubeMesh(32)``
+   (107,811 dofs, every quadrature point's sigma_xx within 1e-6 of the
+   bilinear law at every load step, alpha frozen while unloading); the
+   large-deformation beam at 128 x 16 for nu = 0.3 and 0.5 (and at n = 16
+   the card against the CPU to 1e-9); the elastodynamics fast path against
+   the time loop at 19,683 dofs (1e-6), its set-up and seconds a step at
+   139,587 dofs; the adjoint: the inverse conductivity problem of
+   examples/test_adjoint_inverse.py by ``torch.optim.Adam`` with the
+   example's assertions, and at 66,049 dofs a gradient against central
+   differences (1e-6) that two calls give bit-equal;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
@@ -2436,6 +2453,723 @@ def phase_elasticity_cli(on="cuda"):
           "the saved displacement is not a pull along z")
 
 
+# -- nonlinear solids, elastodynamics and the adjoint ------------------------
+
+RUBBER = {"elastic_modulus": 10, "poisson_ratio": 0.3, "density": 800,
+          "thermal_expansion_coefficient": 2e-6}
+QUIET = {"plotting_freq": 0, "saving_freq": 0, "plotting_interactive": False,
+         "logging_level": 40}
+#: the hyperelastic twist at the reference's own size: 36,864 tets,
+#: 7,225 nodes, 21,675 dofs (Jacobi-GMRES(80) Newton updates; the JAX
+#: package's example runs it at 6 x 4 x 4)
+N_TWIST = (24, 16, 16)
+#: the contact block: 64 x 64 (8,450 dofs, dense LU).  Jacobi-GMRES(80)
+#: takes 1,086-1,349 iterations a Newton update at 32 x 32 and 4,106-5,423
+#: at 64 x 64 (CPU rehearsal), so ~16,000-22,000 at 128 x 128: the
+#: 200-restart cap of the Newton updates.  The ball stays at 24 x 24: on
+#: finer meshes full Newton steps against it invert elements (NaN at 32).
+N_CONTACT, N_BALL = 64, 24
+#: the J2 bar: 196,608 tets, 107,811 dofs; the unloading step is taken in
+#: N_PLASTIC // 4 increments (one increment inverts the return map's branch
+#: in the layer of cells next to the pulled face and Newton cycles there,
+#: from 8 x 8 x 8 on; the unloaded state is elastic, so the same)
+N_PLASTIC = 32
+#: the 2-D beam of examples/test_large_deformation.py: 128 x 16, mixed P1,
+#: 10,965 dofs (dense LU)
+N_BEAM = 128
+#: the elastodynamics bar: 245,760 tets, 139,587 dofs; the time loop it is
+#: held to runs at 80 x 8 x 8 (19,683 dofs), where its AMG set-up a step is
+#: ~1 s and not ~25 s
+N_DYNAMICS, N_DYNAMICS_LOOP = (160, 16, 16), (80, 8, 8)
+#: Jacobi-PCG's cap a step there (the fast path's default, 2,000, is below
+#: what the 139,587-dof bar needs to reach 1e-10)
+DYNAMICS_MAXITER = 20000
+#: the adjoint gradient check: UnitSquareMesh(256), 131,072 cells, 66,049 dofs
+N_ADJOINT = 256
+
+
+def _on_card(device):
+    return device is None or str(device).startswith("cuda")
+
+
+def _reset_peak(device):
+    import torch
+
+    if _on_card(device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_text(device):
+    return f"; peak {_peak_gib():.2f} GiB" if _on_card(device) else ""
+
+
+def _newton_lines(tag, solver, what=""):
+    """One line per Newton step of the solver's last solve: the seconds of
+    its Jacobian, linear solve and residual, and the solve's iterations."""
+    for k, st in enumerate(solver.last_newton, start=1):
+        rel = "" if st["relres"] is None else f", rel res {st['relres']:.2e}"
+        print(f"[{tag}] {what}Newton step {k}: Jacobian {st['jacobian_s']:.3f} "
+              f"s, solve {st['solve_s']:.3f} s ({st['iterations']}{rel}), "
+              f"residual {st.get('residual_s', float('nan')):.3f} s")
+
+
+TWIST = ("scale*(y0 + (x[1] - y0)*cos(theta) - (x[2] - z0)*sin(theta) - x[1])",
+         "scale*(z0 + (x[1] - y0)*sin(theta) + (x[2] - z0)*cos(theta) - x[2])")
+
+
+def twist_settings(core, n):
+    """The twist of examples/test_nonlinear_elasticity.py (the reference's
+    dolfin hyperelasticity demo) on ``UnitCubeMesh(*n)``: x = 0 clamped,
+    x = 1 rotated by pi/3 about its centre line, a body force and the
+    example's surface load.  Newton starts from the twist scaled by x: from
+    the Dirichlet data alone (interior at rest) the first update inverts
+    cells next to x = 1 at 24 x 16 x 16 (NaN at Newton step 1)."""
+    import numpy as np
+
+    def twist(prefix):
+        return core.Expression(("0.0",) + tuple(prefix + t for t in TWIST),
+                               scale=0.5, y0=0.5, z0=0.5, theta=np.pi / 3,
+                               degree=2)
+
+    return {
+        "solver_name": "NonlinearElasticitySolver",
+        "mesh": core.UnitCubeMesh(*n), "fe_degree": 1,
+        "boundary_conditions": {
+            "left": {"boundary": _on_plane(core, 0, 0.0), "boundary_id": 1,
+                     "type": "Dirichlet", "value": core.Constant((0.0, 0.0, 0.0))},
+            "right": {"boundary": _on_plane(core, 0, 1.0), "boundary_id": 2,
+                      "type": "Dirichlet", "value": twist("")},
+        },
+        "initial_values": {"displacement": twist("x[0]*")},
+        "body_source": core.Constant((0.0, -0.5, 0.0)),
+        "surface_source": {"value": core.Constant(0.1),
+                           "direction": core.Constant((1, 0.0, 0.0))},
+        "material": dict(RUBBER),
+        "solver_settings": {
+            "transient_settings": {"transient": False, "starting_time": 0,
+                                   "time_step": 0.1, "ending_time": 1},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-10,
+                                  "maximum_iterations": 50,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def _twist_errors(solver):
+    """(max |u| on x = 0, max distance from the rotation on x = 1)."""
+    import numpy as np
+
+    V = solver.function_space
+    U = solver.result.values.reshape(-1, 3)
+    X = V.scalar_space.dof_coords
+    left, right = np.abs(X[:, 0]) < 1e-12, np.abs(X[:, 0] - 1.0) < 1e-12
+    th, y, z = np.pi / 3, X[right, 1], X[right, 2]
+    uy = 0.5 * (0.5 + (y - 0.5) * np.cos(th) - (z - 0.5) * np.sin(th) - y)
+    uz = 0.5 * (0.5 + (y - 0.5) * np.sin(th) + (z - 0.5) * np.cos(th) - z)
+    rot = max(np.abs(U[right, 1] - uy).max(), np.abs(U[right, 2] - uz).max(),
+              np.abs(U[right, 0]).max())
+    return float(np.abs(U[left]).max()), float(rot)
+
+
+def _hessian_memory(tag, solver, form, device):
+    """Seconds and peak device bytes of one Jacobian assembly of ``form``
+    at the solver's solution, per cell of its cell term's largest chunk,
+    against what the term's chunk allows a cell (``CHUNK_BYTES`` over its
+    cells a chunk) and against the default model
+    (``JACFWD_BYTES_PER_ENTRY`` an entry)."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly
+
+    u = torch.as_tensor(solver.result.values, dtype=solver.dtype,
+                        device=solver.device)
+    term = form.cell_terms[0]
+    k = term.ctx.cell_dofs.shape[1]
+    chunk = assembly._chunk_size(term)
+    cells = min(chunk, term.ctx.cell_dofs.shape[0])
+    if _on_card(device):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    J = assembly.assemble_jacobian(form, u)
+    if _on_card(device):
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not _on_card(device):
+        print(f"[{tag}] Jacobian assembly {dt:.3f} s; device memory not "
+              f"measured (on {device})")
+        return
+    held = torch.cuda.max_memory_allocated() - base - J.data.numel() * 8
+    per_cell = held / cells
+    allowed = assembly.CHUNK_BYTES / chunk
+    model = assembly.JACFWD_BYTES_PER_ENTRY * k * k
+    print(f"[{tag}] Jacobian assembly {dt:.3f} s, k = {k}, {chunk} cells a "
+          f"chunk, {cells} in the largest: {held / 2**20:.1f} MiB held beyond "
+          f"the result, {per_cell:.0f} B a cell; the chunk allows "
+          f"{allowed:.0f} ({per_cell / allowed:.2f}x), the default model "
+          f"{model} ({per_cell / model:.2f}x)")
+    check(per_cell <= 1.1 * allowed,
+          f"the Jacobian holds {per_cell:.0f} B a cell, its chunk allows "
+          f"{allowed:.0f}")
+
+
+def phase_hyperelastic(device=None, n=N_TWIST, n_small=4):
+    """The twist of examples/test_nonlinear_elasticity.py at the
+    reference's own ``UnitCubeMesh(24, 16, 16)`` through ``main(settings)``:
+    neo-Hookean, the element Hessian by forward-over-reverse autodiff,
+    Newton with Jacobi-GMRES(80) updates (21,675 dofs > ``DENSE_LIMIT``);
+    the Dirichlet data must hold exactly and the twisted face within 1e-10
+    of the rotation.  Then the same case at ``UnitCubeMesh(n_small)`` on the
+    card against the port on the CPU (rel-L2 1e-9, equal Newton steps)."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    solver = run_main(twist_settings(core, n), device=device)
+    wall = time.perf_counter() - t0
+    if _on_card(device):
+        check(solver.device.type == "cuda", f"the twist ran on {solver.device}")
+    tt = solver.timers.totals
+    left, rot = _twist_errors(solver)
+    print(f"[hyperelastic] twist {n}: {solver.mesh.num_cells()} tets, "
+          f"{solver.function_space.ndof} dofs on {solver.device}: main() "
+          f"{wall:.2f} s, {solver.last_iterations} Newton steps; form "
+          f"{tt['form']:.2f} s, Jacobians {tt['jacobian']:.2f} s, residuals "
+          f"{tt['residual']:.2f} s, GMRES {tt['newton_solve']:.2f} s"
+          + _peak_text(device))
+    _newton_lines("hyperelastic", solver)
+    print(f"[hyperelastic] max |u| on x = 0: {left:.3e}; max distance from "
+          f"the rotation on x = 1: {rot:.3e} (tol 1e-10); max |u| "
+          f"{np.abs(solver.result.values).max():.4f}")
+    check(np.isfinite(solver.result.values).all(), "the twist is not finite")
+    check(left == 0.0, f"the clamped face moved by {left}")
+    check(rot < 1e-10, f"the twisted face is {rot} from the rotation")
+    check(all(isinstance(s["iterations"], int) and s["relres"] <= 1e-10
+              for s in solver.last_newton), "a GMRES update missed 1e-10")
+    form, _ = solver.generate_form(0, None, None, solver.w_current,
+                                   solver.w_current)
+    _hessian_memory("hyperelastic", solver, form, device)
+    del solver, form
+
+    res = {}
+    for where in (device, "cpu"):
+        s = run_main(twist_settings(core, (n_small,) * 3), device=where)
+        res[where] = (s.result.values.copy(), s.last_iterations, s.device)
+    rel = _rel_l2(res[device][0], res["cpu"][0])
+    print(f"[hyperelastic] twist {n_small}^3 on {res[device][2]}: {res[device][1]} "
+          f"Newton steps, cpu {res['cpu'][1]}; rel-L2 {rel:.3e} (tol 1e-9)")
+    check(rel <= 1e-9, f"twist card vs CPU rel-L2 {rel}")
+    check(res[device][1] == res["cpu"][1], "Newton steps differ")
+
+
+def contact_settings(core, nx, contact, delta=0.05):
+    """examples/test_contact_mechanics.py's block on ``UnitSquareMesh(nx)``,
+    pressed down by ``delta`` at y = 1 onto the obstacle ``contact``;
+    Newton starts from the homogeneous compression u = (0, -delta y) (from
+    u = 0 the top row of cells is inverted once h < delta)."""
+    return {
+        "solver_name": "NonlinearElasticitySolver",
+        "mesh": core.UnitSquareMesh(nx, nx), "fe_degree": 1,
+        "boundary_conditions": {"top": {
+            "boundary": _on_plane(core, 1, 1.0), "boundary_id": 1,
+            "type": "Dirichlet", "value": core.Constant((0.0, -delta))}},
+        "contact_settings": dict(contact, boundary=_on_plane(core, 1, 0.0)),
+        "initial_values": {"displacement": ("0.0", f"-{delta}*x[1]")},
+        "material": {"elastic_modulus": 10.0, "poisson_ratio": 0.3,
+                     "density": 1.0},
+        "solver_settings": {
+            "transient_settings": {"transient": False},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-11,
+                                  "maximum_iterations": 60,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def _top_reaction(solver):
+    """The force the top constraint applies to the block, with its sign
+    flipped: the unconstrained residual summed over the top dofs."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly
+
+    form, _ = solver.generate_form(0, None, None, solver.w_current,
+                                   solver.w_current)
+    R = assembly.assemble_residual(form, torch.as_tensor(
+        solver.result.values, dtype=solver.dtype, device=solver.device))
+    R = R.cpu().numpy().reshape(-1, 2)
+    X = solver.function_space.scalar_space.dof_coords
+    return R[abs(X[:, 1] - 1.0) < 1e-12].sum(axis=0)
+
+
+def phase_contact(device=None, nx=N_CONTACT, nx_ball=N_BALL):
+    """examples/test_contact_mechanics.py on the card: the block pressed
+    onto a rigid plane with the penalty k = 1e4 and 1e5 (the contact force
+    balances the top reaction, the two forces within 2%, the penetration
+    ratio between 6 and 14), then indented by the rigid ball (engaged,
+    symmetric, localized), all through ``main(settings)``."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    plane = {"obstacle": {"type": "plane", "point": (0.0, 0.0),
+                          "normal": (0.0, 1.0)}}
+    pens, forces = [], []
+    for k in (1e4, 1e5):
+        t0 = time.perf_counter()
+        solver = run_main(contact_settings(core, nx, dict(plane, penalty=k)),
+                          device=device)
+        wall = time.perf_counter() - t0
+        U = solver.result.values.reshape(-1, 2)
+        X = solver.function_space.scalar_space.dof_coords
+        bot = np.abs(X[:, 1]) < 1e-12
+        pens.append(-(X[bot, 1] + U[bot, 1]).min())
+        fc = solver.contact_force()
+        reac = _top_reaction(solver)
+        forces.append(fc[1])
+        tt = solver.timers.totals
+        print(f"[contact] plane, k = {k:.0e}, {nx} x {nx}: "
+              f"{solver.function_space.ndof} dofs on {solver.device}, "
+              f"main() {wall:.2f} s, {solver.last_iterations} Newton steps "
+              f"({solver.last_newton[0]['iterations']} updates; Jacobians "
+              f"{tt['jacobian']:.2f} s, solves {tt['newton_solve']:.2f} s); "
+              f"contact force {fc[1]:.6f}, top reaction {-reac[1]:.6f} "
+              f"(rel {abs(fc[1] + reac[1]) / fc[1]:.2e}, tol 2e-8); "
+              f"penetration {pens[-1]:.3e}")
+        check(pens[-1] > 1e-6 and fc[1] > 0.0, "the plane is not in contact")
+        check(abs(fc[1] + reac[1]) < 2e-8 * abs(fc[1]),
+              f"contact force {fc} against the top reaction {reac}")
+        check(0.1 * 10 * 0.05 < fc[1] < 3.0 * 10 * 0.05, f"force {fc}")
+    ratio = pens[0] / pens[1]
+    spread = abs(forces[1] - forces[0]) / forces[0]
+    print(f"[contact] penetration ratio {ratio:.3f} (6 .. 14); forces "
+          f"{forces[0]:.6f} and {forces[1]:.6f} ({100 * spread:.3f}%, tol 2%)")
+    check(6.0 < ratio < 14.0, f"penetration ratio {ratio}")
+    check(spread < 0.02, f"forces {forces}")
+
+    ball = {"obstacle": {"type": "sphere", "center": (0.5, -0.29),
+                         "radius": 0.3}, "penalty": 1e4}
+    solver = run_main(contact_settings(core, nx_ball, ball), device=device)
+    U = solver.result.values.reshape(-1, 2)
+    X = solver.function_space.scalar_space.dof_coords
+    bot = np.abs(X[:, 1]) < 1e-12
+    g = np.linalg.norm(X[bot] + U[bot] - np.array([0.5, -0.29]), axis=1) - 0.3
+    xb = X[bot, 0]
+    fc = solver.contact_force()
+    print(f"[contact] ball, {nx_ball} x {nx_ball}: {solver.last_iterations} "
+          f"Newton steps on {solver.device}; force ({fc[0]:.3e}, {fc[1]:.6f}); "
+          f"max |gap| under the pole {np.abs(g[np.abs(xb - 0.5) < 0.15]).max():.2e}, "
+          f"min gap at |x - 0.5| > 0.4 {g[np.abs(xb - 0.5) > 0.4].min():.3f}")
+    check(fc[1] > 0.0 and abs(fc[0]) < 0.05 * fc[1], f"ball force {fc}")
+    check((g[np.abs(xb - 0.5) > 0.4] > 0.05).all(), "the contact spread")
+
+
+BAR = {"elastic_modulus": 200e3, "poisson_ratio": 0.3, "density": 7800.0,
+       "yield_strength": 250.0, "hardening_modulus": 20e3}
+
+
+def bar_settings(core, n):
+    """tests/test_plasticity.py's bar on ``UnitCubeMesh(n)``: pulled along
+    x on x = 1, rollers on x = 0, y = 0 and z = 0."""
+    def roller(axis, value, bid, comps):
+        return {"boundary": _on_plane(core, axis, value), "boundary_id": bid,
+                "values": [{"variable": "displacement", "type": "Dirichlet",
+                            "value": comps}]}
+
+    return {
+        "solver_name": "PlasticitySolver",
+        "function_space": core.VectorFunctionSpace(core.UnitCubeMesh(n, n, n),
+                                                   "CG", 1),
+        "boundary_conditions": {
+            "left": roller(0, 0.0, 1, (0.0, None, None)),
+            "pull": roller(0, 1.0, 2, (0.0, None, None)),
+            "y0": roller(1, 0.0, 3, (None, 0.0, None)),
+            "z0": roller(2, 0.0, 4, (None, None, 0.0)),
+        },
+        "material": dict(BAR),
+        "solver_settings": {
+            "transient_settings": {"transient": False},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-11,
+                                  "maximum_iterations": 60},
+        },
+        "vector_name": "displacement",
+        "report_settings": dict(QUIET),
+    }
+
+
+def bilinear_stress(history):
+    """The uniaxial stress of linear isotropic hardening J2 along a strain
+    history (tests/test_plasticity.py's ``plastic_corrected``)."""
+    E, sig_y, H = BAR["elastic_modulus"], BAR["yield_strength"], \
+        BAR["hardening_modulus"]
+    eps_p = sig = 0.0
+    for eps in history:
+        sig_tr = E * (eps - eps_p)
+        flow = sig_y + H * eps_p
+        if abs(sig_tr) > flow:
+            dgam = (abs(sig_tr) - flow) / (E + H)
+            eps_p += math.copysign(dgam, sig_tr)
+            sig = math.copysign(flow + H * dgam, sig_tr)
+        else:
+            sig = sig_tr
+    return sig
+
+
+def phase_plasticity(device=None, n=N_PLASTIC):
+    """The uniaxial bar of tests/test_plasticity.py on ``UnitCubeMesh(n)``
+    (state ``epsp`` and ``alpha`` on the card), along its path to 2.4 times
+    the yield strain and back to 1.9 (the unloading in n // 4 increments),
+    by ``PlasticitySolver``'s load steps: Newton on the autodiff tangent of
+    the return map, Jacobi-GMRES(80) updates.  Every quadrature point's
+    sigma_xx within 1e-6 of the bilinear answer at every step; alpha frozen
+    while unloading."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.solvers.plasticity import PlasticitySolver
+
+    eps_y = BAR["yield_strength"] / BAR["elastic_modulus"]
+    k = max(n // 4, 1)
+    path = ([f * eps_y for f in (0.5, 1.2, 1.8, 2.4)]
+            + [eps_y * (2.4 - 0.5 * (i + 1) / k) for i in range(k)])
+    s = bar_settings(core, n)
+    solver = PlasticitySolver(s, device=device)
+    solver.init_solver()
+    solver.current_time = 0.0
+    state_mb = (solver._epsp.numel() + solver._alpha.numel()) * 8 / 1e6
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    worst, alphas = 0.0, []
+    for i, eps in enumerate(path):
+        s["boundary_conditions"]["pull"]["values"][0]["value"] = (eps, None, None)
+        solver.current_step = i
+        t1 = time.perf_counter()
+        solver.solve_current_step()
+        dt = time.perf_counter() - t1
+        sxx = solver.cauchy_stress_qp()[:, :, 0, 0].cpu().numpy()
+        exact = bilinear_stress(path[: i + 1])
+        err = float(np.abs(sxx - exact).max() / abs(exact))
+        worst = max(worst, err)
+        alphas.append(solver.equivalent_plastic_strain().clone())
+        gm = [st["iterations"] for st in solver.last_newton]
+        print(f"[plasticity] step {i}: strain {eps / eps_y:.4f} eps_y, "
+              f"{solver.last_iterations} Newton steps, GMRES {gm}, {dt:.2f} s; "
+              f"sigma_xx {float(sxx.mean()):.4f} (bilinear {exact:.4f}, max "
+              f"rel error {err:.2e}); alpha max "
+              f"{float(alphas[-1].max()):.4e}")
+        check(err <= 1e-6, f"step {i}: sigma_xx off by {err}")
+    wall = time.perf_counter() - t0
+    frozen = all(bool((a == alphas[3]).all()) for a in alphas[4:])
+    tt = solver.timers.totals
+    print(f"[plasticity] bar {n}^3: {solver.mesh.num_cells()} tets, "
+          f"{solver.function_space.ndof} dofs, state {state_mb:.1f} MB on "
+          f"{solver._epsp.device}: {len(path)} load steps in {wall:.2f} s "
+          f"(forms {tt['form']:.2f} s, Jacobians {tt['jacobian']:.2f} s, "
+          f"residuals {tt['residual']:.2f} s, GMRES {tt['newton_solve']:.2f} s)"
+          f"; worst sigma_xx error {worst:.2e} (tol 1e-6); alpha frozen while "
+          f"unloading: {frozen}" + _peak_text(device))
+    check(frozen, "alpha moved while unloading")
+    form, _ = solver.generate_form(len(path), None, None, solver.w_current,
+                                   solver.w_current)
+    _hessian_memory("plasticity", solver, form, device)
+
+
+def beam_settings(core, n, nu):
+    """examples/test_large_deformation.py's beam: 2 x 0.2 on n x max(n // 8,
+    2) cells, clamped (displacement and velocity) at x = 0, a force (0, 5)
+    on x = 2, E = 1e5, four Crank-Nicolson steps of 0.05."""
+    left, right = _on_plane(core, 0, 0.0), _on_plane(core, 0, 2.0)
+    return {
+        "solver_name": "LargeDeformationSolver",
+        "mesh": core.RectangleMesh(core.Point(0, 0), core.Point(2.0, 0.2), n,
+                                   max(n // 8, 2)),
+        "fe_degree": 1,
+        "boundary_conditions": {
+            "fixed": {"boundary": left, "boundary_id": 1, "type": "Dirichlet",
+                      "variable": "displacement", "value": (0.0, 0.0)},
+            "fixed_velocity": {"boundary": left, "boundary_id": 1,
+                               "type": "Dirichlet", "variable": "velocity",
+                               "value": (0.0, 0.0)},
+            "stress_b": {"boundary": right, "boundary_id": 2, "type": "force",
+                         "value": (0, 5)},
+        },
+        "material": {"elastic_modulus": 1e5, "poisson_ratio": nu,
+                     "density": 1000, "thermal_expansion_coefficient": 2e-6},
+        "solver_settings": {
+            "transient_settings": {"transient": True, "starting_time": 0,
+                                   "time_step": 0.05, "ending_time": 0.2},
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-8,
+                                  "maximum_iterations": 50,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def phase_large_deformation(device=None, n=N_BEAM, n_check=16):
+    """examples/test_large_deformation.py's beam at ``n`` x ``n // 8``
+    (mixed P1 displacement, velocity and pressure, dense LU Newton updates)
+    for nu = 0.3 and 0.5 through ``main(settings)``: finite, the tip
+    displacement printed; then the example's own n = 16 on the card against
+    the port on the CPU (displacement and velocity to 1e-9; the pressure too
+    at nu = 0.3: at nu = 0.5 the P1/P1/P1 space leaves it non-unique)."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    for nu in (0.3, 0.5):
+        t0 = time.perf_counter()
+        solver = run_main(beam_settings(core, n, nu), device=device)
+        wall = time.perf_counter() - t0
+        U = solver.displacement().values.reshape(-1, 2)
+        X = solver.function_space.subspaces[0].scalar_space.dof_coords
+        tip = U[np.abs(X[:, 0] - 2.0) < 1e-9].mean(axis=0)
+        tt = solver.timers.totals
+        print(f"[large-deformation] beam {n} x {max(n // 8, 2)}, nu = {nu}: "
+              f"{solver.function_space.ndof} dofs on {solver.device}, "
+              f"{solver.steps_taken} CN steps in {wall:.2f} s (forms "
+              f"{tt['form']:.2f} s, Jacobians {tt['jacobian']:.2f} s, dense "
+              f"LU {tt['newton_solve']:.2f} s), last step "
+              f"{solver.last_iterations} Newton steps; tip displacement "
+              f"({tip[0]:.6e}, {tip[1]:.6e})")
+        check(np.isfinite(solver.result.values).all(), "the beam is not finite")
+        check(tip[1] > 0, f"the tip moved {tip}")
+    for nu in (0.3, 0.5):
+        res = {}
+        for where in (device, "cpu"):
+            s = run_main(beam_settings(core, n_check, nu), device=where)
+            res[where] = (s.result.values.copy(), s.last_iterations,
+                          s.function_space, s.device)
+        W = res["cpu"][2]
+        blocks = (0, 1) if nu == 0.5 else (0, 1, 2)
+        rel = max(_rel_l2(res[device][0][W.slice_of(b)],
+                          res["cpu"][0][W.slice_of(b)]) for b in blocks)
+        print(f"[large-deformation] beam {n_check}, nu = {nu}, on "
+              f"{res[device][3]} against the CPU: rel-L2 {rel:.3e} over blocks "
+              f"{blocks} (tol 1e-9); Newton steps {res[device][1]} and "
+              f"{res['cpu'][1]}")
+        check(rel <= 1e-9, f"beam card vs CPU rel-L2 {rel}")
+
+
+def dynamics_settings(core, n, steps):
+    """tests/test_fast_paths.py's elastodynamics case on a 10 x 1 x 1 steel
+    bar of ``n`` cells: clamped at x = 0, a body force of -1e6 along z,
+    ``steps`` steps of 0.01 with the explicit inertia of the history."""
+    mesh = core.BoxMesh(core.Point(0, 0, 0), core.Point(10, 1, 1), *n)
+    V = core.VectorFunctionSpace(mesh, "CG", 1)
+    bcs = {"fixed": {"boundary": _on_plane(core, 0, 0.0), "boundary_id": 1,
+                     "type": "Dirichlet", "value": core.Constant((0, 0, 0))}}
+    s = elasticity_settings(V, bcs, rtol=1e-12, body_source=(0.0, 0.0, -1e6))
+    s["solver_settings"]["transient_settings"] = {
+        "transient": True, "starting_time": 0.0, "time_step": 0.01,
+        "ending_time": (steps - 0.5) * 0.01}
+    return s
+
+
+def phase_elastodynamics(device=None, n=N_DYNAMICS, n_loop=N_DYNAMICS_LOOP,
+                         steps=10, timed_steps=100):
+    """``fast_paths.compile_transient_elasticity_dynamics``: ``steps`` steps
+    at ``n_loop`` against as many steps of the time loop with
+    ``solving_dynamics`` (rel-L2 1e-6); at ``n`` its set-up (the form and K,
+    assembled once), ``steps`` steps (finite, each step's PCG under its
+    cap) and then ``timed_steps`` steps for the seconds and the Jacobi-PCG
+    iterations a step."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.solvers.fast_paths import (
+        compile_transient_elasticity_dynamics,
+    )
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver,
+    )
+
+    def sync():
+        if _on_card(device):
+            torch.cuda.synchronize()
+
+    fast = LinearElasticitySolver(dynamics_settings(core, n_loop, steps),
+                                  device=device)
+    run, aux = compile_transient_elasticity_dynamics(fast, 0.01, steps, tol=1e-12)
+    u0 = fast.w_current.values
+    u_fast, _ = run(u0, u0)
+    loop = LinearElasticitySolver(dynamics_settings(core, n_loop, steps),
+                                  device=device)
+    loop.solving_dynamics = True
+    t0 = time.perf_counter()
+    u_loop = loop.solve().values
+    loop_s = time.perf_counter() - t0
+    rel = _rel_l2(u_fast.cpu().numpy(), u_loop)
+    print(f"[elastodynamics] {n_loop}: {fast.function_space.ndof} dofs on "
+          f"{fast.device}: {steps} fast-path steps against {loop.steps_taken} "
+          f"steps of the time loop ({loop.last_preconditioner}-"
+          f"{loop.last_krylov}, {loop_s:.2f} s): rel-L2 {rel:.3e} (tol 1e-6); "
+          f"PCG iterations {aux['iterations']}")
+    check(loop.steps_taken == steps, f"the loop took {loop.steps_taken} steps")
+    check(rel <= 1e-6, f"fast path vs time loop rel-L2 {rel}")
+    del fast, loop, run, aux
+
+    _reset_peak(device)
+    for count in (steps, timed_steps):
+        solver = LinearElasticitySolver(dynamics_settings(core, n, count),
+                                        device=device)
+        sync()
+        t0 = time.perf_counter()
+        run, aux = compile_transient_elasticity_dynamics(
+            solver, 0.01, count, maxiter=DYNAMICS_MAXITER)
+        sync()
+        setup = time.perf_counter() - t0
+        u0 = solver.w_current.values
+        t0 = time.perf_counter()
+        u, norms = run(u0, u0)
+        sync()
+        wall = time.perf_counter() - t0
+        its = aux["iterations"]
+        print(f"[elastodynamics] {n}: {solver.mesh.num_cells()} tets, "
+              f"{solver.function_space.ndof} dofs on {solver.device}: set-up "
+              f"{setup:.2f} s (form and K once), {count} steps in {wall:.2f} s, "
+              f"{wall / count:.4f} s a step; Jacobi-PCG iterations a step: "
+              f"min {min(its)}, median {int(np.median(its))}, max {max(its)} "
+              f"(first {its[:5]}); |u| {float(norms[0]):.4e} after the first "
+              f"step, {float(norms[-1]):.4e} after the last" + _peak_text(device))
+        check(bool(torch.isfinite(u).all()), "the fast path is not finite")
+        check(max(its) < DYNAMICS_MAXITER, f"a PCG solve hit its cap: {max(its)}")
+        del solver, run, aux, u
+
+
+def conductivity_problem(core, nx, device):
+    """The heat problem of examples/test_adjoint_inverse.py on
+    ``UnitSquareMesh(nx)``: -div(kappa grad u) = 1, u = 0 on the boundary,
+    kappa per cell in the form's aux."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+
+    mesh = core.UnitSquareMesh(nx, nx)
+    V = core.FunctionSpace(mesh, "CG", 1)
+    tab = geometry.basis_tables(mesh.tdim, 1, 2)
+    dphi, qw, phi = (torch.tensor(a, dtype=torch.float64, device=device)
+                     for a in (tab.dphi, tab.qw, tab.phi))
+
+    def kern(ue, geom, aux):
+        dphig = geometry.phys_grads(dphi, geom.Jinv)
+        g = geometry.interp_grad(dphig, ue)
+        diff = aux["kappa"] * torch.einsum("q,qg,qig->i", qw, g, dphig)
+        return (diff - torch.einsum("q,qi->i", qw, phi)) * geom.detJ
+
+    nc = mesh.num_cells()
+    form = assembly.Form(space=V)
+    form.cell_terms.append(assembly.CellTerm(
+        kernel=kern, ctx=geometry.build_cell_context(V, 2, device=device),
+        aux={"kappa": torch.ones(nc, dtype=torch.float64, device=device)}))
+    form.finalize()
+    d = assembly.DirichletData(V.ndof)
+    bd = np.asarray(V.facet_dofs(mesh.exterior_facets()))
+    d.add(bd, np.zeros(len(bd)))
+    d.finalize(device=device)
+    return mesh, form, d
+
+
+def phase_adjoint(device="cuda", nx=24, n=N_ADJOINT, iters=200):
+    """``ops/adjoint.make_implicit_solver`` on the card.  (1) The inverse
+    conductivity problem of examples/test_adjoint_inverse.py at ``nx``:
+    ``torch.optim.Adam`` (lr 0.25, the example's ``optax.adam``) on the
+    adjoint gradient of the log-conductivity, ``iters`` steps, with the
+    example's assertions.  (2) At ``UnitSquareMesh(n)`` the gradient of
+    sum(u^2) with respect to kappa at two cells against central
+    differences (eps 1e-3, CG to 1e-14; 1e-6 relative), and two gradient
+    calls bit-equal."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.ops.adjoint import make_implicit_solver
+
+    mesh, form, d = conductivity_problem(core, nx, device)
+    solver = make_implicit_solver(form, d, linear=True, spd=True)
+    nc = mesh.num_cells()
+    cc = mesh.coords[mesh.cells_array].mean(axis=1)
+    inside = (np.abs(cc[:, 0] - 0.5) < 0.15) & (np.abs(cc[:, 1] - 0.5) < 0.15)
+    kappa_true = torch.tensor(np.where(inside, 3.0, 1.0), device=device)
+    u_meas = solver({"kappa": kappa_true}).detach()
+
+    def loss(log_kappa):
+        u = solver({"kappa": torch.exp(log_kappa)})
+        return ((u - u_meas) ** 2).sum() / (u_meas ** 2).sum()
+
+    theta = torch.zeros(nc, dtype=torch.float64, device=device,
+                        requires_grad=True)
+    opt = torch.optim.Adam([theta], lr=0.25)
+    with torch.no_grad():
+        l0 = float(loss(theta))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        opt.zero_grad()
+        loss(theta).backward()
+        opt.step()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        lN = float(loss(theta))
+    rec = torch.exp(theta.detach()).cpu().numpy()
+    mean_in, mean_out = float(rec[inside].mean()), float(rec[~inside].mean())
+    print(f"[adjoint] inverse conductivity {nx} x {nx} on {device}: {nc} "
+          f"parameters, {iters} Adam steps in {wall:.2f} s "
+          f"({1e3 * wall / iters:.1f} ms a step: one forward and one adjoint "
+          f"solve); mismatch {l0:.3e} -> {lN:.3e}; kappa inside "
+          f"{mean_in:.3f} (true 3), outside {mean_out:.3f} (true 1)")
+    check(lN < 1e-3 * l0, f"mismatch {l0} -> {lN}")
+    check(abs(mean_out - 1.0) < 0.05 and mean_in > 2.0,
+          f"recovered kappa {mean_in}, {mean_out}")
+
+    mesh, form, d = conductivity_problem(core, n, device)
+    solver = make_implicit_solver(form, d, linear=True, spd=True, tol=1e-14,
+                                  maxiter=20000)
+    nc = mesh.num_cells()
+    kappa = torch.tensor(1.0 + 0.5 * np.random.default_rng(0).random(nc),
+                         device=device)
+
+    def J(k):
+        return (solver({"kappa": k}) ** 2).sum()
+
+    grad = torch.func.grad(J)
+    t0 = time.perf_counter()
+    g1 = grad(kappa)
+    g_s = time.perf_counter() - t0
+    g2 = grad(kappa)
+    eps = 1e-3
+    worst = 0.0
+    for c in (nc // 3, 2 * nc // 3 + 5):
+        e = torch.zeros(nc, dtype=torch.float64, device=device)
+        e[c] = eps
+        with torch.no_grad():
+            fd = (float(J(kappa + e)) - float(J(kappa - e))) / (2 * eps)
+        rel = abs(float(g1[c]) - fd) / abs(fd)
+        worst = max(worst, rel)
+        print(f"[adjoint] {n} x {n} ({nc} cells, {form.space.ndof} dofs): "
+              f"dJ/dkappa[{c}] adjoint {float(g1[c]):.12e}, central difference "
+              f"{fd:.12e} (rel {rel:.2e}, tol 1e-6)")
+    equal = bool(torch.equal(g1, g2))
+    print(f"[adjoint] gradient in {g_s:.2f} s (forward and adjoint CG to "
+          f"1e-14); two calls bit-equal: {equal}")
+    check(worst <= 1e-6, f"adjoint vs central differences: {worst}")
+    check(equal, "two adjoint gradients differ")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -2517,6 +3251,12 @@ def main():
     phase_wave()
     phase_maxwell()
     phase_elasticity_cli()
+    phase_hyperelastic()
+    phase_contact()
+    phase_plasticity()
+    phase_large_deformation()
+    phase_elastodynamics()
+    phase_adjoint()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()

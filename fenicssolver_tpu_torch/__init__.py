@@ -14,8 +14,12 @@ hand-written CUDA kernel (``ops/cuda_kernels.py``, ``csrc/stencil.cu``);
 linear elasticity (``LinearElasticitySolver``: vector P1-P3 spaces, thermal
 stress, tractions, smoothed-aggregation AMG-CG with the rigid-body
 near-nullspace, ``la/amg.py``, and LOBPCG modal analysis, ``la/lobpcg.py``),
-the Newmark wave solver and the 2-D Maxwell A_z solver; mixed spaces and the
-dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
+nonlinear solids (``NonlinearElasticitySolver``: neo-Hookean with penalty
+contact; ``PlasticitySolver``: J2 with its state at the quadrature points;
+``LargeDeformationSolver``: the mixed finite-strain solver) with the
+elastodynamics fast path, differentiable implicit solves
+(``ops/adjoint.py``), the Newmark wave solver and the 2-D Maxwell A_z
+solver; mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
 workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
 stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
 cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``).
@@ -34,6 +38,9 @@ _SOLVER_EXPORTS = {
     "ScalarTransportSolver": "fenicssolver_tpu_torch.solvers.scalar_transport",
     "ScalarTransportDGSolver": "fenicssolver_tpu_torch.solvers.scalar_transport_dg",
     "LinearElasticitySolver": "fenicssolver_tpu_torch.solvers.linear_elasticity",
+    "NonlinearElasticitySolver": "fenicssolver_tpu_torch.solvers.nonlinear_elasticity",
+    "LargeDeformationSolver": "fenicssolver_tpu_torch.solvers.large_deformation",
+    "PlasticitySolver": "fenicssolver_tpu_torch.solvers.plasticity",
     "MaxwellEMSolver": "fenicssolver_tpu_torch.solvers.maxwell",
     "WavePropagationSolver": "fenicssolver_tpu_torch.solvers.wave",
     "main": "fenicssolver_tpu_torch.main",

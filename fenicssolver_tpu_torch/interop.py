@@ -179,3 +179,29 @@ def amg_hierarchy(levels, coarse_inv=None, coarse_cheb=None, free_mask=None,
         amg._free_idx = torch.as_tensor(np.nonzero(free)[0], device=device)
         amg._n_full, amg._free_np = int(free.shape[0]), free
     return amg
+
+
+def plastic_state(solver, epsp, alpha):
+    """Put a committed J2 state into a ``PlasticitySolver``: the plastic
+    strains ``epsp`` (nc, nq, 3, 3) and the equivalent plastic strain
+    ``alpha`` (nc, nq), as the reference's solver holds them after a load
+    step, on the solver's device in its dtype."""
+    epsp = _tensor(epsp, solver.device, solver.dtype)
+    alpha = _tensor(alpha, solver.device, solver.dtype)
+    if epsp.shape != solver._epsp.shape or alpha.shape != solver._alpha.shape:
+        raise ValueError(
+            f"state shapes {tuple(epsp.shape)}, {tuple(alpha.shape)} do not "
+            f"match the solver's {tuple(solver._epsp.shape)}, "
+            f"{tuple(solver._alpha.shape)}")
+    solver._epsp, solver._alpha = epsp, alpha
+
+
+def time_history(solver, w_current, w_prev=None, w_pp=None):
+    """Put the time loop's history into a solver (any space, mixed ones
+    included) after its ``init_solver``: ``w_current`` and, where given,
+    ``w_prev`` and ``w_pp``, as solution vectors of the solver's space."""
+    V = solver.function_space
+    for name, values in (("w_current", w_current), ("w_prev", w_prev),
+                         ("w_pp", w_pp)):
+        if values is not None:
+            setattr(solver, name, function(V, values))

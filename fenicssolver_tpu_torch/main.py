@@ -22,9 +22,6 @@ _NOT_PORTED = {
     "CoupledNavierStokesSolver": "solvers/navier_stokes.py",
     "NavierStokesSolver": "solvers/navier_stokes.py",
     "NSDGSolver": "solvers/navier_stokes_dg.py",
-    "NonlinearElasticitySolver": "solvers/nonlinear_elasticity.py",
-    "LargeDeformationSolver": "solvers/large_deformation.py",
-    "PlasticitySolver": "solvers/plasticity.py",
     "FSISolver": "solvers/fsi.py",
     "CompressibleNSSolver": "solvers/compressible_ns.py",
 }
@@ -67,6 +64,18 @@ def main(case_input, device=None):
         from .solvers.linear_elasticity import LinearElasticitySolver
 
         solver = LinearElasticitySolver(settings, device=device)
+    elif solver_name == "NonlinearElasticitySolver":
+        from .solvers.nonlinear_elasticity import NonlinearElasticitySolver
+
+        solver = NonlinearElasticitySolver(settings, device=device)
+    elif solver_name == "LargeDeformationSolver":
+        from .solvers.large_deformation import LargeDeformationSolver
+
+        solver = LargeDeformationSolver(settings, device=device)
+    elif solver_name == "PlasticitySolver":
+        from .solvers.plasticity import PlasticitySolver
+
+        solver = PlasticitySolver(settings, device=device)
     elif solver_name == "MaxwellEMSolver":
         from .solvers.maxwell import MaxwellEMSolver
 

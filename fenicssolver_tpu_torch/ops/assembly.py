@@ -14,6 +14,13 @@ residual kernels over cell/facet batches:
 Both assemblers read ``term.aux`` when called and keep no copy of it, so a
 caller may swap an aux tensor in place between calls (the cached transient
 form refreshes its lagged solution so, and bumps ``Form.aux_version``).
+``aux_update=`` overrides a term's aux entries by key for one call, without
+touching the form (the reference's ``_term_aux``, ``ops/assembly.py:94-126``):
+the dynamics fast path swaps its acceleration history so, and the implicit
+solves of ``ops/adjoint.py`` pass their parameters so.  ``residual_vjp`` is
+the transposed product of assembly, written out per element (gather,
+``torch.func.vjp`` of the kernel under ``vmap``, the same fixed-order sums),
+so that it needs no autograd through the sparse scatter.
 
 Cells are processed in chunks so the batched forward-mode intermediates
 stay bounded on the device.  ``vmap(jacfwd)`` carries one tangent per
@@ -21,7 +28,10 @@ element dof through every intermediate of the kernel, so what it holds per
 cell grows like k^2 (k = dofs an element): ``chunk_cells(k)`` divides a fixed
 budget of bytes by that, capped at ``CHUNK_CELLS`` (scalar P1 tets, k = 4,
 keep their 2^20 cells a chunk; a vector P1 tet, k = 12, gets 1/9 of that
-and a vector P2 tet, k = 30, 1/56).
+and a vector P2 tet, k = 30, 1/56).  A term whose kernel holds more per
+entry (a Hessian through ``torch.func.grad`` of an energy, a return map)
+sets its own ``chunk``, from ``chunk_cells(k, bytes_per_entry)`` with what
+it was measured to hold.
 
 The sums are deterministic.  ``index_add_`` on CUDA adds with atomics, in an
 order that changes from run to run, and so do the last bits of the result.
@@ -57,11 +67,12 @@ JACFWD_BYTES_PER_ENTRY = 200
 CHUNK_BYTES = CHUNK_CELLS * JACFWD_BYTES_PER_ENTRY * 4 * 4
 
 
-def chunk_cells(ndof_el):
+def chunk_cells(ndof_el, bytes_per_entry=JACFWD_BYTES_PER_ENTRY):
     """Cells per chunk for elements of ``ndof_el`` dofs: ``CHUNK_BYTES`` over
-    the bytes ``vmap(jacfwd)`` holds per cell, at most ``CHUNK_CELLS``."""
+    the bytes ``vmap(jacfwd)`` holds per cell (``bytes_per_entry`` for each
+    entry of the element matrix), at most ``CHUNK_CELLS``."""
     k = max(int(ndof_el), 1)
-    return max(1, min(CHUNK_CELLS, CHUNK_BYTES // (JACFWD_BYTES_PER_ENTRY * k * k)))
+    return max(1, min(CHUNK_CELLS, CHUNK_BYTES // (bytes_per_entry * k * k)))
 
 
 _ONES = {}  # (device, dtype) -> a tensor of ones, shared by the selectors
@@ -128,6 +139,7 @@ class CellTerm:
     pos: Optional[torch.Tensor] = None  # nnz slots for the (k,k) element matrix
     ordered: Optional[bool] = None  # see ``OrderedScatter``
     scatters: Any = None  # ``_scatters(term)``'s cache
+    chunk: Optional[int] = None  # cells a chunk; None: ``chunk_cells(k)``
 
 
 @dataclass
@@ -142,6 +154,7 @@ class FacetTerm:
     pos: Optional[torch.Tensor] = None
     ordered: Optional[bool] = None
     scatters: Any = None
+    chunk: Optional[int] = None
 
 
 @dataclass
@@ -177,8 +190,9 @@ def _vmap_dims(term):
 
 
 def _chunk_size(term):
-    """Cells per chunk of ``term``: a function of its element size alone."""
-    return chunk_cells(term.ctx.cell_dofs.shape[1])
+    """Cells per chunk of ``term``: its own ``chunk``, else a function of its
+    element size alone."""
+    return term.chunk or chunk_cells(term.ctx.cell_dofs.shape[1])
 
 
 def _chunk_bounds(term):
@@ -187,13 +201,26 @@ def _chunk_bounds(term):
     return [(s, min(s + step, n)) for s in range(0, n, step)]
 
 
-def _chunks(term):
+def _term_aux(term, aux_update):
+    """The term's aux with the entries of ``aux_update`` whose keys it has
+    put in their place (shapes must match the term's own)."""
+    if aux_update is None or term.aux is None:
+        return term.aux
+    out = dict(term.aux)
+    for k, v in aux_update.items():
+        if k in out:
+            out[k] = v
+    return out
+
+
+def _chunks(term, aux_update=None):
     """(start, stop, ctx slice, aux slice) over the term's batch, in chunks
-    of ``_chunk_size(term)`` cells."""
+    of ``_chunk_size(term)`` cells; the overrides of ``aux_update`` are cut
+    like the term's own aux."""
+    aux = _term_aux(term, aux_update)
     for s, e in _chunk_bounds(term):
         ctx = type(term.ctx)(*(a[s:e] for a in term.ctx))
-        aux = None if term.aux is None else tree_map(lambda a: a[s:e], term.aux)
-        yield s, e, ctx, aux
+        yield s, e, ctx, None if aux is None else tree_map(lambda a: a[s:e], aux)
 
 
 def _scatters(term):
@@ -212,26 +239,68 @@ def _scatters(term):
     return term.scatters[1]
 
 
-def assemble_residual(form, u):
-    """R(u): global residual vector."""
+def assemble_residual(form, u, aux_update=None):
+    """R(u): global residual vector (``aux_update``: see the module
+    docstring)."""
     R = torch.zeros(form.space.ndof, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
         fn = torch.func.vmap(term.kernel, in_dims=_vmap_dims(term))
-        for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term), _scatters(term)):
+        for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term, aux_update),
+                                                    _scatters(term)):
             into_dofs.add_(R, fn(u[ctx.cell_dofs], ctx, aux))
     return R
 
 
-def assemble_jacobian(form, u):
-    """J(u) as CSRMatrix via per-element forward-mode autodiff."""
+def assemble_jacobian(form, u, aux_update=None):
+    """J(u) as CSRMatrix via per-element forward-mode autodiff.  A kernel
+    that is itself ``torch.func.grad`` of an element energy gives the
+    element Hessian (forward over reverse)."""
     data = torch.zeros(form.pattern.nnz, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
         fn = torch.func.vmap(
             torch.func.jacfwd(term.kernel, argnums=0), in_dims=_vmap_dims(term)
         )
-        for (_, _, ctx, aux), (_, into_pos) in zip(_chunks(term), _scatters(term)):
+        for (_, _, ctx, aux), (_, into_pos) in zip(_chunks(term, aux_update),
+                                                   _scatters(term)):
             into_pos.add_(data, fn(u[ctx.cell_dofs], ctx, aux))
     return CSRMatrix(pattern=form.pattern, data=data)
+
+
+def residual_vjp(form, u, lam, aux_update=None, wrt_aux=()):
+    """The transposed products of assembly at ``u``: ``(dR/du)^T lam`` and,
+    for each key of ``wrt_aux``, ``(dR/d aux[key])^T lam`` summed over the
+    terms whose aux has that key (a tensor of the aux's shape).
+
+    Written out per element: gather ``lam`` at the element dofs, take
+    ``torch.func.vjp`` of the kernel under ``vmap``, and sum the dof
+    cotangents with the terms' ``OrderedScatter``s, so the result repeats
+    bit for bit on the card."""
+    ubar = torch.zeros(form.space.ndof, dtype=u.dtype, device=u.device)
+    aux_bar = {}
+    for term in form.cell_terms + form.facet_terms:
+        full = _term_aux(term, aux_update)
+        keys = [k for k in wrt_aux if full is not None and k in full]
+
+        def elem(ue, geom, aux_e, lam_e, kernel=term.kernel, keys=keys):
+            def f(ue, *theta):
+                a = aux_e if not keys else {**aux_e, **dict(zip(keys, theta))}
+                return kernel(ue, geom, a)
+
+            _, back = torch.func.vjp(f, ue, *(aux_e[k] for k in keys))
+            return back(lam_e)
+
+        fn = torch.func.vmap(elem, in_dims=_vmap_dims(term) + (0,))
+        parts = {k: [] for k in keys}
+        for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term, aux_update),
+                                                    _scatters(term)):
+            bars = fn(u[ctx.cell_dofs], ctx, aux, lam[ctx.cell_dofs])
+            into_dofs.add_(ubar, bars[0])
+            for k, b in zip(keys, bars[1:]):
+                parts[k].append(b)
+        for k in keys:
+            g = torch.cat(parts[k])
+            aux_bar[k] = aux_bar[k] + g if k in aux_bar else g
+    return ubar, aux_bar
 
 
 def assemble_linear_system(form, dtype=None):

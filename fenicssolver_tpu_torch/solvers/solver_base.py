@@ -710,35 +710,38 @@ class SolverBase:
     def solve_nonlinear_problem(self, form, u_current, dirichlet, spd=False):
         """Newton with the autodiff Jacobian (reference ``:1215-1331``,
         serial branch): dense LU below ``DENSE_LIMIT``, else Jacobi-CG
-        (``spd``) or Jacobi-GMRES(80) to 1e-10 for each update."""
+        (``spd``) or Jacobi-GMRES(80) to 1e-10 for each update.
+
+        ``last_newton`` records each Newton step: the seconds of its
+        Jacobian, its linear solve and the residual after it, and the
+        solve's Krylov iterations and relative residual ("direct" and None
+        for the dense LU)."""
         sp = self._solver_params()
         self._check_ported(sp)
         free = dirichlet.free_mask if dirichlet and dirichlet.any else None
         ubc = dirichlet.u_bc if dirichlet and dirichlet.any else None
+        steps = self.last_newton = []
+        timers = self.timers
 
         def residual(u):
-            R = assembly.assemble_residual(form, u)
-            if free is not None:
-                R = assembly.constrain_residual(R, u, free, ubc)
+            with timers.phase("residual"):
+                R = assembly.assemble_residual(form, u)
+                if free is not None:
+                    R = assembly.constrain_residual(R, u, free, ubc)
+            if steps:
+                steps[-1]["residual_s"] = timers.last["residual"]
             return R
 
         def jacobian(u):
-            return assembly.assemble_jacobian(form, u)
+            with timers.phase("jacobian"):
+                return assembly.assemble_jacobian(form, u)
 
         def lin_solve(J, rhs):
-            n = J.pattern.n
-            fm = free if free is not None else torch.ones_like(rhs)
-            if n <= DENSE_LIMIT:
-                return dense_solve(assembly.constrain_csr(J, fm), rhs)
-            # zero the constrained rows: the update leaves Dirichlet dofs
-            # exactly at their values whatever the start point
-            op = assembly.constrained_operator(J.matvec, fm)
-            M = krylov.jacobi_preconditioner(fm * J.diagonal() + (1.0 - fm))
-            if spd:
-                x, _, _ = krylov.cg(op, fm * rhs, M=M, tol=1e-10, maxiter=5000)
-            else:
-                x, _, _ = krylov.gmres(op, fm * rhs, M=M, tol=1e-10,
-                                       restart=80, maxiter=200)
+            with timers.phase("newton_solve"):
+                x, it, res = self._newton_update(J, rhs, free, spd)
+            steps.append(dict(jacobian_s=timers.last["jacobian"],
+                              solve_s=timers.last["newton_solve"],
+                              iterations=it, relres=res))
             return x
 
         u0 = torch.as_tensor(u_current.values, dtype=self.dtype, device=self.device)
@@ -753,6 +756,23 @@ class SolverBase:
         self.last_iterations = int(its)
         u_current.values = x.cpu().numpy().astype(np.float64)
         return u_current
+
+    @staticmethod
+    def _newton_update(J, rhs, free, spd):
+        """(x, iterations, relres) of one Newton update: the dense LU of the
+        constrained J up to ``DENSE_LIMIT`` ("direct", None), else Jacobi-CG
+        or Jacobi-GMRES(80) to 1e-10 with the constrained rows zeroed, so
+        the update leaves Dirichlet dofs exactly at their values whatever
+        the start point."""
+        fm = free if free is not None else torch.ones_like(rhs)
+        if J.pattern.n <= DENSE_LIMIT:
+            return dense_solve(assembly.constrain_csr(J, fm), rhs), "direct", None
+        op = assembly.constrained_operator(J.matvec, fm)
+        M = krylov.jacobi_preconditioner(fm * J.diagonal() + (1.0 - fm))
+        if spd:
+            return krylov.cg(op, fm * rhs, M=M, tol=1e-10, maxiter=5000)
+        return krylov.gmres(op, fm * rhs, M=M, tol=1e-10, restart=80,
+                            maxiter=200)
 
     def _amg_preconditioner(self, A, free):
         """The smoothed-aggregation hierarchy of the constrained ``A`` (set

@@ -19,6 +19,7 @@ class PhaseTimers:
     def __init__(self, device=None):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.last = {}  # name -> seconds of its latest call
         self.device = device
 
     def _sync(self):
@@ -38,6 +39,7 @@ class PhaseTimers:
             dt = time.perf_counter() - t0
             self.totals[name] += dt
             self.counts[name] += 1
+            self.last[name] = dt
 
     def report(self, logger=None):
         lines = [

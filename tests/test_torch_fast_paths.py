@@ -115,11 +115,70 @@ def test_fast_path_keeps_the_raw_initial_values():
 
 
 @pytest.mark.parametrize("name", ["compile_transient_ns",
-                                  "compile_transient_elasticity_dynamics",
                                   "compile_transient_ns_ipcs"])
 def test_other_fast_paths_name_their_solver(name):
-    with pytest.raises(NotImplementedError, match=r"solvers/\w+\.py"):
+    with pytest.raises(NotImplementedError, match=r"solvers/navier_stokes\.py"):
         getattr(fast_paths, name)(None, 0.1, 1)
+
+
+DYN_STEP, DYN_STEPS = 0.01, 6
+
+
+def dynamics_settings(core):
+    """tests/test_fast_paths.py's elastodynamics case: a 2 x 1 x 1 steel
+    box, 4 x 2 x 2, clamped at x = 0, a body force of -1e6 along z."""
+    from tests.test_linear_elasticity import solver_settings
+
+    mesh = core.BoxMesh(core.Point(0, 0, 0), core.Point(2, 1, 1), 4, 2, 2)
+    bcs = {"fixed": {"boundary": core.AutoSubDomain(lambda x: core.near(x[0], 0.0)),
+                     "boundary_id": 1, "type": "Dirichlet",
+                     "value": core.Constant((0, 0, 0))}}
+    s = solver_settings(core.VectorFunctionSpace(mesh, "CG", 1), bcs)
+    s["body_source"] = (0.0, 0.0, -1e6)
+    s["solver_settings"]["transient_settings"] = {
+        "transient": True, "starting_time": 0.0, "time_step": DYN_STEP,
+        "ending_time": 0.055}
+    s["solver_settings"]["solver_parameters"]["relative_tolerance"] = 1e-12
+    return s
+
+
+def test_elastodynamics_fast_path():
+    """``compile_transient_elasticity_dynamics`` against the JAX package's
+    (1e-9, the step norms too) and against the port's time loop with
+    ``solving_dynamics`` (1e-6), six steps; K is assembled once."""
+    from fenicssolver_tpu.solvers.fast_paths import (
+        compile_transient_elasticity_dynamics as j_dynamics,
+    )
+    from fenicssolver_tpu.solvers.linear_elasticity import (
+        LinearElasticitySolver as JElastic,
+    )
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver as TElastic,
+    )
+
+    js = JElastic(dynamics_settings(jcore))
+    jrun, _ = j_dynamics(js, DYN_STEP, DYN_STEPS, tol=1e-12)
+    u0 = js.w_current.values
+    uj, nj = (np.asarray(a) for a in jrun(u0, u0))
+    ts = TElastic(dynamics_settings(tcore))
+    calls = []
+    real = assembly.assemble_jacobian
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(assembly, "assemble_jacobian",
+                   lambda *a, **k: calls.append(1) or real(*a, **k))
+        trun, taux = fast_paths.compile_transient_elasticity_dynamics(
+            ts, DYN_STEP, DYN_STEPS, tol=1e-12)
+        u0 = ts.w_current.values
+        ut, nt = trun(u0, u0)
+    assert len(calls) == 1 and ts.solving_dynamics
+    assert ut.dtype == torch.float64 and nt.shape == (DYN_STEPS,)
+    assert _rel(ut.numpy(), uj) < 1e-9 and _rel(nt.numpy(), nj) < 1e-9
+    assert len(taux["iterations"]) == DYN_STEPS
+    assert all(0 < i < 2000 for i in taux["iterations"])
+    loop = TElastic(dynamics_settings(tcore))
+    loop.solving_dynamics = True
+    assert _rel(ut.numpy(), loop.solve().values) < 1e-6
+    assert loop.steps_taken == DYN_STEPS
 
 
 def _maps(case):

@@ -69,6 +69,10 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.solvers.linear_elasticity",
     "fenicssolver_tpu_torch.solvers.maxwell",
     "fenicssolver_tpu_torch.solvers.wave",
+    "fenicssolver_tpu_torch.solvers.nonlinear_elasticity",
+    "fenicssolver_tpu_torch.solvers.plasticity",
+    "fenicssolver_tpu_torch.solvers.large_deformation",
+    "fenicssolver_tpu_torch.ops.adjoint",
 ]
 
 
@@ -324,8 +328,7 @@ def _periodic_x():
 
 
 @pytest.mark.parametrize(
-    "what", ["xdmf", "hdf5", "hdf5_solver", "fast_path_ns",
-             "fast_path_elasticity", "fast_path_ipcs"]
+    "what", ["xdmf", "hdf5", "hdf5_solver", "fast_path_ns", "fast_path_ipcs"]
 )
 def test_unported_spaces_and_readers_raise(what, tmp_path):
     with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch") as e:
@@ -346,8 +349,6 @@ def test_unported_spaces_and_readers_raise(what, tmp_path):
             from fenicssolver_tpu_torch.solvers import fast_paths
 
             {"fast_path_ns": fast_paths.compile_transient_ns,
-             "fast_path_elasticity":
-                 fast_paths.compile_transient_elasticity_dynamics,
              "fast_path_ipcs": fast_paths.compile_transient_ns_ipcs,
              }[what](None, 0.1, 1)
     if what in ("xdmf", "hdf5", "hdf5_solver"):
@@ -377,7 +378,7 @@ def test_remaining_errors_name_modules_that_are_still_missing():
     each one left names a module of the reference (or ``parallel/``, whose
     distributed layer waits, or ``io/meshio.py``'s HDF5 readers)."""
     pairs = _raised_module_names()
-    assert len(pairs) >= 12
+    assert len(pairs) >= 9
     ref = os.path.join(REPO, "fenicssolver_tpu")
     for fn, module in pairs:
         assert os.path.exists(os.path.join(ref, module)), (fn, module)
@@ -387,11 +388,16 @@ def test_remaining_errors_name_modules_that_are_still_missing():
     waiting = {m for _, m in pairs}
     assert not waiting & {"la/amg.py", "la/lobpcg.py", "core/spaces.py",
                           "solvers/linear_elasticity.py", "solvers/maxwell.py",
-                          "solvers/wave.py", "utils/plotting.py"}
+                          "solvers/wave.py", "utils/plotting.py",
+                          "solvers/nonlinear_elasticity.py",
+                          "solvers/plasticity.py",
+                          "solvers/large_deformation.py", "ops/adjoint.py"}
 
 
 @pytest.mark.parametrize("name", ["LinearElasticitySolver", "MaxwellEMSolver",
-                                  "WavePropagationSolver"])
+                                  "WavePropagationSolver",
+                                  "NonlinearElasticitySolver", "PlasticitySolver",
+                                  "LargeDeformationSolver"])
 def test_main_no_longer_lists_the_ported_solvers(name):
     import fenicssolver_tpu_torch as fst
     from fenicssolver_tpu_torch import main as tmain
@@ -431,6 +437,43 @@ def test_formerly_unported_spaces_build(what):
         assert len(V.periodic_slaves) == 27
         assert (V._periodic_master[V.periodic_slaves] % 3
                 == V.periodic_slaves % 3).all()
+
+
+@pytest.mark.parametrize("name,module", [
+    ("NavierStokesSolver", "solvers/navier_stokes.py"),
+    ("CoupledNavierStokesSolver", "solvers/navier_stokes.py"),
+    ("NSDGSolver", "solvers/navier_stokes_dg.py"),
+    ("FSISolver", "solvers/fsi.py"),
+    ("CompressibleNSSolver", "solvers/compressible_ns.py"),
+])
+def test_remaining_solvers_raise_naming_their_module(name, module):
+    from fenicssolver_tpu_torch import main as tmain
+
+    assert tmain._NOT_PORTED[name] == module
+    with pytest.raises(NotImplementedError, match=module.replace(".", r"\.")):
+        tmain.main({"solver_name": name})
+
+
+@pytest.mark.parametrize("name", ["NonlinearElasticitySolver",
+                                  "PlasticitySolver", "LargeDeformationSolver"])
+def test_new_solvers_dispatch_on_the_card_by_default(name, monkeypatch):
+    """``main`` builds the nonlinear solids with the default device: without
+    a card that raises for the card, not for a missing port."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card rule does not apply")
+    from fenicssolver_tpu_torch.main import main
+
+    monkeypatch.delenv("FST_DEVICE", raising=False)
+    V = VectorFunctionSpace(UnitCubeMesh(1, 1, 1), "CG", 1)
+    s = {"solver_name": name, "function_space": V, "mesh": None,
+         "boundary_conditions": {},
+         "material": {"elastic_modulus": 10.0, "poisson_ratio": 0.3,
+                      "yield_strength": 1.0},
+         "solver_settings": {"transient_settings": {"transient": True},
+                             "reference_values": {}},
+         "report_settings": {"logging_level": 40}}
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(s)
 
 
 def test_lazy_exports():
