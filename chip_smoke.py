@@ -2980,7 +2980,7 @@ def dynamics_settings(core, n, steps):
 
 
 def phase_elastodynamics(device=None, n=N_DYNAMICS, n_loop=N_DYNAMICS_LOOP,
-                         steps=10, timed_steps=100):
+                         steps=10, timed_steps=20):
     """``fast_paths.compile_transient_elasticity_dynamics``: ``steps`` steps
     at ``n_loop`` against as many steps of the time loop with
     ``solving_dynamics`` (rel-L2 1e-6); at ``n`` its set-up (the form and K,
@@ -3170,6 +3170,531 @@ def phase_adjoint(device="cuda", nx=24, n=N_ADJOINT, iters=200):
     check(equal, "two adjoint gradients differ")
 
 
+# --------------------------------------------------------------------------
+# Navier-Stokes (the ninth slice)
+# --------------------------------------------------------------------------
+
+#: DFG-2D-1 (Schaefer & Turek 1996): channel 2.2 x 0.41, cylinder at
+#: (0.2, 0.2) of radius 0.05, U_m = 0.3, nu = 1e-3, rho = 1 (Re = 20);
+#: published C_D = 5.5795, C_L = 0.0106 (examples/test_flow_pass_cylinder.py)
+DFG_L, DFG_H, DFG_C, DFG_R, DFG_UM, DFG_NU = 2.2, 0.41, (0.2, 0.2), 0.05, 0.3, 1e-3
+C_D_REF = 5.5795
+#: the DFG mesh's resolution and cylinder points: ~50,800 Taylor-Hood dofs,
+#: the size the reference takes its sparse-direct drag anchor at
+N_DFG = (32, 64)
+N_DFG_PCD = (16, 32)
+N_DFG_BIG = (64, 128)
+#: the fieldsplit FGMRES's outer budget on the DFG mesh: at the reference's
+#: default, FGMRES(120) x 8, the four advective Newton updates end at rel
+#: res 1.8e-2..4.5e-2 and fall back to SuperLU, in the JAX package too
+#: (``probe_ns_budgets``); FGMRES(400) x 3 takes them to 1e-4..4e-4
+DFG_BUDGET = (400, 3)
+
+
+def dfg_settings(core, res, circle_pts=None, nu=DFG_NU, transient=False,
+                 **params):
+    """examples/test_flow_pass_cylinder.py's ``make_settings``: the DFG
+    channel from ``meshgen.rectangle_with_hole``, parabolic inflow, p = 0 at
+    the outlet, no-slip walls and cylinder (boundary 4), rtol 1e-8;
+    ``params`` go into ``solver_parameters``."""
+    from fenicssolver_tpu_torch.core.meshgen import rectangle_with_hole
+
+    near = core.near
+    cx, cy = DFG_C
+
+    def bc(bid, pred, value, variable="velocity"):
+        return {"boundary": core.AutoSubDomain(pred), "boundary_id": bid,
+                "values": [{"variable": variable, "type": "Dirichlet",
+                            "value": value}]}
+
+    inflow = core.Expression(("4.0*Um*x[1]*(H - x[1])/(H*H)", "0"), Um=DFG_UM,
+                             H=DFG_H, degree=2)
+    return {
+        "solver_name": "CoupledNavierStokesSolver",
+        "mesh": rectangle_with_hole((0, 0), (DFG_L, DFG_H), DFG_C, DFG_R, res,
+                                    circle_pts=circle_pts),
+        "fe_degree": 1,
+        "boundary_conditions": {
+            "inlet": bc(1, lambda x: near(x[0], 0.0), inflow),
+            "outlet": bc(2, lambda x: near(x[0], DFG_L), 0.0, "pressure"),
+            "walls": bc(3, lambda x: near(x[1], 0.0) | near(x[1], DFG_H),
+                        (0.0, 0.0)),
+            "cylinder": bc(4, lambda x: (x[0] - cx) ** 2 + (x[1] - cy) ** 2
+                           < (DFG_R * 1.2) ** 2, (0.0, 0.0)),
+        },
+        "body_source": None,
+        "initial_values": {"velocity": (0.0, 0.0), "pressure": 0.0},
+        "material": {"density": 1.0, "kinematic_viscosity": nu},
+        "solver_settings": {
+            "transient_settings": {"transient": transient, "starting_time": 0,
+                                   "time_step": 0.05, "ending_time": 0.15},
+            "reference_values": {"pressure": 101325.0},
+            "solver_parameters": dict({"relative_tolerance": 1e-8,
+                                       "maximum_iterations": 100,
+                                       "monitor_convergence": False}, **params),
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def dfg_coefficients(solver, up):
+    """(C_D, C_L) on the cylinder: 2 F / (rho ubar^2 D), ubar = 2/3 U_m."""
+    ubar = 2.0 / 3.0 * DFG_UM
+    drag, lift = solver.calc_drag_and_lift(up, 0, 1, [4])
+    scale = 2.0 / (ubar * ubar * 2 * DFG_R)
+    return scale * drag, scale * lift
+
+
+def ns_channel(core, nx, ny=None, transient=False):
+    """tests/test_navier_stokes.py's ``channel_settings``: the unit square,
+    Poiseuille inflow (U = 0.3), p = 0 at x = 1, rho = 1000, nu = 0.05,
+    rtol 1e-11; backward Euler of 0.05 up to 0.2 when ``transient``."""
+    near = core.near
+
+    def bc(bid, pred, value, variable="velocity"):
+        return {"boundary": core.AutoSubDomain(pred), "boundary_id": bid,
+                "values": [{"variable": variable, "type": "Dirichlet",
+                            "value": value}]}
+
+    parabola = core.Expression(("umax*4.0*x[1]*(1.0-x[1])", "0"), umax=0.3,
+                               degree=2)
+    return {
+        "solver_name": "CoupledNavierStokesSolver",
+        "mesh": core.UnitSquareMesh(nx, ny or nx), "fe_degree": 1,
+        "boundary_conditions": {
+            "inlet": bc(1, lambda x: near(x[0], 0.0), parabola),
+            "outlet": bc(2, lambda x: near(x[0], 1.0), 0.0, "pressure"),
+            "top": bc(3, lambda x: near(x[1], 1.0), (0.0, 0.0)),
+            "bottom": bc(4, lambda x: near(x[1], 0.0), (0.0, 0.0)),
+        },
+        "body_source": None,
+        "initial_values": {"velocity": (0.0, 0.0), "pressure": 0.0},
+        "material": {"density": 1000.0, "kinematic_viscosity": 0.05},
+        "solver_settings": {
+            "transient_settings": {"transient": transient, "starting_time": 0,
+                                   "time_step": 0.05, "ending_time": 0.2},
+            "reference_values": {"temperature": 293, "pressure": 101325},
+            "solver_parameters": {"relative_tolerance": 1e-11,
+                                  "maximum_iterations": 100,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def _ns_newton_lines(tag, solver, what=""):
+    """One line a Newton step of an NS solve: the route, the outer
+    iterations and relative residual, and the seconds of its parts."""
+    for k, st in enumerate(solver.last_newton, start=1):
+        rel = "" if st["relres"] is None else f", rel res {st['relres']:.2e}"
+        print(f"[{tag}] {what}Newton step {k}: {st['route']} "
+              f"({st['iterations']}{rel}), Jacobian {st['jacobian_s']:.3f} s, "
+              f"solve {st['solve_s']:.3f} s, residual "
+              f"{st.get('residual_s', float('nan')):.3f} s")
+
+
+def _ns_timers(solver):
+    tt = solver.timers.totals
+    names = ("form", "jacobian", "residual", "momentum_amg_setup",
+             "pcd_setup", "bcorr", "saddle_setup", "fgmres", "splu",
+             "newton_solve")
+    return ", ".join(f"{n} {tt[n]:.2f} s" for n in names if n in tt)
+
+
+def profile_fgmres_iteration(solver, iterations=20):
+    """Of the solver's saddle-point solve at its solution: the wall ms of
+    one FGMRES outer iteration (``iterations`` of them from zero, restart
+    beyond them) and, from ``torch.profiler``, the device-busy ms of one and
+    so the idle share.  Also two solves of the same system from zero (120
+    outer iterations at most): their outer iterations and whether their
+    results are bit-equal."""
+    import torch
+
+    from fenicssolver_tpu_torch.la import krylov
+    from fenicssolver_tpu_torch.ops import assembly
+
+    form, dd = solver.generate_form(0, None, None, solver.w_current,
+                                    solver.w_current)
+    u = torch.as_tensor(solver.w_current.values, dtype=solver.dtype,
+                        device=solver.device)
+    J = assembly.assemble_jacobian(form, u)
+    fm = dd.free_mask
+    M = solver._block_preconditioner(J, fm)
+    op = assembly.constrained_operator(J.matvec, fm)
+    rhs = fm * torch.sin(torch.arange(u.numel(), dtype=u.dtype,
+                                      device=u.device))
+
+    def some():
+        return krylov.fgmres(op, rhs, M=M, tol=0.0, restart=iterations + 1,
+                             maxiter=1)
+
+    some()
+    sync = torch.cuda.synchronize if u.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    some()
+    sync()
+    wall = (time.perf_counter() - t0) / iterations * 1e3
+    prof = _profiled(some, 1) if u.is_cuda else None
+    if prof is None:
+        dev = "device busy not measured"
+    else:
+        busy, _, events = prof
+        busy, events = busy / iterations, events / iterations
+        dev = (f"device busy {busy:.3f} ms ({events:.0f} device events), "
+               f"idle {100 * (1 - busy / wall):.1f}%")
+    x1, it1, r1 = krylov.fgmres(op, rhs, M=M, tol=1e-9, restart=120, maxiter=1)
+    x2, it2, r2 = krylov.fgmres(op, rhs, M=M, tol=1e-9, restart=120, maxiter=1)
+    return wall, dev, (it1, it2, bool(torch.equal(x1, x2)), r1)
+
+
+def phase_ns_dfg(device=None, dfg=N_DFG, pcd=N_DFG_PCD, res_cpu=8,
+                 budget=DFG_BUDGET):
+    """DFG-2D-1 steady through ``main(settings)`` on the default device:
+    ``rectangle_with_hole(res, circle_pts)``, Taylor-Hood, f64, rtol 1e-8,
+    no preconditioner set, so every Newton update is the ``fieldsplit``
+    FGMRES, with the outer budget ``budget`` (``gmres_restart``,
+    ``gmres_maxiter``; see ``DFG_BUDGET``); C_D within 5% of 5.5795 and
+    |C_L| < 0.05 (examples/test_flow_pass_cylinder.py).  One line a Newton step, the
+    seconds of each part, one outer iteration's wall and device time, two
+    solves of one system bit-equal; then the same mesh by ``splu`` (SuperLU
+    on the host: the yardstick), ``pcd`` with ``pcd_bc: robin`` at ``pcd``,
+    and at ``res_cpu`` the card against the port on the CPU (the dense
+    route on both, 1e-8).  Returns the monolithic drag and the solver."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    res, pts = dfg
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    solver = run_main(dfg_settings(core, res, pts, gmres_restart=budget[0],
+                                   gmres_maxiter=budget[1]), device=device)
+    wall = time.perf_counter() - t0
+    if _on_card(device):
+        check(solver.device.type == "cuda", f"DFG ran on {solver.device}")
+    up = solver.result
+    cd, cl = dfg_coefficients(solver, up)
+    routes = [st["route"] for st in solver.last_newton]
+    print(f"[ns-dfg] DFG-2D-1 res {res}/{pts}: {solver.mesh.num_cells()} "
+          f"triangles, {solver.function_space.ndof} dofs on {solver.device}: "
+          f"main() {wall:.2f} s, {solver.last_iterations} Newton steps; "
+          f"{_ns_timers(solver)}" + _peak_text(device))
+    _ns_newton_lines("ns-dfg", solver)
+    print(f"[ns-dfg] C_D = {cd:.5f} ({100 * (cd - C_D_REF) / C_D_REF:+.3f}% of "
+          f"{C_D_REF}), C_L = {cl:.5f}")
+    check(routes and set(routes) == {"fieldsplit"},
+          f"a Newton update left the fieldsplit route: {routes}")
+    if dfg == N_DFG:  # the example's bounds hold at its size, not below
+        check(solver.function_space.ndof > 50000, "the DFG mesh is below 50k")
+        check(abs(cd - C_D_REF) / C_D_REF < 0.05, f"C_D {cd} not within 5%")
+        check(abs(cl) < 0.05, f"|C_L| = {abs(cl)}")
+    form, _ = solver.generate_form(0, None, None, solver.w_current,
+                                   solver.w_current)
+    _hessian_memory("ns-dfg", solver, form, device)
+    del form
+    wall_it, dev, (it1, it2, same, r1) = profile_fgmres_iteration(solver)
+    print(f"[ns-dfg] one FGMRES outer iteration at the solution: {wall_it:.3f} "
+          f"ms wall, {dev}; two solves from zero: {it1} and {it2} outer "
+          f"(rel res {r1:.1e}), bit-equal {same}")
+    check(it1 == it2 and same, "two FGMRES solves of one system differ")
+    drag = solver.calc_drag_and_lift(up, 0, 1, [4])[0]
+
+    t0 = time.perf_counter()
+    lu = run_main(dfg_settings(core, res, pts, preconditioner="splu"),
+                  device=device)
+    wall_lu = time.perf_counter() - t0
+    cd_lu, _ = dfg_coefficients(lu, lu.result)
+    print(f"[ns-dfg] the same mesh by splu (SuperLU on the host): main() "
+          f"{wall_lu:.2f} s, {lu.last_iterations} Newton steps, splu "
+          f"{lu.timers.totals['splu']:.2f} s; C_D = {cd_lu:.5f}; fieldsplit "
+          f"{'wins' if wall < wall_lu else 'loses'} ({wall:.2f} s against "
+          f"{wall_lu:.2f} s); the two solutions' rel-L2 "
+          f"{_rel_l2(up.values, lu.result.values):.2e}")
+    check({st["route"] for st in lu.last_newton} == {"splu"}, "splu route")
+    del lu
+
+    t0 = time.perf_counter()
+    pc = run_main(dfg_settings(core, pcd[0], pcd[1], preconditioner="pcd",
+                               pcd_bc="robin", gmres_maxiter=12),
+                  device=device)
+    cd_pc, _ = dfg_coefficients(pc, pc.result)
+    print(f"[ns-dfg] pcd (robin) at res {pcd[0]}/{pcd[1]}, "
+          f"{pc.function_space.ndof} dofs: main() "
+          f"{time.perf_counter() - t0:.2f} s, {pc.last_iterations} Newton "
+          f"steps; {_ns_timers(pc)}; C_D = {cd_pc:.5f}")
+    _ns_newton_lines("ns-dfg", pc, "pcd ")
+    check(pcd != N_DFG_PCD or abs(cd_pc - C_D_REF) / C_D_REF < 0.05,
+          f"pcd C_D {cd_pc}")
+    del pc
+
+    out = {}
+    for where in (device, "cpu"):
+        s = run_main(dfg_settings(core, res_cpu, 4 * res_cpu), device=where)
+        out[where] = (s.result.values.copy(), s.last_iterations,
+                      {st["route"] for st in s.last_newton}, s.device)
+    rel = _rel_l2(out[device][0], out["cpu"][0])
+    print(f"[ns-dfg] res {res_cpu} ({s.function_space.ndof} dofs, dense LU) on "
+          f"{out[device][3]} against the cpu: rel-L2 {rel:.2e} (tol 1e-8); "
+          f"Newton steps {out[device][1]} and {out['cpu'][1]}")
+    check(rel <= 1e-8, f"DFG card vs CPU rel-L2 {rel}")
+    check(out[device][2] == out["cpu"][2] == {"dense"}, "routes differ")
+    return drag, solver
+
+
+def probe_ns_budgets(device=None, dfg=N_DFG, budgets=((120, 8), (400, 3))):
+    """DFG-2D-1 through ``main(settings)`` by ``fieldsplit`` at each outer
+    budget ``(gmres_restart, gmres_maxiter)``: the seconds of ``main()`` and
+    one line a Newton step (route, outer iterations, rel res)."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    for restart, maxiter in budgets:
+        t0 = time.perf_counter()
+        s = run_main(dfg_settings(core, *dfg, gmres_restart=restart,
+                                  gmres_maxiter=maxiter), device=device)
+        print(f"[ns-budget] res {dfg[0]}/{dfg[1]}, {s.function_space.ndof} "
+              f"dofs, restart {restart} x {maxiter}: main() "
+              f"{time.perf_counter() - t0:.2f} s; {_ns_timers(s)}")
+        _ns_newton_lines("ns-budget", s)
+
+
+def phase_ns_transient(device=None, res=10, nx_check=22, steps=3, nx_timed=64,
+                       steps_timed=2):
+    """The backward-Euler loop on the restart idiom of
+    examples/test_flow_pass_cylinder.py at ``res`` (the steady Newton
+    solve, then three transient Picard steps from it); then
+    ``compile_transient_ns`` on the ``nx_check`` channel (3 steps of 0.05,
+    8 Newton updates each, FGMRES beyond 4,096 dofs) within 1e-6 of the time
+    loop (tests/test_fast_paths.py), and its set-up, seconds a step and
+    FGMRES iterations over ``steps_timed`` steps on the ``nx_timed``
+    channel."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.solvers import fast_paths
+    from fenicssolver_tpu_torch.solvers.navier_stokes import (
+        CoupledNavierStokesSolver,
+    )
+
+    t0 = time.perf_counter()
+    steady = run_main(dfg_settings(core, res, nu=0.0015), device=device)
+    t1 = time.perf_counter()
+    s2 = dfg_settings(core, res, nu=0.0015, transient=True)
+    s2["initial_values"] = steady.result
+    loop = CoupledNavierStokesSolver(s2, device=device)
+    loop.using_nonlinear_solver = False
+    up = loop.solve()
+    t2 = time.perf_counter()
+    drag, _ = loop.calc_drag_and_lift(up, 0, 1, [4])
+    print(f"[ns-transient] restart at res {res}, {steady.function_space.ndof} "
+          f"dofs on {loop.device}: steady Newton {t1 - t0:.2f} s "
+          f"({steady.last_iterations} steps), then {loop.steps_taken} Picard "
+          f"steps in {t2 - t1:.2f} s ({loop.picard_iterations} iterations in "
+          f"the last); drag {drag:.5g}")
+    check(np.isfinite(up.values).all() and drag > 0, "the restart run")
+    check(loop.steps_taken == 3, f"{loop.steps_taken} transient steps")
+    del steady, loop
+
+    dt = 0.05
+    s = ns_channel(core, nx_check, transient=True)
+    s["solver_settings"]["transient_settings"]["ending_time"] = dt * steps - dt / 2
+    w_loop = CoupledNavierStokesSolver(s, device=device).solve().values
+    fast = CoupledNavierStokesSolver(ns_channel(core, nx_check, transient=True),
+                                     device=device)
+    run, aux = fast_paths.compile_transient_ns(fast, dt, steps, newton_iters=8)
+    w, _ = run(fast.get_initial_field().values)
+    rel = _rel_l2(w.cpu().numpy(), w_loop)
+    print(f"[ns-transient] compile_transient_ns {nx_check} x {nx_check} "
+          f"({fast.function_space.ndof} dofs), {steps} steps against the time "
+          f"loop: rel-L2 {rel:.2e} (tol 1e-6); FGMRES iterations "
+          f"{aux['iterations']}")
+    check(fast.function_space.ndof > fast_paths.DENSE_NS, "the dense route ran")
+    check(rel < 1e-6, f"compile_transient_ns vs the loop {rel}")
+    del fast, run
+
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    big = CoupledNavierStokesSolver(ns_channel(core, nx_timed, transient=True),
+                                    device=device)
+    run, aux = fast_paths.compile_transient_ns(big, dt, steps_timed)
+    w0 = big.get_initial_field().values
+    _sync(device)
+    t1 = time.perf_counter()
+    w, norms = run(w0)
+    _sync(device)
+    t2 = time.perf_counter()
+    print(f"[ns-transient] compile_transient_ns {nx_timed} x {nx_timed} "
+          f"({big.function_space.ndof} dofs): set-up {t1 - t0:.2f} s, "
+          f"{(t2 - t1) / steps_timed:.3f} s a step (6 Newton updates); FGMRES "
+          f"iterations {aux['iterations']}" + _peak_text(device))
+    check(bool(np.isfinite(norms.cpu().numpy()).all()), "non-finite norms")
+
+
+def _sync(device):
+    import torch
+
+    if _on_card(device):
+        torch.cuda.synchronize()
+
+
+def _ipcs_run(solver, dt, steps, device, **kw):
+    """(u, p, norms, iterations a step (k1, k2, k3), set-up s, run s)."""
+    import numpy as np
+
+    from fenicssolver_tpu_torch.solvers import fast_paths
+
+    t0 = time.perf_counter()
+    run, aux = fast_paths.compile_transient_ns_ipcs(solver, dt=dt,
+                                                    n_steps=steps,
+                                                    report_iters=True, **kw)
+    _sync(device)
+    t1 = time.perf_counter()
+    (u, p), (norms, k1, k2, k3) = run(np.zeros(aux["V"].ndof),
+                                      np.zeros(aux["Q"].ndof))
+    _sync(device)
+    t2 = time.perf_counter()
+    ks = [k.cpu().numpy() for k in (k1, k2, k3)]
+    return u, p, norms.cpu().numpy(), ks, t1 - t0, t2 - t1
+
+
+def _iters_text(ks):
+    return ", ".join(f"{n} {k.mean():.1f} (max {k.max()})"
+                     for n, k in zip(("BiCGStab", "AMG-PCG", "PCG"), ks))
+
+
+def phase_ns_ipcs(device=None, drag_ref=None, dfg=N_DFG, dt=0.004, steps=500,
+                  big=N_DFG_BIG, big_steps=100, mf_steps=50):
+    """``compile_transient_ns_ipcs`` on the DFG mesh from rest: ``steps``
+    steps of ``dt`` (T = 2) at tol 1e-8; the norm settles (2e-2 over the last
+    100 steps) and the drag is within 1% of the monolithic steady drag
+    ``drag_ref`` (examples/test_flow_pass_cylinder.py).  Seconds a step and
+    the Krylov iterations of each solve; then ``big_steps`` timed at
+    ``big``; then ``matrix_free_mass`` for ``mf_steps`` steps against the
+    assembled mass (1e-8)."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.core.function import Function
+    from fenicssolver_tpu_torch.solvers.navier_stokes import (
+        CoupledNavierStokesSolver,
+    )
+
+    res, pts = dfg
+    solver = CoupledNavierStokesSolver(dfg_settings(core, res, pts),
+                                       device=device)
+    _reset_peak(device)
+    u, p, n, ks, setup, wall = _ipcs_run(solver, dt, steps, device, tol=1e-8)
+    settle = abs(n[-1] - n[-100]) / n[-1]
+    W = solver.function_space
+    up = Function(W)
+    up.values[W.slice_of(0)] = u.cpu().numpy()
+    up.values[W.slice_of(1)] = p.cpu().numpy()
+    drag, _ = solver.calc_drag_and_lift(up, 0, 1, [4])
+    print(f"[ns-ipcs] DFG res {res}/{pts} ({W.ndof} mixed dofs) on "
+          f"{u.device}: {steps} steps of {dt}, set-up {setup:.2f} s, "
+          f"{wall / steps * 1e3:.2f} ms a step; iterations a step: "
+          f"{_iters_text(ks)}; settle {settle:.2e} (tol 2e-2); drag "
+          f"{drag:.6g} against the monolithic {drag_ref:.6g} "
+          f"({100 * (drag - drag_ref) / drag_ref:+.3f}%)" + _peak_text(device))
+    check(np.isfinite(n).all() and settle < 2e-2, f"IPCS settle {settle}")
+    check(abs(drag - drag_ref) / abs(drag_ref) < 0.01, f"IPCS drag {drag}")
+
+    u_a, p_a, _, _, _, wall_a = _ipcs_run(solver, dt, mf_steps, device)
+    u_m, p_m, _, ks_m, _, wall_m = _ipcs_run(solver, dt, mf_steps, device,
+                                             matrix_free_mass=True)
+    du = float((u_m - u_a).abs().max() / u_a.abs().max())
+    dp = float((p_m - p_a).abs().max() / p_a.abs().max())
+    print(f"[ns-ipcs] matrix_free_mass, {mf_steps} steps: "
+          f"{wall_m / mf_steps * 1e3:.2f} ms a step against "
+          f"{wall_a / mf_steps * 1e3:.2f} ms assembled; max |du| {du:.2e}, "
+          f"|dp| {dp:.2e} (tol 1e-8); PCG {ks_m[2].mean():.1f} a step")
+    check(du < 1e-8 and dp < 1e-8, "matrix-free mass against the assembled")
+    del solver
+
+    bs = CoupledNavierStokesSolver(dfg_settings(core, *big), device=device)
+    _reset_peak(device)
+    u, _, n, ks, setup, wall = _ipcs_run(bs, dt, big_steps, device, tol=1e-8)
+    print(f"[ns-ipcs] DFG res {big[0]}/{big[1]} ({bs.function_space.ndof} "
+          f"mixed dofs): set-up {setup:.2f} s, {big_steps} steps "
+          f"{wall / big_steps * 1e3:.2f} ms a step; iterations a step: "
+          f"{_iters_text(ks)}" + _peak_text(device))
+    check(np.isfinite(n).all(), "non-finite IPCS norms at the large mesh")
+
+
+def elbow_settings(core, res, solving_temperature=False):
+    """examples/test_cfd_solver.py's elbow (``setup_case``): rho = 1000, nu
+    = 0.5, walls at 320 K and the inlet at 300 K with the temperature."""
+    from fenicssolver_tpu_torch.core.meshgen import elbow_mesh
+
+    near = core.near
+    temp = solving_temperature
+
+    def values(velocity, T):
+        v = [{"variable": "velocity", "type": "Dirichlet", "value": velocity}]
+        return v + ([{"variable": "temperature", "type": "Dirichlet",
+                      "value": T}] if temp else [])
+
+    profile = core.Expression(("0", "max_vel*(1.0-pow((x[0]-0.5)/0.5, 2))"),
+                              max_vel=1.0, degree=2)
+    return {
+        "solver_name": "CoupledNavierStokesSolver",
+        "mesh": elbow_mesh(res), "fe_degree": 1,
+        "boundary_conditions": {
+            "walls": {"boundary": core.AutoSubDomain(lambda x: x[0] == x[0]),
+                      "boundary_id": 1, "values": values((0.0, 0.0), 320.0)},
+            "inlet": {"boundary": core.AutoSubDomain(lambda x: near(x[1], 0.0)),
+                      "boundary_id": 2, "values": values(profile, 300.0)},
+            "outlet": {"boundary": core.AutoSubDomain(lambda x: near(x[0], 4.0)),
+                       "boundary_id": 3, "values": [{
+                           "variable": "pressure", "type": "Dirichlet",
+                           "value": 0.0}]},
+        },
+        "body_source": None, "solving_temperature": temp,
+        "initial_values": {"velocity": (0.0, 0.0), "pressure": 0.0,
+                           "temperature": 300.0},
+        "material": {"density": 1000.0, "kinematic_viscosity": 0.5,
+                     "specific_heat_capacity": 4200.0,
+                     "thermal_conductivity": 0.6},
+        "solver_settings": {
+            "transient_settings": {"transient": False, "starting_time": 0,
+                                   "time_step": 0.1, "ending_time": 1},
+            "reference_values": {"temperature": 293, "pressure": 101325},
+            "solver_parameters": {"relative_tolerance": 1e-9,
+                                  "maximum_iterations": 100,
+                                  "monitor_convergence": False},
+        },
+        "report_settings": dict(QUIET),
+    }
+
+
+def phase_ns_coupled(device=None, res=7, res_flow=8):
+    """The elbow of examples/test_cfd_solver.py through ``main(settings)``:
+    the flow (|u| < 3) and the coupled temperature (295 < T < 321.5)."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    t0 = time.perf_counter()
+    flow = run_main(elbow_settings(core, res_flow), device=device)
+    u, p = flow.split_solution()
+    t1 = time.perf_counter()
+    coupled = run_main(elbow_settings(core, res, True), device=device)
+    t2 = time.perf_counter()
+    T = coupled.result.values[coupled.function_space.slice_of(2)]
+    umax = float(np.abs(u.values).max())
+    print(f"[ns-coupled] elbow res {res_flow}: {flow.function_space.ndof} dofs, "
+          f"{t1 - t0:.2f} s, {flow.last_iterations} Newton steps, |u|max "
+          f"{umax:.4f}; with temperature res {res}: "
+          f"{coupled.function_space.ndof} dofs on {coupled.device}, "
+          f"{t2 - t1:.2f} s, {coupled.last_iterations} Newton steps, T in "
+          f"[{T.min():.3f}, {T.max():.3f}]")
+    check(np.isfinite(flow.result.values).all() and umax < 3.0, "elbow flow")
+    check(np.isfinite(T).all() and 295.0 < T.min() and T.max() < 321.5,
+          f"elbow T range [{T.min()}, {T.max()}]")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -3257,6 +3782,10 @@ def main():
     phase_large_deformation()
     phase_elastodynamics()
     phase_adjoint()
+    drag, _ = phase_ns_dfg()
+    phase_ns_transient()
+    phase_ns_ipcs(drag_ref=drag)
+    phase_ns_coupled()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()

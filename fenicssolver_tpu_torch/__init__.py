@@ -19,7 +19,10 @@ contact; ``PlasticitySolver``: J2 with its state at the quadrature points;
 ``LargeDeformationSolver``: the mixed finite-strain solver) with the
 elastodynamics fast path, differentiable implicit solves
 (``ops/adjoint.py``), the Newmark wave solver and the 2-D Maxwell A_z
-solver; mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
+solver; incompressible Navier-Stokes (``CoupledNavierStokesSolver``:
+Taylor-Hood with the optional temperature block, Newton with the
+saddle-point FGMRES or Picard, and the monolithic and IPCS transient fast
+paths); mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
 workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
 stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
 cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``).
@@ -43,6 +46,7 @@ _SOLVER_EXPORTS = {
     "PlasticitySolver": "fenicssolver_tpu_torch.solvers.plasticity",
     "MaxwellEMSolver": "fenicssolver_tpu_torch.solvers.maxwell",
     "WavePropagationSolver": "fenicssolver_tpu_torch.solvers.wave",
+    "CoupledNavierStokesSolver": "fenicssolver_tpu_torch.solvers.navier_stokes",
     "main": "fenicssolver_tpu_torch.main",
     "load_settings": "fenicssolver_tpu_torch.main",
 }

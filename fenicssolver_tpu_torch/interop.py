@@ -205,3 +205,21 @@ def time_history(solver, w_current, w_prev=None, w_pp=None):
                          ("w_pp", w_pp)):
         if values is not None:
             setattr(solver, name, function(V, values))
+
+
+def ipcs_state(aux, u, p):
+    """The IPCS pair of another run as the port's tensors, in the dtype of
+    the fast path built with ``aux`` (``fast_paths.compile_transient_ns_ipcs``)
+    and on its device: ``u`` on ``aux["V"]`` (interleaved components), ``p``
+    on ``aux["Q"]``.  A ``CoupledNavierStokesSolver``'s ``w_current`` and
+    ``w_prev`` are carried by ``time_history``, and a steady solution to
+    restart from by ``function`` on the solver's mixed space (the settings'
+    ``initial_values``)."""
+    like = aux["ubc_v"]
+    u = _tensor(u, like.device, like.dtype)
+    p = _tensor(p, like.device, like.dtype)
+    if u.shape != (aux["V"].ndof,) or p.shape != (aux["Q"].ndof,):
+        raise ValueError(
+            f"state shapes {tuple(u.shape)}, {tuple(p.shape)} do not match "
+            f"the spaces' ({aux['V'].ndof},), ({aux['Q'].ndof},)")
+    return u, p

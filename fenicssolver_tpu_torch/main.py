@@ -19,8 +19,6 @@ import sys
 
 #: solvers of the reference that this package does not port yet
 _NOT_PORTED = {
-    "CoupledNavierStokesSolver": "solvers/navier_stokes.py",
-    "NavierStokesSolver": "solvers/navier_stokes.py",
     "NSDGSolver": "solvers/navier_stokes_dg.py",
     "FSISolver": "solvers/fsi.py",
     "CompressibleNSSolver": "solvers/compressible_ns.py",
@@ -52,7 +50,11 @@ def main(case_input, device=None):
         case_input = case_input[1]
     settings = load_settings(case_input)
     solver_name = settings["solver_name"]
-    if solver_name in ("ScalarTransportSolver", "ScalarEquationSolver"):
+    if solver_name in ("CoupledNavierStokesSolver", "NavierStokesSolver"):
+        from .solvers.navier_stokes import CoupledNavierStokesSolver
+
+        solver = CoupledNavierStokesSolver(settings, device=device)
+    elif solver_name in ("ScalarTransportSolver", "ScalarEquationSolver"):
         from .solvers.scalar_transport import ScalarTransportSolver
 
         solver = ScalarTransportSolver(settings, device=device)

@@ -1,7 +1,7 @@
 """Differentiable implicit solves of fenicssolver_tpu_torch (``ops/adjoint.py``)
 against the JAX package's on the CPU in f64: the cases of
-tests/test_adjoint.py other than the Navier-Stokes drag (which waits for
-``solvers/navier_stokes.py``), each gradient against the JAX package's to
+tests/test_adjoint.py (the Navier-Stokes drag included, through the mixed
+form of ``solvers/navier_stokes.py``), each gradient against the JAX package's to
 1e-9 and against central differences of the port's solve to the reference
 test's tolerance; the solve under ``torch.func.grad`` against autograd; the
 dense route; the transposed product of assembly (``residual_vjp``) and the
@@ -511,3 +511,103 @@ def test_two_adjoint_gradients_on_the_card_are_bit_equal():
     grad = torch.func.grad(lambda k: (solver({"kappa": k}) ** 2).sum())
     g1, g2 = grad(kappa), grad(kappa)
     assert g1.is_cuda and torch.equal(g1, g2)
+
+
+def _ns_drag_problem(pkg):
+    """tests/test_adjoint.py's drag case through either package (``pkg`` is
+    "jax" or "torch"): the 4 x 4 channel solved by the solver, its mixed
+    form through the dense-route implicit solver, and the bottom wall's drag
+    (boundary 4) as a function of the solution.  Returns (solver's
+    solution, implicit solve, Dirichlet values, drag)."""
+    from tests.test_torch_navier_stokes import NU, RHO, channel
+
+    if pkg == "jax":
+        import jax
+        import jax.numpy as xp
+        import fenicssolver_tpu.core as core
+        from fenicssolver_tpu.ops import geometry as geo
+        from fenicssolver_tpu.solvers.navier_stokes import (
+            CoupledNavierStokesSolver as NS,
+        )
+
+        maker = j_make_implicit_solver
+
+        def row(tab, lid):
+            return tab[lid]
+
+        vmap = jax.vmap
+    else:
+        xp = torch
+        core = tcore
+        geo = geometry
+        from fenicssolver_tpu_torch.solvers.navier_stokes import (
+            CoupledNavierStokesSolver as NS,
+        )
+
+        maker = make_implicit_solver
+
+        def row(tab, lid):
+            return torch.index_select(tab, 0, lid.reshape(1))[0]
+
+        vmap = torch.func.vmap
+    s = channel(core, 4, 4)
+    s["solver_settings"]["solver_parameters"]["nonlinear"] = True
+    solver = NS(s)
+    up = solver.solve()
+    form, d = solver.generate_form(0, None, None, solver.w_current,
+                                   solver.w_prev)
+    isolver = maker(form, d, linear=False, spd=False, method="dense",
+                    newton_rtol=1e-12)
+    W = solver.function_space
+    Vv, Q = W.subspaces[0], W.subspaces[1]
+    kv, kp, dim = Vv.scalar_space.ndof_el, Q.ndof_el, 2
+    fctx = geo.build_facet_context(W, solver.boundary_facet_ids(4), 3)
+    _, fdphi, fw, _ = geo.facet_basis_tables(2, Vv.degree, 3)
+    fphi_p = geo.facet_basis_tables(2, Q.degree, 3)[0]
+    fdphi, fphi_p, fw = (xp.asarray(np.asarray(a)) for a in (fdphi, fphi_p, fw))
+    mu = NU * RHO
+
+    def facet_force(we, local_id, detF, normal, Jinv):
+        U = we[:kv * dim].reshape(kv, dim)
+        gU = xp.einsum("qkg,kv->qvg",
+                       xp.einsum("qkt,tg->qkg", row(fdphi, local_id), Jinv), U)
+        p_q = row(fphi_p, local_id) @ we[kv * dim:kv * dim + kp]
+        sig = mu * (gU + xp.swapaxes(gU, 1, 2)) \
+            - p_q[:, None, None] * xp.eye(dim, dtype=we.dtype)
+        return -xp.einsum("q,qv->v", fw * detF,
+                          xp.einsum("qvg,g->qv", sig, normal))
+
+    def drag(upv):
+        f = vmap(facet_force)(upv[fctx.cell_dofs], fctx.local_id, fctx.detF,
+                              fctx.normal, fctx.Jinv)
+        return f.sum(0)[0]
+
+    return np.asarray(up.values), isolver, d.u_bc, drag
+
+
+def test_ns_drag_sensitivity_wrt_inflow():
+    """Differentiable Navier-Stokes (tests/test_adjoint.py's drag case): the
+    mixed saddle-point form through the dense-route implicit solver
+    reproduces the solver's Newton solution (1e-8), and the gradient of the
+    bottom-wall drag with respect to an inflow scale matches the JAX
+    package's (1e-9) and central differences (2e-5)."""
+    import jax
+
+    up, isolver, ubc, drag = _ns_drag_problem("torch")
+    assert _close_rel(isolver({}, ubc).detach().numpy(), up) < 1e-8
+
+    def J(scale):
+        return drag(isolver({}, ubc * scale))
+
+    g = torch.func.grad(J)(torch.tensor(1.0, dtype=F64))
+    fd = (float(J(torch.tensor(1.0 + 1e-4, dtype=F64)))
+          - float(J(torch.tensor(1.0 - 1e-4, dtype=F64)))) / 2e-4
+    assert abs(float(g) - fd) <= 2e-5 * max(abs(fd), 1e-6), (float(g), fd)
+    assert abs(fd) > 1e-8
+    _, jsolver, jubc, jdrag = _ns_drag_problem("jax")
+    jg = jax.grad(lambda sc: jdrag(jsolver({}, jubc * sc)))(1.0)
+    assert abs(float(g) - float(jg)) <= 1e-9 * abs(float(jg)), (float(g), jg)
+
+
+def _close_rel(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)

@@ -114,13 +114,6 @@ def test_fast_path_keeps_the_raw_initial_values():
     assert _rel(raw.numpy(), TSolver(slab(tcore, mesh, 1)).solve().values) < 1e-8
 
 
-@pytest.mark.parametrize("name", ["compile_transient_ns",
-                                  "compile_transient_ns_ipcs"])
-def test_other_fast_paths_name_their_solver(name):
-    with pytest.raises(NotImplementedError, match=r"solvers/navier_stokes\.py"):
-        getattr(fast_paths, name)(None, 0.1, 1)
-
-
 DYN_STEP, DYN_STEPS = 0.01, 6
 
 

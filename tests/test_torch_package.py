@@ -70,6 +70,7 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.solvers.maxwell",
     "fenicssolver_tpu_torch.solvers.wave",
     "fenicssolver_tpu_torch.solvers.nonlinear_elasticity",
+    "fenicssolver_tpu_torch.solvers.navier_stokes",
     "fenicssolver_tpu_torch.solvers.plasticity",
     "fenicssolver_tpu_torch.solvers.large_deformation",
     "fenicssolver_tpu_torch.ops.adjoint",
@@ -328,7 +329,8 @@ def _periodic_x():
 
 
 @pytest.mark.parametrize(
-    "what", ["xdmf", "hdf5", "hdf5_solver", "fast_path_ns", "fast_path_ipcs"]
+    "what", ["xdmf", "hdf5", "hdf5_solver", "ns_distributed_newton",
+             "ns_distributed_picard"]
 )
 def test_unported_spaces_and_readers_raise(what, tmp_path):
     with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch") as e:
@@ -346,13 +348,22 @@ def test_unported_spaces_and_readers_raise(what, tmp_path):
             path.write_bytes(b"")
             ScalarTransportSolver(_settings(None, mesh=str(path)))
         else:
-            from fenicssolver_tpu_torch.solvers import fast_paths
+            # the distributed saddle-point solves wait with parallel/
+            from fenicssolver_tpu_torch.solvers.navier_stokes import (
+                CoupledNavierStokesSolver,
+            )
+            import fenicssolver_tpu_torch.core as tcore
+            from tests.test_torch_navier_stokes import channel
 
-            {"fast_path_ns": fast_paths.compile_transient_ns,
-             "fast_path_ipcs": fast_paths.compile_transient_ns_ipcs,
-             }[what](None, 0.1, 1)
+            s = channel(tcore, 2, 2)
+            s["solver_settings"]["solver_parameters"]["distributed"] = True
+            solver = CoupledNavierStokesSolver(s)
+            solver.using_nonlinear_solver = what.endswith("newton")
+            solver.solve()
     if what in ("xdmf", "hdf5", "hdf5_solver"):
         assert "io/meshio.py" in str(e.value) and "h5py" in str(e.value)
+    else:
+        assert "parallel/" in str(e.value)
 
 
 def _raised_module_names():
@@ -378,7 +389,7 @@ def test_remaining_errors_name_modules_that_are_still_missing():
     each one left names a module of the reference (or ``parallel/``, whose
     distributed layer waits, or ``io/meshio.py``'s HDF5 readers)."""
     pairs = _raised_module_names()
-    assert len(pairs) >= 9
+    assert len(pairs) >= 5
     ref = os.path.join(REPO, "fenicssolver_tpu")
     for fn, module in pairs:
         assert os.path.exists(os.path.join(ref, module)), (fn, module)
@@ -391,21 +402,23 @@ def test_remaining_errors_name_modules_that_are_still_missing():
                           "solvers/wave.py", "utils/plotting.py",
                           "solvers/nonlinear_elasticity.py",
                           "solvers/plasticity.py",
-                          "solvers/large_deformation.py", "ops/adjoint.py"}
+                          "solvers/large_deformation.py", "ops/adjoint.py",
+                          "solvers/navier_stokes.py"}
 
 
 @pytest.mark.parametrize("name", ["LinearElasticitySolver", "MaxwellEMSolver",
                                   "WavePropagationSolver",
                                   "NonlinearElasticitySolver", "PlasticitySolver",
-                                  "LargeDeformationSolver"])
+                                  "LargeDeformationSolver",
+                                  "CoupledNavierStokesSolver"])
 def test_main_no_longer_lists_the_ported_solvers(name):
     import fenicssolver_tpu_torch as fst
     from fenicssolver_tpu_torch import main as tmain
 
     assert name not in tmain._NOT_PORTED
     assert getattr(fst, name).__name__ == name
-    with pytest.raises(NotImplementedError, match="solvers/navier_stokes.py"):
-        tmain.main({"solver_name": "NavierStokesSolver"})
+    with pytest.raises(NotImplementedError, match="solvers/navier_stokes_dg.py"):
+        tmain.main({"solver_name": "NSDGSolver"})
 
 
 @pytest.mark.parametrize("what", ["P2_periodic", "DG", "vector_periodic",
@@ -440,8 +453,6 @@ def test_formerly_unported_spaces_build(what):
 
 
 @pytest.mark.parametrize("name,module", [
-    ("NavierStokesSolver", "solvers/navier_stokes.py"),
-    ("CoupledNavierStokesSolver", "solvers/navier_stokes.py"),
     ("NSDGSolver", "solvers/navier_stokes_dg.py"),
     ("FSISolver", "solvers/fsi.py"),
     ("CompressibleNSSolver", "solvers/compressible_ns.py"),
