@@ -84,7 +84,7 @@ non-zero and no result line is printed):
    +50 K, AMG-CG) against the exact field to 1e-9; then the vector P2
    cantilever (k = 30) at 20 x 3 x 3 on the card against the port's CPU
    solve (1e-8, equal iterations);
-8c. modal: ``solve_modal(6)`` of a clamped P1 beam at 99,072 dofs; the
+8c. modal: ``solve_modal(6)`` of a clamped P1 beam at 41,904 dofs; the
    recorded backend must be ``lobpcg`` (LOBPCG with the AMG V-cycle on the
    card), the frequencies within 1e-4 of scipy's shift-invert ``eigsh`` on
    the same K and M;
@@ -112,6 +112,20 @@ non-zero and no result line is printed):
    examples/test_adjoint_inverse.py by ``torch.optim.Adam`` with the
    example's assertions, and at 66,049 dofs a gradient against central
    differences (1e-6) that two calls give bit-equal;
+8f. the last three solvers, through ``main(settings)`` on the default
+   device: ``NSDGSolver`` on the DG2/DG1 channel of
+   examples/test_dg_flow.py at 64 x 64 (122,880 dofs) by ``fieldsplit``
+   with the DG p-multigrid present (``check_dg_fieldsplit``), exact to
+   1e-8, two solves of one system bit-equal, the 3-D Couette duct at 8^3
+   (104,448 dofs), the transient start-up against the CPU (1e-9);
+   ``CompressibleNSSolver`` on the acoustic pulse of
+   examples/test_compressible_flow.py at 1024^2 (1,050,625 nodes; mass and
+   energy to 1e-12, the front within 10% of c t), Sod's tube at n = 400,
+   the closed box at 12^2 against the CPU (1e-12) and twice on the card
+   (bit-equal); ``FSISolver`` on the pressure-loaded cantilever of
+   tests/test_fsi.py 8x as fine (fluid 23,603 dofs by fieldsplit), one
+   line a step, the tip within 15% of Euler-Bernoulli, and at the test's
+   size the card against the CPU after each step (1e-8);
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
@@ -145,8 +159,9 @@ over ``HBM_BYTES_PER_S`` and the operations over ``PEAK_FLOPS``.
 is the kernel on that same case: for K2, ``F.conv3d`` on the same x,
 which computes the unmasked apply (so it stands beside the unmasked
 kernel, not the masked ``ms``); for K5, the ``einsum`` of its plain
-version on the same case; K1, K3 and K4 have no single PyTorch call
-(null, with the reason).
+version on the same case; for K4, one ``torch.einsum`` of its whole
+function (``p1_stiffness_einsum``) on K4's case, held to the plain version
+first; K1 and K3 have no single PyTorch call (null, with the reason).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -624,19 +639,29 @@ def time_k1(device="cuda", n=N_MAIN):
 
 
 def _compare(tag, what, kernel, plain, nbytes, flops, dtype_name, tol,
-             library=False):
+             library=False, library_case=None):
     """Kernel against plain version on the same inputs, then ``_timed``;
-    ``library``: the plain version is itself one PyTorch call (its time is
-    also the library time).  Returns ``_timed``'s dict with the max abs
-    error."""
+    ``library``: True when the plain version is itself one PyTorch call (its
+    time is also the library time), or that one call (timed beside the
+    kernel on the same inputs after ``_agree`` holds it to the plain
+    version too; ``library_case`` says what it is).  Returns ``_timed``'s
+    dict with the max abs error."""
     abs_err, _ = _agree(tag, what, kernel, plain, tol)
-    t = _timed(tag, what, kernel, plain, nbytes, flops, dtype_name)
-    if library:
+    if callable(library):
+        lib_err, _ = _agree(tag, f"{what} library", library, plain, tol)
+        t = _timed(tag, what, kernel, plain, nbytes, flops, dtype_name,
+                   library=library)
+        t.update(library_kernel_ms=t["ms"],
+                 library_case=f"{library_case}; same case, max abs err "
+                              f"{lib_err:.1e} against the plain version")
+    elif library:
+        t = _timed(tag, what, kernel, plain, nbytes, flops, dtype_name)
         t.update(library_ms=t["plain_ms"], library_kernel_ms=t["ms"],
                  library_case="the plain version, one torch.einsum; same case")
     else:
-        t.update(library_kernel_ms=None,
-                 library_case="none: no single PyTorch call computes it")
+        t = _timed(tag, what, kernel, plain, nbytes, flops, dtype_name)
+        t.update(library_kernel_ms=None, library_case=library_case
+                 or "none: no single PyTorch call computes it")
     return {"max_abs_err": abs_err, **t}
 
 
@@ -667,6 +692,29 @@ def _random_geometry(nc, dim, device):
         det = (J[0, 0] * cof(0, 0) + J[0, 1] * cof(0, 1)
                + J[0, 2] * cof(0, 2))
     return (adj / det).contiguous(), det.abs()
+
+
+#: what K4's library call computes: the whole of K4's function
+K4_LIBRARY_CASE = ("torch.einsum('c,at,tdc,bs,sdc->abc', |detJ|/d!, gref, "
+                   "JinvT, gref, JinvT)")
+#: why K3 has none: the einsum gives the full 4 x 4 matrices
+K3_LIBRARY_CASE = ("none: one einsum gives the full 4 x 4 matrices; the "
+                   "packing to K3's 10 SYM10 entries takes a second call")
+
+
+def p1_stiffness_einsum(JinvT, detJ, gref):
+    """K4's function as one ``torch.einsum`` on its inputs: (k, k, nc)
+    element matrices |detJ|/d! G G^T with G = gref JinvT."""
+    import math as _math
+
+    import numpy as np
+    import torch
+
+    g = torch.as_tensor(np.asarray(gref, dtype=np.float64), dtype=JinvT.dtype,
+                        device=JinvT.device)
+    scale = detJ * (1.0 / _math.factorial(g.shape[1]))
+    return lambda: torch.einsum("c,at,tdc,bs,sdc->abc", scale, g, JinvT, g,
+                                JinvT)
 
 
 def phase_k3_k4(device="cuda", n=N_MAIN):
@@ -700,9 +748,16 @@ def phase_k3_k4(device="cuda", n=N_MAIN):
                     lambda: cuda_kernels.p1_stiffness_sym_reference(JinvT, detJ),
                     k3_bytes(nc, item), k3_flops(nc)))
             for kname, what, kern, plain, nbytes, flops in cases:
+                lib, case = None, None
+                if kname == "p1_stiffness" and dim == 3 and name == "float64":
+                    lib, case = p1_stiffness_einsum(JinvT, detJ, gref), \
+                        K4_LIBRARY_CASE
+                elif kname == "p1_stiffness_sym":
+                    case = K3_LIBRARY_CASE
                 r = _compare("k3" if kname == "p1_stiffness_sym" else "k4",
                              f"{what} {name} nc={nc}", kern, plain, nbytes,
-                             flops, name, TOL[name])
+                             flops, name, TOL[name], library=lib,
+                             library_case=case)
                 # the dtype of the path that launches it (module docstring)
                 path_dtype = "float32" if kname == "p1_stiffness_sym" else "float64"
                 if name == path_dtype and dim == 3:
@@ -1764,28 +1819,40 @@ def phase_transient_cli(on="cuda"):
     cases = (("P1", {"fe_degree": 1}), ("P2", {"fe_degree": 2}),
              ("DG1", {"solver_name": "ScalarTransportDGSolver"}),
              ("P1 restarted", {"restart": True}))
-    for name, change in cases:
+    top = tempfile.TemporaryDirectory()
+    runs = []
+    for k, (name, change) in enumerate(cases):
         settings = load_settings(json_case)
         restart = change.pop("restart", False)
         settings.update(change)
         settings["solver_settings"]["transient_settings"]["transient"] = True
-        with tempfile.TemporaryDirectory() as tmp:
-            if restart:
-                ckpt = os.path.join(tmp, "steady.npz")
-                checkpoint.save_function(ckpt, steady.result)
-                settings["initial_values"] = {"temperature": ckpt}
-                settings["report_settings"].update(
-                    saving_freq=3, result_filename=os.path.join(tmp, "T.pvd"))
-            case = os.path.join(tmp, "case.json")
-            with open(case, "w") as f:
-                json.dump(settings, f)  # the mesh path is absolute here
-            proc = subprocess.run(
-                [sys.executable, "-m", "fenicssolver_tpu_torch", case],
-                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-            drift = None
-            if restart and proc.returncode == 0:
-                vals = _pvd_last_values(os.path.join(tmp, "T.pvd"), "f")
-                drift = _rel_l2(vals, steady.result.values)
+        tmp = os.path.join(top.name, str(k))
+        os.makedirs(tmp)
+        if restart:
+            ckpt = os.path.join(tmp, "steady.npz")
+            checkpoint.save_function(ckpt, steady.result)
+            settings["initial_values"] = {"temperature": ckpt}
+            settings["report_settings"].update(
+                saving_freq=3, result_filename=os.path.join(tmp, "T.pvd"))
+        case = os.path.join(tmp, "case.json")
+        with open(case, "w") as f:
+            json.dump(settings, f)  # the mesh path is absolute here
+        runs.append((name, restart, tmp, case))
+
+    def cli(run):
+        # the four processes share the card at once: each spends most of its
+        # ~20 s starting up on the host
+        return subprocess.run(
+            [sys.executable, "-m", "fenicssolver_tpu_torch", run[3]],
+            cwd=run[2], env=env, capture_output=True, text=True, timeout=600)
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        procs = list(pool.map(cli, runs))
+    for (name, restart, tmp, _), proc in zip(runs, procs):
+        drift = None
+        if restart and proc.returncode == 0:
+            vals = _pvd_last_values(os.path.join(tmp, "T.pvd"), "f")
+            drift = _rel_l2(vals, steady.result.values)
         line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
         print(f"[transient-cli] {name}, FST_DEVICE "
               f"{'unset' if on != 'cpu' else 'cpu'}: rc {proc.returncode}; {line}"
@@ -1797,6 +1864,7 @@ def phase_transient_cli(on="cuda"):
               f"{name} transient CLI did not run 3 steps on {on}")
         if restart:
             check(drift <= 1e-8, f"restarted run left the steady state: {drift}")
+    top.cleanup()
 
 
 def _pvd_last_values(pvd, name):
@@ -2182,7 +2250,7 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
     check(abs(tg - beam) / beam < 0.08, f"P2 tip deflection {tg} vs {beam}")
 
 
-def phase_modal(device=None, n=(128, 15, 15), n_modes=6):
+def phase_modal(device=None, n=(96, 11, 11), n_modes=6):
     """``solve_modal`` of a clamped P1 beam (5 x 0.5 x 0.5, steel): LOBPCG
     with the AMG V-cycle on the device against scipy's shift-invert
     ``eigsh`` on the same K and M (host)."""
@@ -3695,6 +3763,652 @@ def phase_ns_coupled(device=None, res=7, res_flow=8):
           f"elbow T range [{T.min()}, {T.max()}]")
 
 
+def fsi_channel(core):
+    """tests/test_fsi.py's ``make_fsi_settings``: a channel (8 x 4, y in
+    [0.5, 1]) over an elastic slab (8 x 2, y in [0.3, 0.5]), rho = 1000, E =
+    1e6, three steps of 0.02."""
+    near = core.near
+    transient = {"transient": True, "starting_time": 0.0, "time_step": 0.02,
+                 "ending_time": 0.06}
+    parabola = core.Expression(("umax*16.0*(x[1]-0.5)*(1.0-x[1])", "0"),
+                               umax=0.3, degree=2)
+    interface = core.AutoSubDomain(lambda x: near(x[1], 0.5))
+
+    def bc(bid, pred, value, variable="velocity"):
+        return {"boundary": core.AutoSubDomain(pred), "boundary_id": bid,
+                "values": [{"variable": variable, "type": "Dirichlet",
+                            "value": value}]}
+
+    fluid_bcs = {
+        "inlet": bc(1, lambda x: near(x[0], 0.0), parabola),
+        "outlet": bc(2, lambda x: near(x[0], 1.0), 0.0, "pressure"),
+        "top": bc(3, lambda x: near(x[1], 1.0), (0.0, 0.0)),
+        "interface": {"boundary": interface, "boundary_id": 4,
+                      "coupling": "FSI"},
+    }
+    zero = core.Constant((0.0, 0.0))
+    solid_bcs = {
+        "bottom": {"boundary": core.AutoSubDomain(lambda x: near(x[1], 0.3)),
+                   "boundary_id": 1, "type": "Dirichlet", "value": zero},
+        "sides": {"boundary": core.AutoSubDomain(
+            lambda x: near(x[0], 0.0) | near(x[0], 1.0)), "boundary_id": 2,
+            "type": "Dirichlet", "value": zero},
+        "interface": {"boundary": interface, "boundary_id": 4,
+                      "coupling": "FSI", "type": "stress", "value": zero},
+    }
+    return _fsi_settings(
+        _fsi_fluid(core.RectangleMesh(core.Point(0, 0.5), core.Point(1, 1.0), 8,
+                                      4), fluid_bcs, 1000.0, 0.01, 0.0,
+                   transient, 1e-9),
+        _fsi_solid(core.RectangleMesh(core.Point(0, 0.3), core.Point(1, 0.5), 8,
+                                      2), solid_bcs, 1e6, 0.3, 2e-6, transient),
+        transient)
+
+
+def _fsi_fluid(mesh, bcs, rho, nu, p0, transient, rtol):
+    return {
+        "solver_name": "CoupledNavierStokesSolver", "mesh": mesh,
+        "fe_degree": 1, "boundary_conditions": bcs, "body_source": None,
+        "initial_values": {"velocity": (0.0, 0.0), "pressure": p0},
+        "material": {"density": rho, "kinematic_viscosity": nu},
+        "solver_settings": {
+            "transient_settings": transient,
+            "reference_values": {"pressure": 101325.0},
+            "solver_parameters": {"relative_tolerance": rtol,
+                                  "maximum_iterations": 100,
+                                  "monitor_convergence": False}},
+        "report_settings": dict(QUIET),
+    }
+
+
+def _fsi_solid(mesh, bcs, E, nu, alpha, transient,
+               solver_name="LinearElasticitySolver", density=1000):
+    material = {"elastic_modulus": E, "poisson_ratio": nu, "density": density}
+    s = {
+        "solver_name": solver_name, "mesh": mesh, "fe_degree": 2,
+        "boundary_conditions": bcs, "material": material,
+        "solver_settings": {
+            "transient_settings": transient,
+            "reference_values": {"temperature": 293},
+            "solver_parameters": {"relative_tolerance": 1e-10,
+                                  "maximum_iterations": 2000,
+                                  "monitor_convergence": False}},
+        "report_settings": dict(QUIET),
+    }
+    if solver_name == "LinearElasticitySolver":
+        s["temperature_distribution"] = None
+        material["thermal_expansion_coefficient"] = alpha
+    return s
+
+
+def _fsi_settings(fluid, solid, transient):
+    return {"solver_name": "FSISolver",
+            "participants": [{"solver_domain": "fluidic", "settings": fluid},
+                             {"solver_domain": "elastic", "settings": solid}],
+            "parent_mesh": None, "transient_settings": transient,
+            "coupling_settings": {}}
+
+
+#: the pressure-loaded cantilever of tests/test_fsi.py: length, thickness,
+#: fluid pressure and the beam's modulus
+CANT_L, CANT_T, CANT_P0, CANT_E = 1.0, 0.1, 50.0, 1e7
+
+
+def fsi_cantilever(core, scale=1, solid="LinearElasticitySolver"):
+    """tests/test_fsi.py's pressure-loaded cantilever: a static fluid at p0
+    over a clamped beam, fluid ``(10, 4) * scale`` P2/P1, solid ``(20, 2) *
+    scale`` P2, three steps of 0.2 (four with the large-deformation solid,
+    nu = 0.3, density 10; else nu = 0)."""
+    near = core.near
+    L, t, p0 = CANT_L, CANT_T, CANT_P0
+    large = solid == "LargeDeformationSolver"
+    transient = {"transient": True, "starting_time": 0.0, "time_step": 0.2,
+                 "ending_time": 0.8 if large else 0.6}
+    interface = core.AutoSubDomain(lambda x: near(x[1], t))
+
+    def bc(bid, pred, value, variable="velocity"):
+        return {"boundary": core.AutoSubDomain(pred), "boundary_id": bid,
+                "values": [{"variable": variable, "type": "Dirichlet",
+                            "value": value}]}
+
+    fluid_bcs = {
+        "inlet": bc(1, lambda x: near(x[0], 0.0), p0, "pressure"),
+        "outlet": bc(2, lambda x: near(x[0], L), p0, "pressure"),
+        "top": bc(3, lambda x: near(x[1], 0.4), (0.0, 0.0)),
+        "interface": {"boundary": interface, "boundary_id": 4,
+                      "coupling": "FSI"},
+    }
+    zero = core.Constant((0.0, 0.0))
+    solid_bcs = {
+        "clamp": {"boundary": core.AutoSubDomain(lambda x: near(x[0], 0.0)),
+                  "boundary_id": 1, "type": "Dirichlet", "value": zero},
+        "interface": {"boundary": interface, "boundary_id": 4,
+                      "coupling": "FSI", "type": "stress", "value": zero},
+    }
+    fluid = _fsi_fluid(core.RectangleMesh(core.Point(0, t), core.Point(L, 0.4),
+                                          10 * scale, 4 * scale),
+                       fluid_bcs, 1.0, 0.1, p0, transient, 1e-10)
+    solid_s = _fsi_solid(
+        core.RectangleMesh(core.Point(0, 0.0), core.Point(L, t), 20 * scale,
+                           2 * scale), solid_bcs, CANT_E, 0.3 if large else 0.0,
+        0.0, transient, solid, 10.0 if large else 1000)
+    solid_s["solver_settings"]["solver_parameters"].update(
+        relative_tolerance=1e-10 if large else 1e-12,
+        maximum_iterations=50 if large else 4000)
+    return _fsi_settings(fluid, solid_s, transient)
+
+
+def cantilever_tip(fsi, average=False):
+    """(the tip deflection, Euler-Bernoulli's q L^4 / (8 E I)): the solid's
+    vertical displacement at (L, t/2), with the plane-strain modulus for
+    nu = 0.3; ``average``: the mean of the last two steps (the
+    large-deformation solid's undamped ringing)."""
+    import numpy as np
+
+    solid = fsi.solid_solver
+    W = solid.function_space
+    large = getattr(W, "subspaces", None) is not None
+    V = W.subspaces[0] if large else W
+    su = W.slice_of(0) if large else slice(None)
+    U = solid.w_current.values[su].reshape(-1, 2)
+    if average:
+        U = 0.5 * (U + solid.w_prev.values[su].reshape(-1, 2))
+    X = V.scalar_space.dof_coords
+    tip = np.argmin((X[:, 0] - CANT_L) ** 2 + (X[:, 1] - CANT_T / 2) ** 2)
+    E_eff = CANT_E / (1.0 - 0.3**2) if large else CANT_E
+    w_exact = -CANT_P0 * CANT_L**4 / (8.0 * E_eff * CANT_T**3 / 12.0)
+    return float(U[tip, 1]), w_exact
+
+
+def fsi_snapshots(fsi):
+    """Run ``fsi.solve()`` (either package's FSISolver) and keep after every
+    step the fluid's ``up``, the solid's ``u``, the fluid mesh's vertices,
+    the last mesh displacement, each participant's history and the time the
+    step started at."""
+    import numpy as np
+
+    snaps = []
+    step = fsi.solve_current_step
+
+    def recorded():
+        step()
+        f, s = fsi.fluid_solver, fsi.solid_solver
+        snaps.append(dict(
+            up=np.array(f.w_current.values), u=np.array(s.w_current.values),
+            coords=f.mesh.coords.copy(),
+            mesh_disp=np.array(fsi.previous_fluid_mesh_disp),
+            fluid=tuple(np.array(w.values) for w in (f.w_current, f.w_prev,
+                                                     f.w_pp)),
+            solid=tuple(np.array(w.values) for w in (s.w_current, s.w_prev,
+                                                     s.w_pp)),
+            time=fsi.current_time))
+
+    fsi.solve_current_step = recorded
+    fsi.solve()
+    return snaps
+
+
+def check_dg_fieldsplit(solver):
+    """An NSDGSolver solve beyond the dense limit: the DG p-multigrid
+    hierarchy was built (a set-up that throws leaves None, the diagonal
+    fallback, ~20x the outer iterations), and every Newton update took the
+    ``fieldsplit`` route (no ``splu_after_stall``)."""
+    cache = getattr(solver, "_mom_amg_cache", None)
+    check(cache is not None and cache["amg"] is not None,
+          "the DG p-multigrid hierarchy is None: the momentum preconditioner "
+          "fell back to the diagonal")
+    routes = [st["route"] for st in solver.last_newton]
+    check(routes and set(routes) == {"fieldsplit"},
+          f"a Newton update left the fieldsplit route: {routes}")
+
+
+#: the 3-D Couette duct's outer budget: at the reference's FGMRES(120) x 8
+#: the fieldsplit updates at 8^3 end at 960 outer, one of four above rel res
+#: 1e-2 (SuperLU then took 639 s on the H100); unrestarted, they need ~150
+#: at 6^3 (227-237 restarted at 120, the CPU)
+DG_COUETTE_BUDGET = (400, 3)
+
+
+def dg_flow_settings(core, nx, ny=None, transient=False):
+    """examples/test_dg_flow.py's ``settings``: the Poiseuille channel on
+    the DG2/DG1 pair (U = 0.3, nu = 0.05, rho = 1000), rtol 1e-10; with
+    ``transient``, the impulsive start-up: backward Euler of 0.25 to 3.0."""
+    s = ns_channel(core, nx, ny)
+    s["solver_name"] = "NSDGSolver"
+    s["solver_settings"]["transient_settings"] = {
+        "transient": transient, "starting_time": 0.0, "time_step": 0.25,
+        "ending_time": 3.0}
+    s["solver_settings"]["solver_parameters"].update(
+        relative_tolerance=1e-10, maximum_iterations=50)
+    return s
+
+
+def dg_couette(core, n):
+    """tests/test_ns_dg.py's 3-D Couette duct on ``UnitCubeMesh(n)``: u =
+    (y, 0, 0), p = 0, exact in DG2; weak Dirichlet at the inlet and the
+    walls, the do-nothing outflow, spanwise symmetry planes."""
+    near = core.near
+
+    def bc(bid, pred, value, variable="velocity", btype="Dirichlet"):
+        return {"boundary": core.AutoSubDomain(pred), "boundary_id": bid,
+                "values": [{"variable": variable, "type": btype,
+                            "value": value}]}
+
+    s = ns_channel(core, 2)
+    s.update(solver_name="NSDGSolver", mesh=core.UnitCubeMesh(n, n, n),
+             material={"density": 1.0, "kinematic_viscosity": 0.5},
+             initial_values={"velocity": (0.0, 0.0, 0.0), "pressure": 0.0})
+    s["boundary_conditions"] = {
+        "inlet": bc(1, lambda x: near(x[0], 0.0),
+                    core.Expression(("x[1]", "0", "0"), degree=1)),
+        "outlet": bc(2, lambda x: near(x[0], 1.0), 0.0, "pressure"),
+        "bottom": bc(3, lambda x: near(x[1], 0.0), (0.0, 0.0, 0.0)),
+        "top": bc(4, lambda x: near(x[1], 1.0), (1.0, 0.0, 0.0)),
+        "span": bc(5, lambda x: near(x[2], 0.0) or near(x[2], 1.0), None,
+                   btype="symmetry"),
+    }
+    return s
+
+
+def _dg_velocity_error(solver, exact):
+    """rel-L2 of the DG velocity against ``exact(X)`` at its nodes."""
+    W = solver.function_space
+    u = solver.result.values[W.slice_of(0)].reshape(-1, solver.mesh.gdim)
+    return _rel_l2(u, exact(W.subspaces[0].scalar_space.dof_coords))
+
+
+def _poiseuille_field(X):
+    import numpy as np
+
+    return np.stack([4 * 0.3 * X[:, 1] * (1 - X[:, 1]), 0 * X[:, 0]], 1)
+
+
+def _couette_field(X):
+    import numpy as np
+
+    return np.stack([X[:, 1], 0 * X[:, 0], 0 * X[:, 0]], 1)
+
+
+def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5)):
+    """NSDGSolver through ``main(settings)`` on the default device: the
+    steady DG2/DG1 Poiseuille channel of examples/test_dg_flow.py on
+    ``UnitSquareMesh(n)`` (n = 64: 8,192 cells, 122,880 dofs), every Newton
+    update on ``fieldsplit`` with the DG p-multigrid present
+    (``check_dg_fieldsplit``), the velocity within 1e-8 of the parabola;
+    one outer iteration's wall and device time and two solves of one
+    system (equal outer counts, bit-equal); the 3-D Couette duct on
+    ``UnitCubeMesh(n_couette)`` (n = 8: 3,072 cells, 104,448 dofs), exact
+    to 1e-8; the example's transient start-up at ``startup``, the card
+    against the port on the CPU (1e-9) and within the example's 2e-3."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    solver = run_main(dg_flow_settings(core, n), device=device)
+    wall = time.perf_counter() - t0
+    if _on_card(device):
+        check(solver.device.type == "cuda", f"the DG channel ran on {solver.device}")
+    err = _dg_velocity_error(solver, _poiseuille_field)
+    outer = [st["iterations"] for st in solver.last_newton]
+    print(f"[ns-dg] DG2/DG1 channel {n} x {n}: {solver.mesh.num_cells()} cells, "
+          f"{solver.function_space.ndof} dofs on {solver.device}: main() "
+          f"{wall:.2f} s, {solver.last_iterations} Newton steps, outer "
+          f"iterations {outer}; {_ns_timers(solver)}; velocity rel-L2 against "
+          f"the parabola {err:.2e} (tol 1e-8)" + _peak_text(device))
+    _ns_newton_lines("ns-dg", solver)
+    check_dg_fieldsplit(solver)
+    check(err <= 1e-8, f"DG channel velocity error {err}")
+    wall_it, dev, (it1, it2, same, r1) = profile_fgmres_iteration(solver)
+    print(f"[ns-dg] one FGMRES outer iteration at the solution: {wall_it:.3f} "
+          f"ms wall, {dev}; two solves from zero: {it1} and {it2} outer "
+          f"(rel res {r1:.1e}), bit-equal {same}")
+    check(it1 == it2 and same, "two DG FGMRES solves of one system differ")
+    del solver
+
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    s = dg_couette(core, n_couette)
+    s["solver_settings"]["solver_parameters"].update(
+        gmres_restart=DG_COUETTE_BUDGET[0], gmres_maxiter=DG_COUETTE_BUDGET[1])
+    duct = run_main(s, device=device)
+    wall = time.perf_counter() - t0
+    err = _dg_velocity_error(duct, _couette_field)
+    pmax = float(np.abs(duct.result.values[duct.function_space.slice_of(1)]).max())
+    print(f"[ns-dg] 3-D Couette UnitCubeMesh({n_couette}): "
+          f"{duct.mesh.num_cells()} cells, {duct.function_space.ndof} dofs: "
+          f"main() {wall:.2f} s, {duct.last_iterations} Newton steps, outer "
+          f"{[st['iterations'] for st in duct.last_newton]}; {_ns_timers(duct)}; "
+          f"velocity rel-L2 {err:.2e}, max|p| {pmax:.1e}" + _peak_text(device))
+    check_dg_fieldsplit(duct)
+    check(err <= 1e-8 and pmax < 1e-6, f"Couette error {err}, max|p| {pmax}")
+    del duct
+
+    out = {}
+    for where in (device, "cpu"):
+        t0 = time.perf_counter()
+        s = run_main(dg_flow_settings(core, *startup, transient=True),
+                     device=where)
+        out[where] = (s.result.values.copy(), time.perf_counter() - t0,
+                      s.steps_taken, _dg_velocity_error(s, _poiseuille_field))
+    rel = _rel_l2(out[device][0], out["cpu"][0])
+    print(f"[ns-dg] transient start-up {startup[0]} x {startup[1]}, "
+          f"{out['cpu'][2]} steps: {out[device][1]:.2f} s on the card, "
+          f"{out['cpu'][1]:.2f} s on the cpu; rel-L2 {rel:.2e} (tol 1e-9); "
+          f"against the parabola {out[device][3]:.2e} (tol 2e-3)")
+    check(rel <= 1e-9, f"DG start-up card vs CPU {rel}")
+    check(out[device][3] < 2e-3, f"DG start-up error {out[device][3]}")
+
+
+def pulse_settings(core, n, t_end=0.25):
+    """examples/test_compressible_flow.py's acoustic pulse: a Gaussian
+    bump of 0.01 on p = 1 (rho = 1, gamma = 1.4, R = T = 1) in the slip-wall
+    unit square, CFL 0.3."""
+    import numpy as np
+
+    def side(ax, w):
+        return lambda x: core.near(x[ax], w)
+
+    bcs = {f"wall{i}": {"boundary": core.AutoSubDomain(side(ax, w)),
+                        "boundary_id": i + 1, "type": "symmetry"}
+           for i, (ax, w) in enumerate([(0, 0.0), (0, 1.0), (1, 0.0), (1, 1.0)])}
+    return {
+        "solver_name": "CompressibleNSSolver", "mesh": core.UnitSquareMesh(n),
+        "boundary_conditions": bcs,
+        "initial_values": {
+            "pressure": lambda x: 1.0 + 0.01 * np.exp(
+                -200.0 * ((x[0] - 0.5) ** 2 + (x[1] - 0.5) ** 2)),
+            "temperature": 1.0},
+        "material": {"specific_heat_ratio": 1.4, "gas_constant": 1.0},
+        "solver_settings": {
+            "transient_settings": {"transient": True, "starting_time": 0.0,
+                                   "ending_time": t_end, "cfl": 0.3},
+            "reference_values": {}, "solver_parameters": {}},
+        "report_settings": dict(QUIET),
+    }
+
+
+def _pulse_vectorised(s):
+    """The pulse's initial pressure as a nodal array on the settings' mesh
+    (the callable is evaluated node by node, ~1 s a million nodes on the
+    host)."""
+    import numpy as np
+
+    X = s["mesh"].coords
+    s["initial_values"]["pressure"] = 1.0 + 0.01 * np.exp(
+        -200.0 * ((X[:, 0] - 0.5) ** 2 + (X[:, 1] - 0.5) ** 2))
+    return s
+
+
+def compressible_settings(core, mesh, bcs, t_end, material, initial, cfl=0.3,
+                          **solver):
+    """tests/test_compressible.py's ``base_settings``: an explicit march to
+    ``t_end`` at ``cfl`` (``solver`` goes into ``solver_settings``, e.g.
+    ``artificial_viscosity``)."""
+    return {
+        "solver_name": "CompressibleNSSolver", "mesh": mesh,
+        "boundary_conditions": bcs, "initial_values": initial or {},
+        "material": material or {},
+        "solver_settings": dict({
+            "transient_settings": {"transient": True, "starting_time": 0.0,
+                                   "ending_time": t_end, "cfl": cfl},
+            "reference_values": {}, "solver_parameters": {}}, **solver),
+        "report_settings": {"plotting_freq": 0, "saving_freq": 0,
+                            "logging_level": 40},
+    }
+
+
+def walls(core, dim, kind="symmetry"):
+    """Every side of the unit interval, square or cube: slip walls, or
+    no-slip (velocity Dirichlet) walls."""
+    def side(ax, w):
+        return lambda x: core.near(x[ax], w)
+
+    bcs = {}
+    for i, (ax, w) in enumerate((ax, w) for ax in range(dim) for w in (0.0, 1.0)):
+        bc = {"boundary": core.AutoSubDomain(side(ax, w)), "boundary_id": i + 1}
+        if kind == "symmetry":
+            bc["type"] = "symmetry"
+        else:
+            bc["values"] = [{"variable": "velocity", "type": "Dirichlet",
+                             "value": (0.0,) * dim}]
+        bcs[f"w{i}"] = bc
+    return bcs
+
+
+GAS = {"specific_heat_ratio": 1.4, "gas_constant": 1.0}
+
+
+def box_settings(core, n=12, t_end=0.25):
+    """tests/test_compressible.py's closed box: a pressure bump of 0.2
+    sloshing between slip walls on ``UnitSquareMesh(n)``."""
+    import numpy as np
+
+    def bump(x):
+        return 1.0 + 0.2 * np.exp(-40.0 * ((x[0] - 0.5) ** 2 + (x[1] - 0.5) ** 2))
+
+    return compressible_settings(core, core.UnitSquareMesh(n), walls(core, 2),
+                                 t_end, dict(GAS),
+                                 {"pressure": bump, "temperature": 1.0})
+
+
+def sod_settings(core, n=400):
+    """tests/test_compressible.py's Sod tube: (1, 1) | (0.125, 0.1) at x =
+    0.5 (R = 1), walls at both ends, artificial viscosity 1, CFL 0.25, to
+    t = 0.2."""
+    return compressible_settings(
+        core, core.IntervalMesh(n, 0.0, 1.0), walls(core, 1, "noslip"), 0.2,
+        dict(GAS), {"pressure": lambda x: 1.0 if x[0] < 0.5 else 0.1,
+                    "temperature": lambda x: 1.0 if x[0] < 0.5 else 0.8},
+        cfl=0.25, artificial_viscosity=1.0)
+
+
+def sod_exact(x, t, gamma=1.4, x0=0.5):
+    """The exact Riemann solution of Sod's tube (Toro ch. 4): (rho, u, p)
+    at the points x and time t."""
+    import numpy as np
+
+    rl, pl, ul, rr, pr, ur = 1.0, 1.0, 0.0, 0.125, 0.1, 0.0
+    cl, cr = np.sqrt(gamma * pl / rl), np.sqrt(gamma * pr / rr)
+    g1 = (gamma - 1.0) / (2.0 * gamma)
+    g2 = (gamma + 1.0) / (2.0 * gamma)
+
+    def f(p, rho_k, p_k, c_k):
+        if p > p_k:  # a shock
+            A = 2.0 / ((gamma + 1.0) * rho_k)
+            B = (gamma - 1.0) / (gamma + 1.0) * p_k
+            return (p - p_k) * np.sqrt(A / (p + B))
+        return (2.0 * c_k / (gamma - 1.0)) * ((p / p_k) ** g1 - 1.0)
+
+    p_lo, p_hi = 1e-8, 2.0  # bisection for the star pressure
+    for _ in range(200):
+        pm = 0.5 * (p_lo + p_hi)
+        if f(pm, rl, pl, cl) + f(pm, rr, pr, cr) + (ur - ul) > 0:
+            p_hi = pm
+        else:
+            p_lo = pm
+    ps = 0.5 * (p_lo + p_hi)
+    us = 0.5 * (ul + ur) + 0.5 * (f(ps, rr, pr, cr) - f(ps, rl, pl, cl))
+    rsl = rl * (ps / pl) ** (1.0 / gamma)
+    csl = np.sqrt(gamma * ps / rsl)
+    k = (gamma - 1.0) / (gamma + 1.0)
+    rsr = rr * ((ps / pr + k) / (k * ps / pr + 1.0))
+    s_shock = ur + cr * np.sqrt(g2 * ps / pr + g1)
+    xi = (np.asarray(x) - x0) / t
+    rho, u, p = (np.empty_like(xi) for _ in range(3))
+    head, tail = ul - cl, us - csl
+    for i, sv in enumerate(xi):
+        if sv < head:
+            rho[i], u[i], p[i] = rl, ul, pl
+        elif sv < tail:  # inside the rarefaction fan
+            u[i] = 2.0 / (gamma + 1.0) * (cl + 0.5 * (gamma - 1.0) * ul + sv)
+            c = cl - 0.5 * (gamma - 1.0) * (u[i] - ul)
+            rho[i] = rl * (c / cl) ** (2.0 / (gamma - 1.0))
+            p[i] = pl * (c / cl) ** (2.0 * gamma / (gamma - 1.0))
+        elif sv < us:
+            rho[i], u[i], p[i] = rsl, us, ps
+        elif sv < s_shock:
+            rho[i], u[i], p[i] = rsr, us, ps
+        else:
+            rho[i], u[i], p[i] = rr, ur, pr
+    return rho, u, p
+
+
+def profile_step(solver, steps=20, top=5):
+    """One SSP-RK2 step of a prepared ``CompressibleNSSolver`` from its
+    final state: the wall ms a step over ``steps`` (synchronised), and from
+    ``torch.profiler`` over one step the device-busy ms, the idle share, the
+    device events and the ``top`` kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = solver.step_function(solver.last_dt)
+    U = torch.as_tensor(solver.state, dtype=solver.dtype, device=solver.device)
+    step(U)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        U = step(U)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(U)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (f"one step: {wall:.3f} ms wall, device busy {busy:.3f} ms "
+            f"({len(dev)} device events), idle {100 * (1 - busy / wall):.1f}%; "
+            "heaviest: " + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms"
+                                     for name, us in heavy))
+
+
+def phase_compressible(device=None, n=1024, n_sod=400, n_check=12):
+    """CompressibleNSSolver through ``main(settings)`` on the default
+    device: the acoustic pulse of examples/test_compressible_flow.py on
+    ``UnitSquareMesh(n)`` (n = 1024: 1,050,625 nodes, 2,097,152 cells),
+    mass and total energy conserved to 1e-12, the front within 10% of c t;
+    Sod's tube of tests/test_compressible.py at ``n_sod`` to the test's
+    bounds; the closed box of tests/test_compressible.py at ``n_check``,
+    the card against the CPU (1e-12) and two marches bit-equal."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    solver = run_main(_pulse_vectorised(pulse_settings(core, n)), device=device)
+    wall = time.perf_counter() - t0
+    march = solver.timers.totals["march"]
+    ml = solver._tables["mlump"].cpu().numpy()
+    tot0 = (solver._initial_state() * ml[None, :]).sum(axis=1)
+    tot1 = solver.totals()
+    dm = abs(tot1[0] - tot0[0]) / tot0[0]
+    dE = abs(tot1[-1] - tot0[-1]) / abs(tot0[-1])
+    X = solver.mesh.coords
+    line = np.isclose(X[:, 1], 0.5) & (X[:, 0] > 0.55)
+    dp = np.abs(solver._pressure_np()[line] - 1.0)
+    r_front = abs(X[line, 0][np.argmax(dp)] - 0.5)
+    r_exact = np.sqrt(1.4) * 0.25
+    print(f"[compressible] acoustic pulse {n} x {n}: {solver.function_space.ndof} "
+          f"nodes, {solver.mesh.num_cells()} cells on {solver.device}: main() "
+          f"{wall:.2f} s, {solver.steps_taken} SSP-RK2 steps of "
+          f"{solver.last_dt:.3e}, march {march:.2f} s, "
+          f"{march / solver.steps_taken * 1e3:.3f} ms a step; d(mass)/mass "
+          f"{dm:.2e}, d(E)/E {dE:.2e} (tol 1e-12); front radius {r_front:.4f} "
+          f"against c t = {r_exact:.4f}" + _peak_text(device))
+    check(dm < 1e-12 and dE < 1e-12, f"pulse conservation {dm}, {dE}")
+    check(abs(r_front - r_exact) / r_exact < 0.10, f"front radius {r_front}")
+    if _on_card(device):
+        print("[compressible] " + profile_step(solver))
+    del solver
+
+    sod = run_main(sod_settings(core, n_sod), device=device)
+    xs = sod.mesh.coords[:, 0]
+    rho = sod.state[0]
+    l1 = float(np.abs(rho - sod_exact(xs, 0.2)[0]).mean())
+    plateau = float(rho[(xs > 0.75) & (xs < 0.82)].mean())
+    pmin = float(sod._pressure_np().min())
+    print(f"[compressible] Sod n = {n_sod}: {sod.steps_taken} steps, march "
+          f"{sod.timers.totals['march']:.2f} s; density L1 {l1:.4f} (tol "
+          f"0.04), plateau {plateau:.4f} (0.2656 +- 0.02), min p {pmin:.3f}")
+    check(l1 < 0.04 and abs(plateau - 0.2656) < 0.02 and pmin > 0, "Sod")
+
+    states = []
+    for where in (device, device, "cpu"):
+        b = run_main(box_settings(core, n_check), device=where)
+        states.append(b.state)
+    rel = float(np.abs(states[0] - states[2]).max() / np.abs(states[2]).max())
+    same = bool(np.array_equal(states[0], states[1]))
+    print(f"[compressible] closed box {n_check} x {n_check}, {b.steps_taken} "
+          f"steps: card against cpu max rel {rel:.2e} (tol 1e-12); two marches "
+          f"on the card bit-equal {same}")
+    check(rel <= 1e-12 and same, "closed box card vs CPU or repeat")
+
+
+def phase_fsi(device=None, scale=8):
+    """FSISolver through ``main(settings)`` on the default device: the
+    pressure-loaded cantilever of tests/test_fsi.py on meshes ``scale``
+    times as fine in each direction (8: fluid 80 x 32, P2/P1, 23,603 dofs,
+    beyond the dense limit, so each Newton update takes ``fieldsplit``;
+    solid 160 x 16, P2), the test's three steps, one line a step (the
+    fluid's routes and outer iterations, the two mesh-motion PCG counts,
+    the seconds of fluid, solid and mesh motion), the tip within 15% of
+    Euler-Bernoulli; then at the test's size the card against the CPU
+    after each step (1e-8): the fluid's ``up``, the solid's ``u`` and the
+    moved fluid vertices."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import direct
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.solvers.fsi import FSISolver
+
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    fsi = run_main(fsi_cantilever(core, scale), device=device)
+    wall = time.perf_counter() - t0
+    fluid, solid = fsi.fluid_solver, fsi.solid_solver
+    w_num, w_exact = cantilever_tip(fsi)
+    rel = abs(w_num - w_exact) / abs(w_exact)
+    print(f"[fsi] cantilever x{scale}: fluid {fluid.mesh.num_cells()} cells, "
+          f"{fluid.function_space.ndof} dofs; solid {solid.mesh.num_cells()} "
+          f"cells, {solid.function_space.ndof} dofs on {fsi.device}: main() "
+          f"{wall:.2f} s, {fsi.steps_taken} steps; tip {w_num:.4e} against "
+          f"Euler-Bernoulli {w_exact:.4e} ({100 * rel:.2f}%, tol 15%)"
+          + _peak_text(device))
+    for k, st in enumerate(fsi.last_steps, start=1):
+        print(f"[fsi] step {k}: fluid {st['fluid_s']:.2f} s (routes "
+              f"{st['fluid_routes']}, outer {st['fluid_outer']}), solid "
+              f"{st['solid_s']:.2f} s, mesh motion {st['mesh_motion_s']:.3f} s "
+              f"(PCG {st['mesh_motion_iterations'][0]} and "
+              f"{st['mesh_motion_iterations'][1]})")
+    if _on_card(device):
+        check(fsi.device.type == "cuda", f"the FSI run was on {fsi.device}")
+    check(fluid.function_space.ndof > direct.DENSE_LIMIT or scale != 8,
+          "the fluid is below the dense limit")
+    routes = {r for st in fsi.last_steps for r in st["fluid_routes"]}
+    check(scale != 8 or routes == {"fieldsplit"},
+          f"the fluid's Newton updates took {routes}")
+    check(w_num < 0 and rel < 0.15, f"cantilever tip {w_num} against {w_exact}")
+    del fsi
+
+    runs = {where: fsi_snapshots(FSISolver(fsi_cantilever(core), device=where))
+            for where in (device, "cpu")}
+    worst = max(_rel_l2(a[key], b[key]) for a, b in zip(runs[device], runs["cpu"])
+                for key in ("up", "u", "coords"))
+    print(f"[fsi] the test's cantilever, {len(runs['cpu'])} steps: the card "
+          f"against the cpu after each step, worst rel-L2 of up, u and the "
+          f"fluid vertices {worst:.2e} (tol 1e-8)")
+    check(len(runs[device]) == len(runs["cpu"]) == 3 and worst <= 1e-8,
+          f"FSI card vs CPU {worst}")
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -3786,6 +4500,9 @@ def main():
     phase_ns_transient()
     phase_ns_ipcs(drag_ref=drag)
     phase_ns_coupled()
+    phase_ns_dg()
+    phase_compressible()
+    phase_fsi()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()

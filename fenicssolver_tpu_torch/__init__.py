@@ -22,12 +22,16 @@ elastodynamics fast path, differentiable implicit solves
 solver; incompressible Navier-Stokes (``CoupledNavierStokesSolver``:
 Taylor-Hood with the optional temperature block, Newton with the
 saddle-point FGMRES or Picard, and the monolithic and IPCS transient fast
-paths); mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
+paths), its DG counterpart (``NSDGSolver``: SIPG and upwind fluxes with the
+DG p-multigrid), the explicit compressible solver (``CompressibleNSSolver``:
+group-FEM P1, SSP-RK2) and segregated fluid-structure interaction
+(``FSISolver``: ALE mesh motion); mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
 workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
 stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
 cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``).
-Features not ported yet raise ``NotImplementedError`` naming the module
-that will bring them.
+Every solver class of the JAX package is here.  Features not ported yet
+(the distributed layer, the HDF5 readers) raise ``NotImplementedError``
+naming the module that will bring them.
 """
 
 __version__ = "0.1.0"
@@ -47,6 +51,10 @@ _SOLVER_EXPORTS = {
     "MaxwellEMSolver": "fenicssolver_tpu_torch.solvers.maxwell",
     "WavePropagationSolver": "fenicssolver_tpu_torch.solvers.wave",
     "CoupledNavierStokesSolver": "fenicssolver_tpu_torch.solvers.navier_stokes",
+    "NSDGSolver": "fenicssolver_tpu_torch.solvers.navier_stokes_dg",
+    "CompressibleNSSolver": "fenicssolver_tpu_torch.solvers.compressible_ns",
+    "CoupledSolver": "fenicssolver_tpu_torch.solvers.fsi",
+    "FSISolver": "fenicssolver_tpu_torch.solvers.fsi",
     "main": "fenicssolver_tpu_torch.main",
     "load_settings": "fenicssolver_tpu_torch.main",
 }

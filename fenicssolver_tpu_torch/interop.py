@@ -223,3 +223,40 @@ def ipcs_state(aux, u, p):
             f"state shapes {tuple(u.shape)}, {tuple(p.shape)} do not match "
             f"the spaces' ({aux['V'].ndof},), ({aux['Q'].ndof},)")
     return u, p
+
+
+def compressible_state(solver, U):
+    """The conservative state ``U`` (d+2, ndof) of another run (the JAX
+    solver's ``state``, say) as the port's tensor for a
+    ``CompressibleNSSolver``: on its device, in its dtype, after its
+    ``_prepare``; ``solver.step_function(dt)`` marches it on."""
+    solver._prepare()
+    U = _tensor(U, solver.device, solver.dtype)
+    shape = (solver.dimension + 2, solver.function_space.ndof)
+    if tuple(U.shape) != shape:
+        raise ValueError(f"state shape {tuple(U.shape)} does not match the "
+                         f"solver's {shape}")
+    return U
+
+
+def fsi_state(fsi, fluid_coords, previous_mesh_disp, fluid_history,
+              solid_history):
+    """Put a mid-run FSI state into an ``FSISolver`` after its
+    ``init_solver``: the moved fluid mesh's vertex coordinates
+    ``fluid_coords`` (nv, d), the last mesh displacement
+    ``previous_mesh_disp`` (nv, d), and each participant's history
+    ``(w_current, w_prev, w_pp)`` (``time_history``'s arguments; None for a
+    field not given).  The fluid mesh is placed with ``Mesh.set_coordinates``,
+    which bumps its geometry version, and the fluid's spaces follow it; the
+    fluid's interface velocity and mesh velocity are set from the solid's
+    state, as the step before would have left them.  The next coupled step
+    is then ``fsi.solve_current_step()``, with each participant's
+    ``current_step`` and ``current_time`` set to the step's."""
+    fluid, solid = fsi.fluid_solver, fsi.solid_solver
+    fluid.mesh.set_coordinates(np.asarray(fluid_coords, dtype=np.float64))
+    fluid.update_solver_function_space(None)
+    fsi.previous_fluid_mesh_disp = np.asarray(previous_mesh_disp,
+                                              dtype=np.float64).copy()
+    time_history(fluid, *fluid_history)
+    time_history(solid, *solid_history)
+    fsi.update_fluid_interface()

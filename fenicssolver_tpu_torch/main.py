@@ -17,14 +17,6 @@ import json
 import os.path
 import sys
 
-#: solvers of the reference that this package does not port yet
-_NOT_PORTED = {
-    "NSDGSolver": "solvers/navier_stokes_dg.py",
-    "FSISolver": "solvers/fsi.py",
-    "CompressibleNSSolver": "solvers/compressible_ns.py",
-}
-
-
 def load_settings(case_input):
     if isinstance(case_input, dict):
         return case_input
@@ -62,6 +54,10 @@ def main(case_input, device=None):
         from .solvers.scalar_transport_dg import ScalarTransportDGSolver
 
         solver = ScalarTransportDGSolver(settings, device=device)
+    elif solver_name == "NSDGSolver":
+        from .solvers.navier_stokes_dg import NSDGSolver
+
+        solver = NSDGSolver(settings, device=device)
     elif solver_name == "LinearElasticitySolver":
         from .solvers.linear_elasticity import LinearElasticitySolver
 
@@ -78,6 +74,10 @@ def main(case_input, device=None):
         from .solvers.plasticity import PlasticitySolver
 
         solver = PlasticitySolver(settings, device=device)
+    elif solver_name == "FSISolver":
+        from .solvers.fsi import FSISolver
+
+        solver = FSISolver(settings, device=device)
     elif solver_name == "MaxwellEMSolver":
         from .solvers.maxwell import MaxwellEMSolver
 
@@ -86,11 +86,10 @@ def main(case_input, device=None):
         from .solvers.wave import WavePropagationSolver
 
         solver = WavePropagationSolver(settings, device=device)
-    elif solver_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver {solver_name} is not ported to fenicssolver_tpu_torch yet; "
-            f"it comes with {_NOT_PORTED[solver_name]} (see ROADMAP.md)"
-        )
+    elif solver_name == "CompressibleNSSolver":
+        from .solvers.compressible_ns import CompressibleNSSolver
+
+        solver = CompressibleNSSolver(settings, device=device)
     else:
         raise NotImplementedError(f"solver {solver_name} is not supported")
     import time as _time
@@ -98,7 +97,8 @@ def main(case_input, device=None):
     t0 = _time.perf_counter()
     solver.solve()
     wall = _time.perf_counter() - t0
-    sf = solver.report_settings.get("saving_freq")
+    # (an FSISolver has no report settings of its own)
+    sf = getattr(solver, "report_settings", {}).get("saving_freq")
     last_step = solver.steps_taken - 1
     if sf and sf > 0 and getattr(solver, "_last_saved_step", None) != last_step:
         # the loop has advanced current_time to the end of this last step

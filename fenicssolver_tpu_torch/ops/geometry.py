@@ -133,11 +133,13 @@ def _affine_geometry(coords, cells, tdim):
     return Xe, detJ, Jinv
 
 
-def build_cell_context(space, quad_degree, device=None, dtype=None, cells=None):
+def build_cell_context(space, quad_degree, device=None, dtype=None, cells=None,
+                       coords=None):
     """The cell batch of a space, or of the cells with the host indices
     ``cells`` in that order, as tensors on ``device`` (geometry in f64,
-    stored in ``dtype``): geometry from ``mesh.cells_array``, dofs from
-    ``space.cell_dofs``."""
+    stored in ``dtype``): geometry from ``mesh.cells_array`` on the mesh's
+    vertices or on ``coords`` (another placement of them, such as the
+    original coordinates of a moving mesh), dofs from ``space.cell_dofs``."""
     from .. import config
 
     device = config.resolve_device(device)
@@ -145,7 +147,8 @@ def build_cell_context(space, quad_degree, device=None, dtype=None, cells=None):
     mesh = space.mesh
     tdim = mesh.tdim
     rows = slice(None) if cells is None else np.asarray(cells, dtype=np.int64)
-    X = torch.as_tensor(mesh.coords, dtype=torch.float64, device=device)
+    X = torch.as_tensor(mesh.coords if coords is None else np.asarray(coords),
+                        dtype=torch.float64, device=device)
     cells = torch.as_tensor(mesh.cells_array[rows], dtype=torch.int64, device=device)
     Xe, detJ, Jinv = _affine_geometry(X, cells, tdim)
     qp, _ = elements.quadrature(tdim, quad_degree)
