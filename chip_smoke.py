@@ -74,7 +74,8 @@ non-zero and no result line is printed):
    (1,048,707 dofs, 1,966,080 tets), f64, steel, clamped at x = 0, a tip
    force at x = 10, rtol 1e-8, through ``main(settings)`` on the default
    device: the recorded preconditioner must be ``amg`` (smoothed
-   aggregation with the rigid-body near-nullspace, set up on the host),
+   aggregation with the rigid-body near-nullspace, its set-up's products
+   on the card; the seconds of each set-up step by level),
    CG within ``MAX_CG_CANTILEVER`` iterations, the tip deflection within 8%
    of Euler-Bernoulli, ``von_Mises`` finite; prints the AMG set-up's
    seconds by level with rows and nnz, form and assembly seconds, the
@@ -126,6 +127,17 @@ non-zero and no result line is printed):
    tests/test_fsi.py 8x as fine (fluid 23,603 dofs by fieldsplit), one
    line a step, the tip within 15% of Euler-Bernoulli, and at the test's
    size the card against the CPU after each step (1e-8);
+8g. the distributed layer on ``SHARDS`` = 8 shards of ``cuda:0``, f64, each
+   against the serial solve of the same system: with one shard a heat and
+   an NS case warn and equal the run without the flag bit for bit; halo
+   Jacobi-PCG (P1 Poisson at ``UnitCubeMesh(64)``, 274,625 dofs; P1
+   elasticity at 32), element-sharded assembly with an HTC facet term at
+   48, halo BiCGStab on an advection stencil, two solves bit-equal; the
+   sharded AMG-CG of the perturbed-tet Poisson at n = 64 (iterations within
+   2 of serial), the 12,027-dof NS channel by the sharded fieldsplit (outer
+   within 15%), the distributed Newton of the twist; the sharded acoustic
+   pulse at 256^2 (1e-12); the FSI cantilever x4 (tip 1e-8); a BoxMesh case
+   raises naming ``parallel/lattice.py``;
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
@@ -1671,6 +1683,15 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+def advection_case(core, V):
+    """``test_convective_velocity_supg``'s settings on ``V``: capacity 1,
+    k 0.6, v = (0, 0, -0.6), ``"SPUG"``, Pe 1."""
+    return scalar_settings(core, V, {"capacity": 1.0, "conductivity": 0.6},
+                           convective_velocity=(0.0, 0.0, -0.6),
+                           advection_settings={"stabilization_method": "SPUG",
+                                               "Pe": 1.0})
+
+
 def phase_advection(device="cuda", n=48):
     """3-D SUPG advection-diffusion (the counterpart of
     ``test_convective_velocity_supg``): capacity 1, k 0.6, v = (0, 0, -0.6),
@@ -1683,12 +1704,8 @@ def phase_advection(device="cuda", n=48):
     from fenicssolver_tpu_torch.main import main as run_main
 
     V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
-    s = scalar_settings(core, V, {"capacity": 1.0, "conductivity": 0.6},
-                        convective_velocity=(0.0, 0.0, -0.6),
-                        advection_settings={"stabilization_method": "SPUG",
-                                            "Pe": 1.0})
     t0 = time.perf_counter()
-    solver = run_main(s, device=device)
+    solver = run_main(advection_case(core, V), device=device)
     wall = time.perf_counter() - t0
     z = V.dof_coords[:, 2]
     lam = -0.6 / 0.6
@@ -2171,17 +2188,19 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
           f"{V.ndof} dofs on {dev}, {solver.dtype}: main() {wall:.2f} s; form "
           f"{tt['form']:.2f} s, assembly {tt['assembly']:.2f} s (k = "
           f"{V.ndof_el}: {assembly.chunk_cells(V.ndof_el)} cells a chunk), AMG "
-          f"set-up {tt['amg_setup']:.2f} s (host), Krylov {tt['krylov']:.2f} s; "
+          f"set-up {tt['amg_setup']:.2f} s, Krylov {tt['krylov']:.2f} s; "
           f"preconditioner {solver.last_preconditioner}, "
           f"{solver.last_iterations} CG iterations, rel residual "
           f"{solver.last_relres:.3e}"
           + (f"; peak {_peak_gib():.2f} GiB" if on_card else ""))
     for li, lv in enumerate(amg.levels):
         print(f"[elasticity] AMG level {li}: {lv['rows']} rows, {lv['nnz']} "
-              f"nnz, set-up {lv['setup_s']:.2f} s")
+              f"nnz, set-up {lv['setup_s']:.2f} s: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in lv["steps"].items()))
     print(f"[elasticity] AMG coarsest level: {amg.coarse_rows} rows, "
           + ("dense inverse" if amg.coarse_dense is not None
              else "coarsening stalled: degree-12 Chebyshev sweep")
+          + ": " + ", ".join(f"{k} {v:.2f}" for k, v in amg.coarse_steps.items())
           + f"; set-up in all {amg.setup_seconds:.2f} s")
     op, rhs, kw = cap.last
     cycle_ms, iter_ms, busy = profile_amg_cg(op, rhs, kw["M"])
@@ -4409,6 +4428,606 @@ def phase_fsi(device=None, scale=8):
           f"FSI card vs CPU {worst}")
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer (parallel/halo.py, amg_halo.py, explicit.py): every
+# sharded solve on SHARDS shards of one device (repeats of cuda:0)
+# ---------------------------------------------------------------------------
+
+#: shards of the distributed phases, all on the one card
+SHARDS = 8
+N_HALO, N_HALO_ELAS, N_ELEM = 64, 32, 48
+N_AMG_HALO = 64  # the dry run's amg_unstructured_poisson, raised from 36
+N_NS_FIELDSPLIT = 36  # the dry run's distributed_ns_fieldsplit_12k
+N_EXPLICIT = 256  # the acoustic pulse: 66,049 nodes
+N_ADVECTION = 48  # phase_advection's SUPG case: 117,649 dofs
+#: the halo Krylov check's time step (CFL 0.29 at N_ADVECTION): the steady
+#: system's BiCGStab takes ~150 iterations, and the sharded dot products'
+#: rounding moves its path by a few of them (144 against 148 on the card)
+DT_ADVECTION = 0.01
+
+
+class _Shards:
+    """``FST_SHARDS`` set for the block (the solver layer's shard count),
+    and the warnings the solvers log in it."""
+
+    def __init__(self, n):
+        self.n = str(n)
+
+    def __enter__(self):
+        import logging
+
+        self.saved = os.environ.get("FST_SHARDS")
+        os.environ["FST_SHARDS"] = self.n
+        self.records = []
+        outer = self
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                outer.records.append(record.getMessage())
+
+        self.handler = Keep(logging.WARNING)
+        logging.getLogger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger().removeHandler(self.handler)
+        if self.saved is None:
+            os.environ.pop("FST_SHARDS", None)
+        else:
+            os.environ["FST_SHARDS"] = self.saved
+
+    def warned(self, text):
+        return any(text in m for m in self.records)
+
+
+def _shard_devices(device, n=SHARDS):
+    return [device or "cuda:0"] * n
+
+
+def _sync(device):
+    import torch
+
+    if _on_card(device):
+        torch.cuda.synchronize()
+
+
+def _loud(s):
+    """Settings whose solver logs warnings (the F4 warning is checked)."""
+    import logging
+
+    s["report_settings"] = dict(s.get("report_settings") or {},
+                                logging_level=logging.WARNING)
+    return s
+
+
+def _dist(s, value=True):
+    s["solver_settings"].setdefault("solver_parameters", {})["distributed"] = value
+    return s
+
+
+def phase_distributed_one_shard(device=None, n=32, nx_ns=16):
+    """F4 with one shard: a ``distributed: True`` heat case (the 2-D
+    square, P1, two Dirichlet sides) and the NS channel each log the
+    reference's warning, solve serially, and equal the same case without
+    the flag bit for bit."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    def heat(distributed):
+        V = core.FunctionSpace(core.UnitSquareMesh(n, n), "CG", 1)
+        top = core.AutoSubDomain(lambda x: core.near(x[1], 1.0))
+        bottom = core.AutoSubDomain(lambda x: core.near(x[1], 0.0))
+        s = heat_settings(core, V)
+        s["boundary_conditions"]["hot"]["boundary"] = top
+        s["boundary_conditions"]["cold"]["boundary"] = bottom
+        s["solver_settings"]["solver_parameters"].pop("preconditioner")
+        return _dist(_loud(s), distributed) if distributed else _loud(s)
+
+    cases = {"heat": heat,
+             "ns": lambda d: (_dist(_loud(ns_channel(core, nx_ns)))
+                              if d else _loud(ns_channel(core, nx_ns)))}
+    for name, make in cases.items():
+        with _Shards(1) as sh:
+            plain = run_main(make(False), device=device)
+            dist = run_main(make(True), device=device)
+        same = np.array_equal(plain.result.values, dist.result.values)
+        warned = sh.warned("only one device is visible; falling back to the "
+                           "serial path")
+        print(f"[distributed-one-shard] {name}: {dist.function_space.ndof} "
+              f"dofs on {dist.device}, FST_SHARDS=1: warned {warned}, equal to "
+              f"the run without the flag bit for bit {same}")
+        check(warned and same, f"{name}: one-shard distributed run")
+
+
+def _halo_against_serial(tag, A, b, dd, V, device, tol=1e-10):
+    """HaloShardedSolver (Jacobi-PCG) on SHARDS shards against the port's
+    serial Jacobi-CG on the same CSR system; two sharded solves bit-equal.
+    Prints set-up and solve seconds and ms an iteration beside the serial."""
+    import torch
+
+    from fenicssolver_tpu_torch.la import krylov
+    from fenicssolver_tpu_torch.ops import assembly
+    from fenicssolver_tpu_torch.parallel.halo import HaloShardedSolver
+
+    free, ubc = dd.free_mask, dd.u_bc
+    _sync(device)
+    t0 = time.perf_counter()
+    op = assembly.constrained_operator(A.matvec, free)
+    rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
+    M = krylov.jacobi_preconditioner(free * A.diagonal() + (1 - free))
+    x_ref, it_ref, _ = krylov.cg(op, rhs, M=M, tol=tol, maxiter=4000)
+    _sync(device)
+    t1 = time.perf_counter()
+    hs = HaloShardedSolver(A, V.dof_coords, devices=_shard_devices(device))
+    _sync(device)
+    t2 = time.perf_counter()
+    x, it = hs.solve(b, free, ubc, tol=tol, maxiter=4000)
+    _sync(device)
+    t3 = time.perf_counter()
+    x2, it2 = hs.solve(b, free, ubc, tol=tol, maxiter=4000)
+    rel = _rel_l2(x.cpu().numpy(), x_ref.cpu().numpy())
+    same = bool(torch.equal(x, x2)) and it == it2
+    print(f"[halo] {tag}: {V.ndof} dofs, {hs.n_dev} shards of {x.device}, "
+          f"local length {hs.Lp}, {len(hs.perms)} exchange rounds: set-up "
+          f"{t2 - t1:.3f} s, Jacobi-PCG {it} iterations {t3 - t2:.3f} s "
+          f"({(t3 - t2) / max(it, 1) * 1e3:.3f} ms an iteration); serial CSR "
+          f"Jacobi-CG {it_ref} iterations {(t1 - t0) / max(it_ref, 1) * 1e3:.3f} "
+          f"ms an iteration; rel-L2 {rel:.2e} (tol 1e-10); two solves "
+          f"bit-equal {same}")
+    check(rel <= 1e-10 and abs(it - it_ref) <= 2,
+          f"{tag}: rel-L2 {rel}, iterations {it} vs {it_ref}")
+    check(same, f"{tag}: two sharded solves differ")
+    return hs
+
+
+def _htc_facet_term(core, V, mesh, fids, device, dtype, htc=5.0, Ta=300.0):
+    """An HTC (Robin) term h (T - Ta) on the facets ``fids``."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+
+    fphi_tab, _, fw, _ = geometry.facet_basis_tables(mesh.tdim, 1, 2)
+    fphi = torch.as_tensor(fphi_tab, dtype=dtype, device=device)
+    fwj = torch.as_tensor(fw, dtype=dtype, device=device)
+
+    def kernel(ue, geom, aux):
+        phif = torch.index_select(fphi, 0, geom.local_id.reshape(1))[0]
+        val = htc * (Ta - phif @ ue)
+        return -torch.einsum("q,q,qi->i", fwj * geom.detF, val, phif)
+
+    ctx = geometry.build_facet_context(V, fids, 2, device=device, dtype=dtype)
+    return assembly.FacetTerm(kernel=kernel, ctx=ctx)
+
+
+def phase_halo(device=None, n=N_HALO, n_elas=N_HALO_ELAS, n_elem=N_ELEM,
+               n_adv=N_ADVECTION):
+    """``parallel/halo.py`` on SHARDS shards of the card, f64, each against
+    the port's serial solve of the same system: (a) Jacobi-PCG of the P1
+    Poisson problem on ``UnitCubeMesh(n)`` (rel-L2 1e-10, iterations within
+    2); (b) the same for P1 elasticity at ``n_elas``; (c)
+    ``HaloElementSolver`` (the element-sharded assembly) of Poisson at
+    ``n_elem`` with an HTC facet term on x = 1, against the serial assembly
+    and CG; (d) the non-SPD route that users get (``distributed: True`` on
+    one implicit step of ``phase_advection``'s SUPG case at ``n_adv``
+    through ``main()``:
+    ``SolverBase._halo_krylov``, BiCGStab and GMRES(80) after a stall)
+    against the serial run: the same method, iterations within 2, rel-L2
+    1e-8 (BiCGStab's iterates carry its rounding further than CG's); (e)
+    two solves of (a) bit-equal."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import krylov
+    from fenicssolver_tpu_torch.ops import assembly
+    from fenicssolver_tpu_torch.parallel.halo import (
+        HaloElementSolver,
+        HaloShardedSolver,
+        batches_from_form,
+    )
+
+    dev = device or "cuda:0"
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    for tag, kern, nn, vec in (("Poisson", poisson_kernel, n, False),
+                               ("elasticity", elasticity_kernel, n_elas, True)):
+        V, _, form, _, dd = sharded_problem(core, kern, nn, vec, dev, f64)
+        form.finalize()
+        A, b = assembly.assemble_linear_system(form, dtype=f64)
+        _halo_against_serial(f"{tag} UnitCubeMesh({nn})", A, b, dd, V, device)
+        del V, form, A, b, dd
+
+    # (c) the element-sharded assembly with a facet term
+    V, kernel, form, _, _ = sharded_problem(core, poisson_kernel, n_elem, False,
+                                            dev, f64)
+    mesh = V.mesh
+    ext = mesh.exterior_facets()
+    xm = mesh.coords[mesh.facets()[ext]].mean(axis=1)
+    robin = ext[np.isclose(xm[:, 0], 1.0)]
+    form.facet_terms.append(_htc_facet_term(core, V, mesh, robin, dev, f64))
+    form.finalize()
+    X = V.dof_coords
+    fixed = np.nonzero((X[:, 0] == 0.0) | np.any(
+        (X[:, 1:] == 0.0) | (X[:, 1:] == 1.0), axis=1))[0]
+    dd = assembly.DirichletData(V.ndof)
+    dd.add(fixed, 0.0)
+    dd.finalize(device=dev, dtype=f64)
+    _sync(device)
+    t0 = time.perf_counter()
+    hs = HaloElementSolver(batches_from_form(form, f64), V.dof_coords, V.ndof,
+                           devices=_shard_devices(device), dtype=f64)
+    _sync(device)
+    t1 = time.perf_counter()
+    x, it = hs.solve(dd.free_mask, dd.u_bc, tol=1e-10, maxiter=4000)
+    _sync(device)
+    t2 = time.perf_counter()
+    A, b = assembly.assemble_linear_system(form, dtype=f64)
+    op = assembly.constrained_operator(A.matvec, dd.free_mask)
+    rhs = assembly.constrained_rhs(A.matvec, b, dd.free_mask, dd.u_bc)
+    M = krylov.jacobi_preconditioner(dd.free_mask * A.diagonal()
+                                     + (1 - dd.free_mask))
+    x_ref, it_ref, _ = krylov.cg(op, rhs, M=M, tol=1e-10, maxiter=4000)
+    rel = _rel_l2(x.cpu().numpy(), x_ref.cpu().numpy())
+    print(f"[halo] element-sharded Poisson UnitCubeMesh({n_elem}) with an HTC "
+          f"term on {len(robin)} facets: {V.ndof} dofs, {hs.n_dev} shards, "
+          f"local length {hs.Lp}: set-up {t1 - t0:.3f} s, assembly and "
+          f"Jacobi-PCG {t2 - t1:.3f} s, {it} iterations (serial {it_ref}); "
+          f"rel-L2 against the serial assembly and CG {rel:.2e} (tol 1e-10)")
+    check(rel <= 1e-10 and abs(it - it_ref) <= 2,
+          f"element-sharded: rel-L2 {rel}, iterations {it} vs {it_ref}")
+    del V, form, hs, A, b, dd
+
+    # (d) the non-SPD distributed route, SolverBase._halo_krylov
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    V = core.FunctionSpace(core.UnitCubeMesh(n_adv, n_adv, n_adv), "CG", 1)
+
+    def step():
+        s = advection_case(core, V)
+        s["solver_settings"]["transient_settings"] = {
+            "transient": True, "starting_time": 0.0, "time_step": DT_ADVECTION,
+            "ending_time": DT_ADVECTION}
+        return s
+
+    t0 = time.perf_counter()
+    ref = run_main(step(), device=device)
+    t1 = time.perf_counter()
+    with _Shards(SHARDS):
+        dist = run_main(_dist(step()), device=device)
+    t2 = time.perf_counter()
+    rel = _rel_l2(dist.result.values, ref.result.values)
+    halo = dist.timers.totals.get("halo_krylov", 0.0)
+    print(f"[halo] SUPG advection UnitCubeMesh({n_adv}), one step of "
+          f"{DT_ADVECTION} through main(), {V.ndof} dofs, {SHARDS} shards: "
+          f"{dist.last_krylov} (halo Krylov "
+          f"{halo:.3f} s) in {dist.last_iterations} iterations, rel res "
+          f"{dist.last_relres:.2e}, main() {t2 - t1:.2f} s; serial "
+          f"{ref.last_krylov} in {ref.last_iterations} iterations, rel res "
+          f"{ref.last_relres:.2e}, main() {t1 - t0:.2f} s; rel-L2 {rel:.2e} "
+          "(tol 1e-8)")
+    check(halo > 0 and dist.last_krylov == ref.last_krylov
+          and abs(dist.last_iterations - ref.last_iterations) <= 2
+          and rel <= 1e-8,
+          f"halo Krylov: route {dist.last_krylov} vs {ref.last_krylov}, "
+          f"iterations {dist.last_iterations} vs {ref.last_iterations}, "
+          f"rel-L2 {rel}")
+    print(f"[halo] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_amg_halo(device=None, n=N_AMG_HALO, nx_ns=N_NS_FIELDSPLIT,
+                   n_twist=5):
+    """``parallel/amg_halo.py`` and the routes through it, on SHARDS
+    shards: (a) the dry run's ``amg_unstructured_poisson`` (perturbed tets,
+    scrambled numbering) at ``n``: the sharded AMG-CG within 2 iterations
+    above the port's serial AMG-CG and rel-L2 1e-10 against it, set-up and
+    solve seconds apart; (b) ``distributed_ns_fieldsplit_12k`` (the mild
+    channel at ``nx_ns``): every Newton update on the sharded fieldsplit
+    route, the final outer count within 15% of the serial fieldsplit's,
+    rel-L2 1e-8 against the serial run; (c)
+    ``distributed_newton_hyperelastic`` (the twist at ``n_twist``^3): every
+    update on the sharded AMG route, against the serial Newton to 1e-10."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.core.meshgen import perturbed_tet_box
+    from fenicssolver_tpu_torch.la import direct, krylov
+    from fenicssolver_tpu_torch.la.amg import AMGPreconditioner
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+    from fenicssolver_tpu_torch.parallel.amg_halo import HaloAMGSolver
+    from fenicssolver_tpu_torch.solvers.navier_stokes import (
+        CoupledNavierStokesSolver,
+    )
+
+    dev = device or "cuda:0"
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    mesh = perturbed_tet_box(n)
+    V = core.FunctionSpace(mesh, "CG", 1)
+    ctx = geometry.build_cell_context(V, 2, device=dev, dtype=f64)
+    form = assembly.Form(space=V, cell_terms=[assembly.CellTerm(
+        kernel=poisson_kernel(dev, f64), ctx=ctx)])
+    form.finalize()
+    A, b = assembly.assemble_linear_system(form, dtype=f64)
+    dd = assembly.DirichletData(V.ndof)
+    dd.add(V.facet_dofs(mesh.exterior_facets()), 0.0)
+    dd.finalize(device=dev, dtype=f64)
+    free = dd.free_mask
+    _sync(device)
+    t0 = time.perf_counter()
+    M = AMGPreconditioner(assembly.constrain_csr(A, free).to_host(),
+                          free_mask=free.cpu().numpy() > 0.5, dtype=f64,
+                          device=dev)
+    _sync(device)
+    t1 = time.perf_counter()
+    op = assembly.constrained_operator(A.matvec, free)
+    rhs = assembly.constrained_rhs(A.matvec, b, free, dd.u_bc)
+    x_ref, it_ref, _ = krylov.cg(op, rhs, M=M, tol=1e-10, maxiter=300)
+    _sync(device)
+    t2 = time.perf_counter()
+    hs = HaloAMGSolver(A, V.dof_coords, free.cpu().numpy(),
+                       devices=_shard_devices(device))
+    _sync(device)
+    t3 = time.perf_counter()
+    x, it, res = hs.solve(b, dd.u_bc, tol=1e-10, maxiter=300)
+    _sync(device)
+    t4 = time.perf_counter()
+    rel = _rel_l2(x.cpu().numpy(), x_ref.cpu().numpy())
+    steps = {}
+    for lv in hs.levels:
+        for k, v in lv["steps"].items():
+            steps[k] = steps.get(k, 0.0) + v
+    print(f"[amg-halo] unstructured Poisson (perturbed tets) n = {n}: "
+          f"{V.ndof} dofs, {hs.n_dev} shards, levels "
+          f"{[lv['rows'] for lv in hs.levels]} + coarse {hs.n_coarse}, "
+          f"operator complexity {hs.operator_complexity:.3f}: set-up "
+          f"{t3 - t2:.2f} s (hierarchy steps "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+          + f"), AMG-CG {it} iterations {t4 - t3:.3f} s, rel res {res:.2e}; "
+          f"serial AMG set-up {t1 - t0:.2f} s, CG {it_ref} iterations "
+          f"{t2 - t1:.3f} s; rel-L2 {rel:.2e} (tol 1e-10)")
+    check(it <= it_ref + 2 and rel <= 1e-10,
+          f"sharded AMG: {it} iterations vs serial {it_ref}, rel-L2 {rel}")
+    del V, form, A, b, dd, hs, M, ctx
+
+    # (b) the distributed NS fieldsplit at 12k mixed dofs
+    def mild(**params):
+        s = ns_channel(core, nx_ns)
+        s["boundary_conditions"]["inlet"]["values"][0]["value"] = core.Expression(
+            ("umax*4.0*x[1]*(1.0-x[1])", "0"), umax=0.15, degree=2)
+        s["solver_settings"]["solver_parameters"].update(
+            relative_tolerance=1e-10, **params)
+        return s
+
+    saved = direct.DENSE_LIMIT
+    try:
+        direct.DENSE_LIMIT = 100  # the serial run takes the iterative fieldsplit
+        t0 = time.perf_counter()
+        ref = CoupledNavierStokesSolver(mild(preconditioner="fieldsplit"),
+                                        device=device)
+        up_ref = ref.solve().values.copy()
+        t1 = time.perf_counter()
+    finally:
+        direct.DENSE_LIMIT = saved
+    with _Shards(SHARDS):
+        dist = CoupledNavierStokesSolver(mild(distributed=True,
+                                              gmres_restart=100), device=device)
+        up = dist.solve().values
+    t2 = time.perf_counter()
+    routes = [st["route"] for st in dist.last_newton]
+    outer = [st["iterations"] for st in dist.last_newton]
+    it_s, it_d = int(ref._last_outer_iters), int(dist._last_outer_iters)
+    rel = _rel_l2(up, up_ref)
+    print(f"[amg-halo] distributed NS channel {nx_ns} x {nx_ns}: "
+          f"{dist.function_space.ndof} mixed dofs, {SHARDS} shards: Newton "
+          f"routes {routes}, outer {outer}, final {it_d} against the serial "
+          f"fieldsplit's {it_s} (tol +15%); {t2 - t1:.2f} s (serial "
+          f"{t1 - t0:.2f} s); rel-L2 {rel:.2e} (tol 1e-8)")
+    check(set(routes) == {"halo_fieldsplit"}, f"NS routes {routes}")
+    check(it_d <= 1.15 * it_s and rel <= 1e-8,
+          f"distributed NS: outer {it_d} vs {it_s}, rel-L2 {rel}")
+    del ref, dist
+
+    # (c) the distributed Newton of the hyperelastic twist
+    def twist(**params):
+        s = twist_settings(core, (n_twist,) * 3)
+        s["solver_settings"]["solver_parameters"].update(params)
+        return s
+
+    serial = run_main(twist(), device=device)
+    with _Shards(SHARDS):
+        t0 = time.perf_counter()
+        dist = run_main(twist(distributed=True), device=device)
+        t1 = time.perf_counter()
+    rel = _rel_l2(dist.result.values, serial.result.values)
+    routes = [st["route"] for st in dist.last_newton]
+    print(f"[amg-halo] distributed Newton, the twist at {n_twist}^3: "
+          f"{dist.function_space.ndof} dofs, Newton {dist.last_iterations} "
+          f"steps (serial {serial.last_iterations}), routes {routes}, updates' "
+          f"AMG-CG iterations {[st['iterations'] for st in dist.last_newton]}, "
+          f"{t1 - t0:.2f} s; rel-L2 against the serial Newton {rel:.2e} (tol "
+          f"1e-10)")
+    check(set(routes) == {"halo_amg"} and rel <= 1e-10,
+          f"distributed Newton: routes {routes}, rel-L2 {rel}")
+    print(f"[amg-halo] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def phase_explicit(device=None, n=N_EXPLICIT):
+    """``parallel/explicit.py``: the acoustic pulse at ``n`` x ``n`` marched
+    on SHARDS shards against the serial march: max relative difference
+    1e-12, mass and energy conserved to 1e-12 as in the compressible phase,
+    ms a step beside the serial."""
+    import numpy as np
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    serial = run_main(_pulse_vectorised(pulse_settings(core, n)), device=device)
+    with _Shards(SHARDS):
+        dist = run_main(_dist(_pulse_vectorised(pulse_settings(core, n))),
+                        device=device)
+    st = dist.last_stepper
+    ml = serial._tables["mlump"].cpu().numpy()
+    tot0 = (serial._initial_state() * ml[None, :]).sum(axis=1)
+    tot1 = (dist.state * ml[None, :]).sum(axis=1)
+    dm = abs(tot1[0] - tot0[0]) / tot0[0]
+    dE = abs(tot1[-1] - tot0[-1]) / abs(tot0[-1])
+    rel = float(np.abs(dist.state - serial.state).max()
+                / np.abs(serial.state).max())
+    ms = dist.timers.totals["march"] / dist.steps_taken * 1e3
+    ms_s = serial.timers.totals["march"] / serial.steps_taken * 1e3
+    print(f"[explicit] acoustic pulse {n} x {n}: {dist.function_space.ndof} "
+          f"nodes, {st.n_dev} shards (local length {st.Lp}, "
+          f"{len(st.perms)} exchange rounds), {dist.steps_taken} SSP-RK2 "
+          f"steps: {ms:.3f} ms a step sharded, {ms_s:.3f} ms serial; max rel "
+          f"difference {rel:.2e} (tol 1e-12); d(mass)/mass {dm:.2e}, d(E)/E "
+          f"{dE:.2e} (tol 1e-12)")
+    check(rel <= 1e-12 and dm < 1e-12 and dE < 1e-12,
+          f"sharded march: {rel}, {dm}, {dE}")
+
+
+def phase_distributed_fsi(device=None, scale=4):
+    """The FSI cantilever of tests/test_fsi.py ``scale`` times as fine with
+    ``distributed: True`` on SHARDS shards (the fluid's halo fieldsplit
+    FGMRES, the solid's sharded AMG-CG, the mesh motion's halo CG) against
+    the serial run: the tip within 1e-8 relative; the mesh-motion PCG
+    counts."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    t0 = time.perf_counter()
+    serial = run_main(fsi_cantilever(core, scale), device=device)
+    t1 = time.perf_counter()
+    s = fsi_cantilever(core, scale)
+    s["solver_settings"] = {"solver_parameters": {"distributed": True}}
+    with _Shards(SHARDS):
+        dist = run_main(s, device=device)
+    t2 = time.perf_counter()
+    w_s, _ = cantilever_tip(serial)
+    w_d, w_exact = cantilever_tip(dist)
+    rel = abs(w_d - w_s) / abs(w_s)
+    routes = {r for st in dist.last_steps for r in st["fluid_routes"]}
+    print(f"[distributed-fsi] cantilever x{scale}: fluid "
+          f"{dist.fluid_solver.function_space.ndof} dofs, solid "
+          f"{dist.solid_solver.function_space.ndof} dofs, {SHARDS} shards: "
+          f"{t2 - t1:.2f} s (serial {t1 - t0:.2f} s); fluid routes {routes}, "
+          f"solid {dist.solid_solver.last_preconditioner}-"
+          f"{dist.solid_solver.last_krylov}; mesh-motion PCG "
+          f"{dist._mm_iterations} (serial {serial._mm_iterations}); tip "
+          f"{w_d:.6e} against the serial {w_s:.6e} (rel {rel:.2e}, tol 1e-8)")
+    check(routes == {"halo_fieldsplit"} and dist._mm_halo.n_dev == SHARDS,
+          f"distributed FSI routes {routes}")
+    check(rel <= 1e-8, f"distributed FSI tip {w_d} vs {w_s}")
+
+
+def phase_lattice_guard(device=None, n=8):
+    """A BoxMesh heat case with SHARDS shards: the reference's route is the
+    sharded lattice GMG (``parallel/lattice.py``), not ported, so it must
+    raise ``NotImplementedError`` naming that module."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
+    s = heat_settings(core, V)
+    s["solver_settings"]["solver_parameters"].pop("preconditioner")
+    msg = None
+    with _Shards(SHARDS):
+        try:
+            run_main(_dist(s), device=device)
+        except NotImplementedError as e:  # the guard under test
+            msg = str(e)
+    print(f"[lattice-guard] BoxMesh heat, {SHARDS} shards: NotImplementedError "
+          f"{msg!r}")
+    check(msg is not None and "parallel/lattice.py" in msg,
+          "the BoxMesh distributed case did not raise naming parallel/lattice.py")
+
+
+def measure_amg_setup(device=None, n=N_CANTILEVER):
+    """The AMG set-up of the elasticity cantilever's constrained system at
+    ``n``, split by level and step.  The steps are timed by wrapping the
+    set-up's functions where the imported package has them (``la/amg.py``'s
+    strength graph, aggregation, tentative prolongator and l1 estimate;
+    ``la/sparse_algebra``'s host and device products), so it times another
+    tree of the package as well: import this script from that tree's
+    directory.  The rest of a level (the inline power iterations, the copies
+    to the device) is printed as ``other``.  A tree whose levels record
+    their ``steps`` prints those.  Not part of ``main()``."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import amg as amg_mod
+    from fenicssolver_tpu_torch.la import sparse_algebra as sa
+    from fenicssolver_tpu_torch.ops import assembly
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver,
+    )
+
+    V, bcs, _ = cantilever(core, n, 1)
+    s = LinearElasticitySolver(elasticity_settings(V, bcs, rtol=1e-8),
+                               device=device)
+    s.init_solver()
+    s.current_step = 0
+    form, dd = s.generate_form(0, None, None, s.w_current, s.w_prev)
+    A, _ = assembly.assemble_linear_system(form)
+    Ah = assembly.constrain_csr(A, dd.free_mask).to_host()
+    free = dd.free_mask.cpu().numpy() > 0.5
+    B = amg_mod.rigid_body_modes(V.scalar_space.dof_coords, 3)
+    del A, form
+    steps = {}  # (rows of the level, step) -> seconds
+    inside = [False]  # a wrapped function called by another is not timed
+
+    def timed(fn, step):
+        def run(M, *args, **kw):
+            if inside[0]:
+                return fn(M, *args, **kw)
+            rows = len(M) if step == "tentative" else M.shape[0]
+            inside[0] = True
+            t0 = time.perf_counter()
+            try:
+                out = fn(M, *args, **kw)
+                _sync(device)
+            finally:
+                inside[0] = False
+            key = (rows, step)
+            steps[key] = steps.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    wrap = [(amg_mod, "_strength_graph", "strength"),
+            (amg_mod, "_aggregate", "aggregate"),
+            (amg_mod, "_tentative_prolongator", "tentative"),
+            (sa, "sp_matmat", "smooth_P"), (sa, "sp_add", "smooth_P"),
+            (sa, "rap", "rap"), (sa, "sp_transpose", "rap"),
+            (sa, "l1_row_sums", "l1"), (amg_mod, "_estimate_l1_lam", "lam1")]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in wrap
+             if hasattr(m, name)]
+    try:
+        for m, name, step in wrap:
+            if hasattr(m, name):
+                setattr(m, name, timed(getattr(m, name), step))
+        M = amg_mod.AMGPreconditioner(Ah, nullspace=B, free_mask=free,
+                                      device=s.device)
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    for li, lv in enumerate(M.levels):
+        mine = lv.get("steps") or {
+            k[1]: v for k, v in steps.items() if k[0] == lv["rows"]}
+        other = lv["setup_s"] - sum(mine.values())
+        print(f"[amg-setup] level {li}: {lv['rows']} rows, {lv['nnz']} nnz, "
+              f"{lv['setup_s']:.2f} s: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in mine.items())
+              + f", other {other:.2f}")
+    coarse = getattr(M, "coarse_steps", None) or {
+        k[1]: v for k, v in steps.items() if k[0] == M.coarse_rows}
+    print(f"[amg-setup] set-up in all {M.setup_seconds:.2f} s; coarsest "
+          f"{M.coarse_rows} rows: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in coarse.items()))
+
+
 def phase_default_device(n=16):
     """With ``FST_DEVICE`` unset and no ``device=``, the lattice CLI and
     ``run_stencil`` run on the card, through K1."""
@@ -4503,6 +5122,12 @@ def main():
     phase_ns_dg()
     phase_compressible()
     phase_fsi()
+    phase_distributed_one_shard()
+    phase_halo()
+    phase_amg_halo()
+    phase_explicit()
+    phase_distributed_fsi()
+    phase_lattice_guard()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()

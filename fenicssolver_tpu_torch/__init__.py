@@ -28,10 +28,13 @@ group-FEM P1, SSP-RK2) and segregated fluid-structure interaction
 (``FSISolver``: ALE mesh motion); mixed spaces and the dolfin-compatible namespace (``compat.py``); the JAX package's benchmark
 workload, P1 Poisson on a Kuhn lattice (``lattice_poisson.py``: element
 stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
-cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``).
-Every solver class of the JAX package is here.  Features not ported yet
-(the distributed layer, the HDF5 readers) raise ``NotImplementedError``
-naming the module that will bring them.
+cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``)
+and the dof-sharded distributed layer behind
+``solver_parameters.distributed`` (``parallel/halo.py``, ``amg_halo.py``,
+``explicit.py``; shards from ``config.shard_devices()``).  Every solver
+class of the JAX package is here.  Features not ported yet (the sharded
+lattice GMG of a BoxMesh, ``parallel/lattice.py``) raise
+``NotImplementedError`` naming the module that will bring them.
 """
 
 __version__ = "0.1.0"

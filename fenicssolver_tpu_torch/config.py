@@ -44,3 +44,23 @@ def synchronize(device):
     """Wait for queued work on ``device`` (phase timers read a host clock)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def shard_devices():
+    """The devices the distributed layer (``parallel/``) shards over: the
+    counterpart of the reference's ``jax.devices()``.
+
+    ``FST_SHARDS`` shards (default: ``torch.cuda.device_count()`` on the
+    card, 1 on the CPU), each on the default device (``resolve_device``):
+    the shards of one process are repeats of one device, ``cuda:0`` on a
+    card, as the reference's tests run 8 virtual devices on one CPU.
+    Shards on other cards would be ``torch.distributed`` ranks, which the
+    port does not have yet (ROADMAP.md)."""
+    dev = resolve_device(None)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    default = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = int(os.environ.get("FST_SHARDS", default))
+    if n < 1:
+        raise ValueError(f"FST_SHARDS must be at least 1, not {n}")
+    return [dev] * n

@@ -1,11 +1,14 @@
-"""Mesh I/O: legacy dolfin XML meshes and mesh functions, VTU/PVD output.
+"""Mesh I/O: legacy dolfin XML, HDF5 and XDMF meshes and mesh functions,
+VTU/PVD output.
 
-Port of ``fenicssolver_tpu/io/meshio.py:21-171`` and ``:241-346`` (host
-numpy, unchanged): ``data/mesh.xml`` and its ``*_facet_region.xml`` /
-``*_physical_region.xml`` sidecars load bit-exactly, with dolfin's facet
-numbering (see ``core.mesh.Mesh._compute_facets``); the dolfin XML writers;
-and the VTU writer and ``PVDFile`` time series behind ``SolverBase.save``.
-The HDF5/XDMF readers (which need ``h5py``) raise ``NotImplementedError``.
+Port of ``fenicssolver_tpu/io/meshio.py`` (host numpy, unchanged):
+``data/mesh.xml`` and its ``*_facet_region.xml`` / ``*_physical_region.xml``
+sidecars load bit-exactly, with dolfin's facet numbering (see
+``core.mesh.Mesh._compute_facets``); the dolfin XML writers; the dolfin
+HDF5 layout (``read_hdf5`` / ``write_hdf5``) and a minimal XDMF reader
+(inline XML or HDF5-backed data items); and the VTU writer and ``PVDFile``
+time series behind ``SolverBase.save``.  ``h5py`` is imported inside the
+functions that need it, so an inline-XML XDMF file reads without it.
 """
 
 from __future__ import annotations
@@ -21,18 +24,18 @@ def _strip_ns(tag):
 
 
 def read_mesh(filename):
-    """Read a dolfin XML mesh file (.xml).  HDF5 and XDMF raise."""
+    """Read a mesh file by extension (.xml, .h5/.hdf5, .xdmf)."""
     from ..core.mesh import Mesh
 
     if filename.endswith(".xml"):
         coords, cells = read_dolfin_xml(filename)
         return Mesh(coords, cells)
-    if filename.endswith((".h5", ".hdf5", ".xdmf")):
-        raise NotImplementedError(
-            f"reading {filename!r}: the HDF5/XDMF readers are not ported to "
-            "fenicssolver_tpu_torch yet; they come with the rest of "
-            "io/meshio.py, which needs h5py"
-        )
+    if filename.endswith((".h5", ".hdf5")):
+        coords, cells, _, _ = read_hdf5(filename)
+        return Mesh(coords, cells)
+    if filename.endswith(".xdmf"):
+        coords, cells = read_xdmf(filename)
+        return Mesh(coords, cells)
     raise ValueError(f"unsupported mesh format: {filename}")
 
 
@@ -170,6 +173,70 @@ def write_mesh_function_xml(filename, mesh_function):
         for i, v in enumerate(mesh_function.values):
             f.write(f'    <entity index="{i}" value="{int(v)}"/>\n')
         f.write("  </mesh_function>\n</dolfin>\n")
+
+
+
+def read_hdf5(filename):
+    """The dolfin HDF5 layout: /mesh (topology, coordinates), /subdomains,
+    /boundaries -> (coords, cells, subdomain values or None, boundary
+    values or None)."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        topo = np.asarray(f["/mesh/topology"])
+        coords = np.asarray(f["/mesh/coordinates"])
+        sub = np.asarray(f["/subdomains/values"]) if "/subdomains" in f else None
+        bnd = np.asarray(f["/boundaries/values"]) if "/boundaries" in f else None
+    return coords, topo.astype(np.int32), sub, bnd
+
+
+def write_hdf5(filename, mesh, subdomains=None, boundaries=None):
+    import h5py
+
+    with h5py.File(filename, "w") as f:
+        f.create_dataset("/mesh/topology", data=mesh.cells_array)
+        f.create_dataset("/mesh/coordinates", data=mesh.coords)
+        if subdomains is not None:
+            f.create_dataset("/subdomains/values", data=np.asarray(subdomains))
+        if boundaries is not None:
+            f.create_dataset("/boundaries/values", data=np.asarray(boundaries))
+
+
+def read_xdmf(filename):
+    """A minimal XDMF reader: the first Topology and Geometry, each an
+    inline (``Format="XML"``) or HDF5-backed (``Format="HDF"``) data item
+    -> (coords, cells)."""
+    root = ET.parse(filename).getroot()
+    topo_el = geom_el = None
+    for el in root.iter():
+        t = _strip_ns(el.tag)
+        if t == "Topology" and topo_el is None:
+            topo_el = el
+        elif t == "Geometry" and geom_el is None:
+            geom_el = el
+    if topo_el is None or geom_el is None:
+        raise ValueError("XDMF missing Topology/Geometry")
+
+    def load_data_item(el):
+        di = next(iter(el))
+        fmt = di.attrib.get("Format", "XML")
+        dims = [int(d) for d in di.attrib["Dimensions"].split()]
+        if fmt == "XML":
+            return np.array(di.text.split(), dtype=np.float64).reshape(dims)
+        if fmt == "HDF":
+            path, dset = di.text.strip().split(":")
+            import h5py
+
+            base = os.path.dirname(os.path.abspath(filename))
+            with h5py.File(os.path.join(base, path), "r") as f:
+                return np.asarray(f[dset])
+        raise ValueError(f"unsupported XDMF data format {fmt}")
+
+    cells = load_data_item(topo_el).astype(np.int32)
+    coords = load_data_item(geom_el).astype(np.float64)
+    if geom_el.attrib.get("GeometryType", "XYZ") == "XY":
+        coords = coords[:, :2]
+    return coords, cells
 
 
 # ---------------------------------------------------------------------------

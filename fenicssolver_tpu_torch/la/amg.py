@@ -2,13 +2,13 @@
 
 Port of ``fenicssolver_tpu/la/amg.py``: the replacement for PETSc's
 ``petsc_amg`` smoothed aggregation with Chebyshev smoothing and a rigid-body
-near-nullspace.  The hierarchy is built on the host in float64 and without
-scipy: all sparse products (smoothed prolongator, Galerkin RAP) run through
-``la/sparse_algebra`` and the native Gustavson product.  The V-cycle runs on
-the device: every level's operator, prolongator and restriction are
-``torch.sparse_csr_tensor``s in the hierarchy's dtype, each product is
-PyTorch's CSR product (which repeats bit for bit, so a solve's iteration
-count is the same in every run), and the cycle reads nothing back: the
+near-nullspace.  The hierarchy is built in float64: strength and aggregation
+on the host (``la/sparse_algebra``, ``native.aggregate``), the sparse
+products (smoothed prolongator, Galerkin RAP) and the power iterations on
+the hierarchy's device by PyTorch's CSR product (``sparse_algebra.dev_*``).
+The V-cycle runs on the device: every level's operator, prolongator and
+restriction are ``torch.sparse_csr_tensor``s in the hierarchy's dtype, each
+product is PyTorch's CSR product, and the cycle reads nothing back: the
 Chebyshev bounds are Python floats fixed at set-up and the coarse solve is
 one dense product.
 
@@ -119,19 +119,98 @@ def _tentative_prolongator(agg, n_agg, B):
     return P, Bc
 
 
-def _estimate_l1_lam(M, l1_np):
-    """Power-iteration estimate of lam_max(L1^-1 M), clipped to the
-    Gershgorin bound 2 (exact for SPD; safety for nonsymmetric)."""
-    x = np.sin(np.arange(M.shape[0], dtype=np.float64)) + 0.5
-    lam_est = 1.0
-    for _ in range(12):
-        x = M.matvec(x) / l1_np
-        nx = np.linalg.norm(x)
+def _estimate_l1_lam(M, l1_np, device):
+    """Power-iteration estimate of lam_max(L1^-1 M) on ``device``, clipped
+    to the Gershgorin bound 2 (exact for SPD; safety for nonsymmetric)."""
+    return _power(M, device, 12, scale=l1_np, shift=0.5, final=False)
+
+
+def _power(M, device, iters, scale=None, shift=0.0, final=True):
+    """The power iterations of the set-up on ``device``: x = sin(i) +
+    ``shift``, ``iters`` times x = (M x) / scale, normalised.  ``final``:
+    the norm of the last product (the D^-1 A estimate, 2 if it vanished
+    first); else min(1.05 * the last nonzero norm, 2) (the l1 estimate)."""
+    Md = sparse_csr(torch.as_tensor(np.asarray(M.indptr, np.int64), device=device),
+                    torch.as_tensor(np.asarray(M.indices, np.int64), device=device),
+                    torch.as_tensor(np.asarray(M.data, np.float64), device=device),
+                    tuple(M.shape))
+    inv = None if scale is None else 1.0 / torch.as_tensor(
+        np.asarray(scale, np.float64), device=device)
+    x = torch.sin(torch.arange(M.shape[0], dtype=torch.float64,
+                               device=device)) + shift
+    lam = 2.0 if final else 1.0
+    for it in range(iters):
+        x = Md @ x
+        if inv is not None:
+            x = x * inv
+        nx = float(torch.linalg.norm(x))
         if nx == 0:
             break
-        lam_est = nx
-        x /= nx
-    return float(min(1.05 * lam_est, 2.0))
+        if not final or it == iters - 1:
+            lam = nx
+        x = x / nx
+    return lam if final else float(min(1.05 * lam, 2.0))
+
+
+class _step:
+    """Adds the seconds of its block to ``steps[name]``."""
+
+    def __init__(self, steps, name):
+        self.steps, self.name = steps, name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.steps[self.name] = (self.steps.get(self.name, 0.0)
+                                 + time.perf_counter() - self.t0)
+
+
+def _coarsen(A, B, theta, omega, device, steps=None):
+    """One smoothed-aggregation coarsening of the host matrix ``A`` with
+    near-nullspace ``B``: dict(P, R, Ac, Bc, agg, n_agg, steps), or None
+    when the coarsening stalls.  Strength and aggregation run on the host;
+    the products on ``device``, whose values come back for the next
+    level's strength graph.  ``steps`` holds the seconds of each step:
+    strength, aggregate, tentative, power (8 iterations on D^-1 A),
+    smooth_P (D^-1 A P0 and the sum), rap (P^T A P and P^T); pass a dict as
+    ``steps`` to keep the timings of a stalled attempt too."""
+    from . import sparse_algebra as sa
+
+    steps = {} if steps is None else steps
+    with _step(steps, "strength"):
+        S = _strength_graph(A, theta)
+    with _step(steps, "aggregate"):
+        agg, n_agg = _aggregate(S)
+    if n_agg * B.shape[1] >= A.shape[0]:
+        return None
+    with _step(steps, "tentative"):
+        P0, Bc = _tentative_prolongator(agg, n_agg, B)
+    # Jacobi-smoothed prolongator: P = (I - omega D^-1 A) P0.
+    # Sign-preserving diagonal guard: clamping negative entries to +eps
+    # turns a mildly indefinite/nonsymmetric level into +-inf coarse
+    # operators.
+    dA = A.diagonal()
+    dA = np.where(np.abs(dA) < 1e-300, 1e-300, dA)
+    DA = sa.sp_diag_scale(A, d_left=1.0 / dA)
+    with _step(steps, "power"):
+        # the spectral radius of D^-1 A by a few power iterations
+        lam = _power(DA, device, 8)
+    with _step(steps, "smooth_P"):
+        P0d = sa.to_device(P0, device)
+        Pd = sa.dev_add(P0d, sa.dev_matmat(sa.to_device(DA, device), P0d),
+                        1.0, -(omega / lam))
+    with _step(steps, "rap"):
+        Ad = sa.to_device(A, device)
+        Acd, Rd = sa.dev_rap(Ad, Pd)
+        P, R, Ac = sa.to_host(Pd), sa.to_host(Rd), sa.to_host(Acd)
+    if (not np.isfinite(Ac.data).all()) or Ac.diagonal().min() <= 0:
+        # smoothed P degenerated (nonsymmetric/indefinite level): fall back
+        # to plain (unsmoothed) aggregation for this level
+        with _step(steps, "rap"):
+            Acd, Rd = sa.dev_rap(Ad, P0d)
+            P, R, Ac = P0, sa.to_host(Rd), sa.to_host(Acd)
+    return dict(P=P, R=R, Ac=Ac, Bc=Bc, agg=agg, n_agg=n_agg, steps=steps)
 
 
 class AMGPreconditioner:
@@ -169,20 +248,19 @@ class AMGPreconditioner:
         but an f32 solve gets an f32 V-cycle.  ``device``: where the
         hierarchy lives (default: the package's device policy).
 
-        Every smoothed level records its ``rows``, ``nnz`` and the seconds
-        its set-up took (``setup_s``); ``coarse_rows`` and ``setup_seconds``
-        hold the coarsest level's size and the whole set-up's time."""
+        Every smoothed level records its ``rows``, ``nnz``, the seconds
+        its set-up took (``setup_s``) and those of each step (``steps``:
+        strength, aggregate, tentative, power, smooth_P, rap, l1, lam1,
+        to_device); ``coarse_rows``, ``coarse_steps`` and ``setup_seconds``
+        hold the coarsest level's size, the seconds of its set-up's steps
+        (with a stalled coarsening attempt's) and the whole set-up's
+        time."""
         from .. import config
         from .sparse_algebra import (
             HostCSR,
             from_scipy,
             l1_row_sums as _l1_row_sums,
-            rap,
-            sp_add,
-            sp_diag_scale,
-            sp_matmat,
             sp_submatrix,
-            sp_transpose,
         )
 
         t_start = time.perf_counter()
@@ -211,6 +289,7 @@ class AMGPreconditioner:
             self._free_idx = None
             A = A_full
         levels = []
+        self.coarse_steps = {}  # the stalled attempt and the coarse solve's set-up
         n = A.shape[0]
         B = (
             np.asarray(nullspace)
@@ -222,46 +301,25 @@ class AMGPreconditioner:
 
         while A.shape[0] > coarse_size and len(levels) < max_levels - 1:
             t_level = time.perf_counter()
-            S = _strength_graph(A, theta)
-            agg, n_agg = _aggregate(S)
-            if n_agg * B.shape[1] >= A.shape[0]:
+            steps = {}
+            lvl = _coarsen(A, B, theta, omega, self.device, steps)
+            if lvl is None:
+                self.coarse_steps.update(steps)
                 # coarsening stalled (near-singleton aggregates on a dense
                 # coarse operator: the "coarse" level would grow): stop here
                 # and treat A as the coarsest level
                 break
-            P0, Bc = _tentative_prolongator(agg, n_agg, B)
-            # Jacobi-smoothed prolongator: P = (I - omega D^-1 A) P0.
-            # Sign-preserving diagonal guard: clamping negative entries to
-            # +eps turns a mildly indefinite/nonsymmetric level into +-inf
-            # coarse operators.
-            dA = A.diagonal()
-            dA = np.where(np.abs(dA) < 1e-300, 1e-300, dA)
-            DA = sp_diag_scale(A, d_left=1.0 / dA)
-            # estimate spectral radius of D^-1 A with a few power iterations
-            x = np.sin(np.arange(A.shape[0], dtype=np.float64))
-            lam = 2.0
-            for _ in range(8):
-                x = DA.matvec(x)
-                nx = np.linalg.norm(x)
-                if nx == 0:
-                    break
-                lam = nx if _ == 7 else lam
-                x /= nx
-            P = sp_add(P0, sp_matmat(DA, P0), 1.0, -(omega / lam))
-            Ac = rap(A, P)
-            if (not np.isfinite(Ac.data).all()) or Ac.diagonal().min() <= 0:
-                # smoothed P degenerated (nonsymmetric/indefinite level):
-                # fall back to plain (unsmoothed) aggregation for this level
-                P = P0
-                Ac = rap(A, P)
-            _l1 = _l1_row_sums(A)
-            levels.append(
-                dict(
+            steps = lvl["steps"]
+            with _step(steps, "l1"):
+                _l1 = _l1_row_sums(A)
+            with _step(steps, "lam1"):
+                lam1 = _estimate_l1_lam(A, _l1, self.device)
+            with _step(steps, "to_device"):
+                level = dict(
                     A=csr_from_scipy(A, device=self.device, dtype=self._dtype),
                     diag=self._vec(np.maximum(A.diagonal(), 1e-300)),
-                    P=csr_from_scipy_rect(P, self.device, self._dtype),
-                    R=csr_from_scipy_rect(sp_transpose(P), self.device,
-                                          self._dtype),
+                    P=csr_from_scipy_rect(lvl["P"], self.device, self._dtype),
+                    R=csr_from_scipy_rect(lvl["R"], self.device, self._dtype),
                     # Chebyshev smoothing on the l1-scaled operator (hypre's
                     # l1-scaling + Chebyshev): row-wise |A| sums guarantee
                     # lam(L1^-1 A) <= 2 by Gershgorin, so smoothing never
@@ -271,21 +329,22 @@ class AMGPreconditioner:
                     # power-iteration estimate of lam(L1^-1 A), clipped to
                     # the Gershgorin bound, for the Chebyshev interval.
                     l1=self._vec(_l1),
-                    lam1=_estimate_l1_lam(A, _l1),
+                    lam1=lam1,
                     rows=int(A.shape[0]),
                     nnz=int(A.nnz),
-                    setup_s=0.0,
+                    steps=steps,
                 )
-            )
-            levels[-1]["setup_s"] = time.perf_counter() - t_level
-            A = Ac
-            B = Bc
+            level["setup_s"] = time.perf_counter() - t_level
+            levels.append(level)
+            A = lvl["Ac"]
+            B = lvl["Bc"]
             if A.shape[0] <= coarse_size:
                 break
         if A.shape[0] <= max(coarse_size * 10, 4000):
-            self.coarse_dense = torch.as_tensor(
-                np.linalg.pinv(A.toarray()), device=self.device
-            ).to(self._dtype)  # pinv: robust to the singular all-Neumann limit
+            with _step(self.coarse_steps, "pinv"):
+                self.coarse_dense = torch.as_tensor(
+                    np.linalg.pinv(A.toarray()), device=self.device
+                ).to(self._dtype)  # pinv: robust to the all-Neumann limit
             self._coarse_cheb = None
         else:
             # coarsening stalled while the level is still too large to
@@ -293,12 +352,16 @@ class AMGPreconditioner:
             # sweep on the l1-scaled operator (convergent by Gershgorin;
             # a preconditioner needs spectral equivalence, not exactness)
             self.coarse_dense = None
-            _l1c = _l1_row_sums(A)
-            self._coarse_cheb = dict(
-                A=csr_from_scipy(A, device=self.device, dtype=self._dtype),
-                l1=self._vec(_l1c),
-                lam1=_estimate_l1_lam(A, _l1c),
-            )
+            with _step(self.coarse_steps, "l1"):
+                _l1c = _l1_row_sums(A)
+            with _step(self.coarse_steps, "lam1"):
+                lam1c = _estimate_l1_lam(A, _l1c, self.device)
+            with _step(self.coarse_steps, "to_device"):
+                self._coarse_cheb = dict(
+                    A=csr_from_scipy(A, device=self.device, dtype=self._dtype),
+                    l1=self._vec(_l1c),
+                    lam1=lam1c,
+                )
         self.levels = levels
         self.coarse_rows = int(A.shape[0])
         self.setup_seconds = time.perf_counter() - t_start

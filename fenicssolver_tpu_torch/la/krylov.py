@@ -106,8 +106,8 @@ def chebyshev_preconditioner(op, diag, degree=4, lmin_ratio=0.06, lmax=None):
     return M
 
 
-def _norm(x):
-    return math.sqrt(torch.dot(x, x).item())
+def _norm(x, dot=torch.dot):
+    return math.sqrt(dot(x, x).item())
 
 
 def _nonfinite(method, value, k):
@@ -116,34 +116,37 @@ def _nonfinite(method, value, k):
     )
 
 
-def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
+def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000, dot=None):
     """Preconditioned conjugate gradients.  Returns (x, iters, relres) with
     ``iters`` an int and ``relres`` a float.  Stops at a residual norm of
-    ``max(tol * |b|, atol)``.
+    ``max(tol * |b|, atol)``.  ``dot``: the inner product (default
+    ``torch.dot``; the sharded solvers of ``parallel/`` pass their sum of
+    shard partials, the reference's ``psum`` hook).
 
     Raises ``SolverError`` when the residual norm becomes non-finite."""
+    dot = dot or torch.dot
     op = _as_op(A)
     M = M or identity_preconditioner
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - op(x)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
-    bnorm = _norm(b)
+    rz = dot(r, z)
+    bnorm = _norm(b, dot)
     target = max(tol * bnorm, atol)
     k = 0
     while True:
-        rnorm = _norm(r)  # the one sync per iteration
+        rnorm = _norm(r, dot)  # the one sync per iteration
         if not math.isfinite(rnorm):
             raise _nonfinite("CG", rnorm, k)
         if rnorm <= target or k >= maxiter:
             break
         Ap = op(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new
@@ -151,19 +154,22 @@ def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
     return x, k, rnorm / max(bnorm, 1e-300)
 
 
-def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
+def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000,
+             dot=None):
     """Preconditioned BiCGStab (PETSc ``bicgstab`` parity).  Returns
     (x, iters, relres).  Stops at a residual norm of
     ``max(tol * |b|, atol)``.
 
     A breakdown (``rhat . v = 0``, a non-finite residual) ends the loop and
-    is reported by a non-finite ``relres``; it does not raise."""
+    is reported by a non-finite ``relres``; it does not raise.  ``dot``: as
+    in ``cg``."""
+    dot = dot or torch.dot
     op = _as_op(A)
     M = M or identity_preconditioner
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - op(x)
     rhat = r
-    bnorm = _norm(b)
+    bnorm = _norm(b, dot)
     target = max(tol * bnorm, atol)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     p = torch.zeros_like(b)
@@ -171,19 +177,19 @@ def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
     rho = alpha = omega = one
     k = 0
     while True:
-        rnorm = _norm(r)  # the one sync per iteration
+        rnorm = _norm(r, dot)  # the one sync per iteration
         if not (rnorm > target) or k >= maxiter:  # NaN ends the loop too
             break
-        rho_new = torch.dot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = op(phat)
-        alpha = rho_new / torch.dot(rhat, v)
+        alpha = rho_new / dot(rhat, v)
         s = r - alpha * v
         shat = M(s)
         t = op(shat)
-        omega = torch.dot(t, s) / torch.dot(t, t).clamp_min(1e-300)
+        omega = dot(t, s) / dot(t, t).clamp_min(1e-300)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
@@ -225,14 +231,14 @@ def _combine(x, y, basis, j_end):
     return x
 
 
-def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot):
+def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot, dot):
     """One restart cycle of GMRES (left preconditioning) or FGMRES (right,
     ``flexible``): modified Gram-Schmidt on the device, Givens rotations on
     the host.  Returns (x, |g[j_end]|, steps taken)."""
     r = b - op(x)
     if not flexible:
         r = M(r)
-    beta = _norm(r)
+    beta = _norm(r, dot)
     if not math.isfinite(beta):
         raise _nonfinite(method, beta, it_tot)
     V = [r / max(beta, 1e-300)]
@@ -251,10 +257,10 @@ def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot):
             w = M(op(V[j]))
         h = []
         for i in range(j + 1):
-            hij = torch.dot(V[i], w)
+            hij = dot(V[i], w)
             w = w - hij * V[i]
             h.append(hij)
-        hj1 = torch.sqrt(torch.dot(w, w))
+        hj1 = torch.sqrt(dot(w, w))
         col = torch.stack(h + [hj1]).cpu().numpy()  # the one sync per iteration
         if not np.isfinite(col).all():
             raise _nonfinite(method, col[-1], it_tot + j)
@@ -267,40 +273,45 @@ def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot):
     return x, abs(g[j]), j
 
 
-def gmres(A, b, x0=None, M=None, tol=1e-8, restart=50, maxiter=20):
+def gmres(A, b, x0=None, M=None, tol=1e-8, restart=50, maxiter=20, dot=None):
     """Restarted GMRES(m) with left preconditioning and modified
     Gram-Schmidt.  ``maxiter`` counts restart cycles: the loop stops after
     ``maxiter * restart`` Arnoldi steps.  Returns (x, steps taken, relres),
     relres from the preconditioned residual estimate over ``|M b|``.
 
-    Raises ``SolverError`` when the residual becomes non-finite."""
-    return _gmres(A, b, x0, M, tol, restart, maxiter, flexible=False)
+    Raises ``SolverError`` when the residual becomes non-finite.  ``dot``: as
+    in ``cg``."""
+    return _gmres(A, b, x0, M, tol, restart, maxiter, False, dot)
 
 
-def fgmres(A, b, x0=None, M=None, tol=1e-8, restart=40, maxiter=30):
+def fgmres(A, b, x0=None, M=None, tol=1e-8, restart=40, maxiter=30,
+           dot=None):
     """Flexible GMRES (right preconditioning, per-vector M): the
     preconditioner may change from step to step (an inner Krylov solve),
     since each z_j = M(v_j) is kept and the solution is built from them.
     Returns (x, steps taken, relres) with relres over ``|b|``.
 
-    Raises ``SolverError`` when the residual becomes non-finite."""
-    return _gmres(A, b, x0, M, tol, restart, maxiter, flexible=True)
+    Raises ``SolverError`` when the residual becomes non-finite.  ``dot``: as
+    in ``cg``."""
+    return _gmres(A, b, x0, M, tol, restart, maxiter, True, dot)
 
 
-def _gmres(A, b, x0, M, tol, restart, maxiter, flexible):
+def _gmres(A, b, x0, M, tol, restart, maxiter, flexible, dot):
+    dot = dot or torch.dot
     op = _as_op(A)
     M = M or identity_preconditioner
     method = "FGMRES" if flexible else "GMRES"
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     m = min(restart, b.shape[0])
-    bnorm = _norm(b if flexible else M(b))
+    bnorm = _norm(b if flexible else M(b), dot)
     target = tol * bnorm
     r0 = b - op(x)
-    res = _norm(r0 if flexible else M(r0))
+    res = _norm(r0 if flexible else M(r0), dot)
     if not math.isfinite(res):
         raise _nonfinite(method, res, 0)
     it = 0
     while res > target and it < maxiter * m:
-        x, res, steps = _arnoldi(op, M, b, x, m, target, flexible, method, it)
+        x, res, steps = _arnoldi(op, M, b, x, m, target, flexible, method, it,
+                                 dot)
         it += steps
     return x, it, res / max(bnorm, 1e-300)

@@ -355,3 +355,128 @@ def bandwidth_ordering(indptr, indices, n, block=128, rows_per_block=8):
     if K_rcm < K_nat:
         return perm, K_rcm
     return None, K_nat
+
+
+# ---------------------------------------------------------------------------
+# the set-up's products on a torch device: (crow, col, val, shape) tensors,
+# int64 indices, float64 values, columns ascending within each row
+# ---------------------------------------------------------------------------
+
+
+class DevCSR(NamedTuple):
+    crow: object  # (nrows + 1,) int64 tensor
+    col: object  # (nnz,) int64 tensor
+    val: object  # (nnz,) float64 tensor
+    shape: tuple
+
+    @property
+    def nnz(self):
+        return int(self.col.numel())
+
+
+def to_device(A: HostCSR, device):
+    """A ``HostCSR`` as a ``DevCSR`` on ``device``."""
+    import torch
+
+    return DevCSR(torch.as_tensor(np.asarray(A.indptr, np.int64), device=device),
+                  torch.as_tensor(np.asarray(A.indices, np.int64), device=device),
+                  torch.as_tensor(np.asarray(A.data, np.float64), device=device),
+                  tuple(A.shape))
+
+
+def to_host(A: DevCSR):
+    """A ``DevCSR`` back on the host as a ``HostCSR``."""
+    return HostCSR(A.crow.cpu().numpy(), A.col.cpu().numpy(),
+                   A.val.cpu().numpy(), tuple(A.shape))
+
+
+def _dev_rows(A: DevCSR):
+    import torch
+
+    counts = A.crow[1:] - A.crow[:-1]
+    return torch.repeat_interleave(
+        torch.arange(A.shape[0], device=A.col.device), counts)
+
+
+def _dev_from_coo(rows, cols, vals, shape, sum_duplicates):
+    """Canonical ``DevCSR`` from COO triples: one stable sort of the
+    row-major keys; duplicates (at most two per key where this is used:
+    the union of two patterns) summed, which is exact in any order."""
+    import torch
+
+    keys = rows * int(shape[1]) + cols
+    keys, order = torch.sort(keys, stable=True)
+    vals = vals[order]
+    if sum_duplicates and keys.numel():
+        keys, inv = torch.unique_consecutive(keys, return_inverse=True)
+        vals = torch.zeros(keys.numel(), dtype=vals.dtype,
+                           device=vals.device).index_add_(0, inv, vals)
+    r = torch.div(keys, int(shape[1]), rounding_mode="floor")
+    crow = torch.zeros(int(shape[0]) + 1, dtype=torch.int64, device=keys.device)
+    crow[1:] = torch.cumsum(torch.bincount(r, minlength=int(shape[0])), 0)
+    return DevCSR(crow, keys - r * int(shape[1]), vals, tuple(shape))
+
+
+#: most scalar products (an entry of A times an entry of B's row) that one
+#: library product forms: a single cuSPARSE SpGEMM of the cantilever's
+#: level-0 A P (1,045,440 rows) fails for insufficient resources
+SPGEMM_PRODUCTS = 1 << 26
+
+
+def dev_matmat(A: DevCSR, B: DevCSR):
+    """C = A @ B by PyTorch's CSR product (cuSPARSE's SpGEMM on the card)
+    on 32-bit indices, in row blocks of A of about ``SPGEMM_PRODUCTS``
+    scalar products each, then one sort of each block's columns within its
+    rows, which the library leaves in any order."""
+    import torch
+
+    from .sparse import sparse_csr
+
+    assert A.shape[1] == B.shape[0], (A.shape, B.shape)
+    i32, i64 = torch.int32, torch.int64
+    Bt = sparse_csr(B.crow.to(i32), B.col.to(i32), B.val, B.shape)
+    # the products before each row of A, and the rows that cut them
+    work = torch.zeros(A.nnz + 1, dtype=i64, device=A.col.device)
+    torch.cumsum((B.crow[1:] - B.crow[:-1])[A.col], 0, out=work[1:])
+    before = work[A.crow]
+    cuts = torch.searchsorted(before, torch.arange(
+        1, int(before[-1]) // SPGEMM_PRODUCTS + 1, device=before.device)
+        * SPGEMM_PRODUCTS)
+    cuts = [0] + sorted(set(cuts.tolist()) - {0, A.shape[0]}) + [A.shape[0]]
+    crows, cols, vals = [torch.zeros(1, dtype=i64, device=A.col.device)], [], []
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        a0, a1 = int(A.crow[r0]), int(A.crow[r1])
+        C = torch.sparse.mm(sparse_csr((A.crow[r0:r1 + 1] - a0).to(i32),
+                                       A.col[a0:a1].to(i32), A.val[a0:a1],
+                                       (r1 - r0, A.shape[1])), Bt)
+        C = DevCSR(C.crow_indices().to(i64), C.col_indices().to(i64),
+                   C.values(), (r1 - r0, B.shape[1]))
+        C = _dev_from_coo(_dev_rows(C), C.col, C.val, C.shape,
+                          sum_duplicates=False)
+        crows.append(C.crow[1:] + crows[-1][-1])
+        cols.append(C.col)
+        vals.append(C.val)
+    return DevCSR(torch.cat(crows), torch.cat(cols), torch.cat(vals),
+                  (A.shape[0], B.shape[1]))
+
+
+def dev_transpose(A: DevCSR):
+    return _dev_from_coo(A.col, _dev_rows(A), A.val, (A.shape[1], A.shape[0]),
+                         sum_duplicates=False)
+
+
+def dev_add(A: DevCSR, B: DevCSR, alpha=1.0, beta=1.0):
+    """alpha * A + beta * B on the union of the two patterns."""
+    import torch
+
+    assert A.shape == B.shape
+    return _dev_from_coo(torch.cat([_dev_rows(A), _dev_rows(B)]),
+                         torch.cat([A.col, B.col]),
+                         torch.cat([alpha * A.val, beta * B.val]), A.shape,
+                         sum_duplicates=True)
+
+
+def dev_rap(A: DevCSR, P: DevCSR):
+    """(Ac, P^T) with Ac = P^T (A P), the Galerkin coarse operator."""
+    Pt = dev_transpose(P)
+    return dev_matmat(Pt, dev_matmat(A, P)), Pt

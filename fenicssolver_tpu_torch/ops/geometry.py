@@ -120,15 +120,15 @@ def _inv_absdet(J):
 
 
 def _affine_geometry(coords, cells, tdim):
-    """Tensors (nv, gdim), (nc, nvc) -> Xe, |detJ|, Jinv per cell."""
+    """Tensors (nv, gdim), (nc, nvc) -> Xe, |detJ|, Jinv per cell.  A
+    manifold cell (tdim < gdim) takes the metric tensor G = J^T J:
+    |detJ| = sqrt|det G| and the pseudo-inverse G^-1 J^T (tdim, gdim)."""
     Xe = coords[cells[:, : tdim + 1]]
     J = (Xe[:, 1:, :] - Xe[:, :1, :]).transpose(1, 2)  # (nc, gdim, tdim)
     if J.shape[1] != J.shape[2]:
-        raise NotImplementedError(
-            "manifold cells (tdim < gdim) are not ported to "
-            "fenicssolver_tpu_torch yet; they come with the rest of "
-            "ops/geometry.py"
-        )
+        G = torch.einsum("cgt,cgs->cts", J, J)
+        Ginv, detG = _inv_absdet(G)
+        return Xe, torch.sqrt(detG), torch.einsum("cts,cgs->ctg", Ginv, J)
     Jinv, detJ = _inv_absdet(J)
     return Xe, detJ, Jinv
 

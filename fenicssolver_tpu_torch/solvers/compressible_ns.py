@@ -36,7 +36,11 @@ puts the geometry, connectivity and boundary tables on the device once, and
 to the host: the state's finiteness is checked once, after the last step.
 Both sums are ``ops.assembly.OrderedScatter`` products built in ``_prepare``
 (the reference's are ``.at[].add``), so a march repeats bit for bit on the
-card.  The distributed march raises, naming ``parallel/``.
+card.  With ``solver_parameters.distributed`` and more than one shard
+(``config.shard_devices()``) the march runs sharded
+(``_march_distributed``, ``parallel/explicit.py``: one ghost refresh a stage,
+each shard's replicated elements); with one shard it warns and marches
+serially, as the reference does with one device.
 """
 
 from __future__ import annotations
@@ -44,10 +48,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..core.function import Function
 from ..core.spaces import VectorFunctionSpace
 from ..ops.assembly import OrderedScatter
-from .solver_base import SolverBase, SolverError, not_ported
+from .solver_base import SolverBase, SolverError
 
 
 def _dot(a, b, dim):
@@ -213,32 +218,42 @@ class CompressibleNSSolver(SolverBase):
         ml = np.zeros(V.ndof)
         np.add.at(ml, cd.reshape(-1), np.repeat(vol / k, k))
         self._h_min = float(h_e.min())
+        # kept on the host for the distributed march's shard-local tables
+        self._host = dict(cd=cd, vol=vol, dphig=dphig, h_e=h_e, bfv=bfv,
+                          bfa=bfa, bfn=bfn, mlump=ml)
+        self._tables = self._device_tables(V.ndof, **self._host)
+        self._bplan_host = self._boundary_plan()
+        self._bplan = {key: self._t(v) for key, v in self._bplan_host.items()}
+        self._prepared = True
 
-        def _t(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                                   device=self.device).to(self.dtype)
+    def _t(self, a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               device=self.device).to(self.dtype)
+
+    def _device_tables(self, ndof, cd, vol, dphig, h_e, bfv, bfa, bfn, mlump):
+        """The device tables of ``_rhs`` over ``ndof`` nodes: the cells
+        last (vertex a's node of every cell, dphig as (k, d, nc)) and the
+        ordered scatters of the element -> node and boundary-flux sums."""
+        d = self.dimension
 
         def _i(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
                                    device=self.device)
 
-        nvar, ndof = d + 2, V.ndof
+        nvar = d + 2
         rows = _i(np.arange(nvar)[:, None] * ndof)
-        # the cells last: vertex a's node of every cell, dphig as (k, d, nc)
         cdT = _i(np.ascontiguousarray(cd.T))
-        self._tables = dict(cols=list(cdT), vol=_t(vol),
-                            dphig=_t(np.ascontiguousarray(dphig.transpose(1, 2, 0))),
-                            h_e=_t(h_e), bfv=_i(bfv), bfa=_t(bfa), bfn=_t(bfn),
-                            mlump=_t(ml), eye=_t(np.eye(d)))
+        t = dict(cols=list(cdT), vol=self._t(vol),
+                 dphig=self._t(np.ascontiguousarray(dphig.transpose(1, 2, 0))),
+                 h_e=self._t(h_e), bfv=_i(bfv), bfa=self._t(bfa),
+                 bfn=self._t(bfn), mlump=self._t(mlump), eye=self._t(np.eye(d)))
         # the two sums over all variables at once, into the flattened
         # (nvar * ndof) state: rows v * ndof + node, the element values in
         # (v, a, c) order
-        self._tables["node_sum"] = OrderedScatter(
-            (rows + cdT.reshape(1, -1)).reshape(-1))
-        self._tables["facet_sum"] = OrderedScatter(
-            (rows + self._tables["bfv"].reshape(1, -1)).reshape(-1))
-        self._bplan = {key: _t(v) for key, v in self._boundary_plan().items()}
-        self._prepared = True
+        t["node_sum"] = OrderedScatter((rows + cdT.reshape(1, -1)).reshape(-1))
+        t["facet_sum"] = OrderedScatter(
+            (rows + t["bfv"].reshape(1, -1)).reshape(-1))
+        return t
 
     # ------------------------------------------------------------------
     # the physics, on the device
@@ -383,6 +398,41 @@ class CompressibleNSSolver(SolverBase):
 
         return step
 
+    def _march_distributed(self, U0, dt, nsteps):
+        """The sharded march (``parallel/explicit.py``): per stage one ghost
+        refresh of the state, the residual of each shard's replicated
+        elements (rows it does not own dropped), the BCs.  Returns the
+        gathered final state (numpy)."""
+        from ..parallel.explicit import HaloExplicitStepper
+
+        h = self._host
+        d = self.dimension
+        st = HaloExplicitStepper(np.asarray(self.mesh.coords),
+                                 [h["cd"], h["bfv"]], dtype=self.dtype)
+        self.last_stepper = st
+        n = st.n_dev * st.Lp
+        tabs = self._device_tables(
+            n, cd=st.ldofs[0], vol=st.localize(0, h["vol"]),
+            dphig=st.localize(0, h["dphig"]), h_e=st.localize(0, h["h_e"]),
+            bfv=st.ldofs[1], bfa=st.localize(1, h["bfa"]),
+            bfn=st.localize(1, h["bfn"]),
+            mlump=st.scatter_nodal(h["mlump"], pad=1.0))
+        bp = {k: self._t(st.scatter_nodal(v)) for k, v in self._bplan_host.items()}
+        # padding and dummy slots hold a safe state (rho = 1, E = 1)
+        safe = np.zeros(d + 2)
+        safe[0] = safe[-1] = 1.0
+        U = self._t(st.scatter_nodal(np.asarray(U0), pad=safe))
+        own = self._t(st.own_mask)
+        exchange = st.make_exchange()
+
+        def stage(U):
+            Ux = exchange(U)  # ghosts from their owners
+            return self._apply_bcs(Ux + dt * (own * self._rhs(Ux, tabs)), bp)
+
+        for _ in range(nsteps):
+            U = 0.5 * U + 0.5 * stage(stage(U))
+        return st.gather_nodal(U.cpu().numpy().astype(np.float64))
+
     def solve(self):
         """March ``transient_settings`` [starting_time, ending_time] with the
         fixed ``time_step`` (or a CFL-derived one), every step on the
@@ -394,9 +444,6 @@ class CompressibleNSSolver(SolverBase):
                 "CompressibleNSSolver is explicit/transient: set "
                 "transient_settings.transient = True")
         sp = self.solver_settings.get("solver_parameters") or {}
-        if sp.get("distributed"):
-            raise not_ported("CompressibleNSSolver's distributed march, "
-                             "_march_distributed,", "parallel/explicit.py")
         t0 = float(ts.get("starting_time", 0.0))
         t1 = float(ts["ending_time"])
         dt = ts.get("time_step")
@@ -405,12 +452,22 @@ class CompressibleNSSolver(SolverBase):
         dt = float(dt)
         nsteps = max(int(round((t1 - t0) / dt)), 1)
         dt = (t1 - t0) / nsteps
-        step = self.step_function(dt)
+        U0 = self._apply_bcs(self._tensor(self._initial_state()))
+        distributed = bool(sp.get("distributed"))
+        if distributed and len(config.shard_devices()) <= 1:
+            distributed = False
+            self.logger.warning(
+                "distributed solve requested but only one device is "
+                "visible; falling back to the serial path")
         with self.timers.phase("march"):
-            U = self._apply_bcs(self._tensor(self._initial_state()))
-            for _ in range(nsteps):
-                U = step(U)
-            Uh = U.cpu().numpy().astype(np.float64)
+            if distributed:
+                Uh = self._march_distributed(U0.cpu().numpy(), dt, nsteps)
+            else:
+                step = self.step_function(dt)
+                U = U0
+                for _ in range(nsteps):
+                    U = step(U)
+                Uh = U.cpu().numpy().astype(np.float64)
         if not np.isfinite(Uh).all():
             raise SolverError(
                 f"CompressibleNSSolver diverged (non-finite state after "

@@ -23,8 +23,10 @@ contexts are built per form, the momentum multigrid, the pressure mass and
 the PCD operators are keyed on it, and the cached transient form is refused
 under ``reference_frame_settings``.  ``last_steps`` records per step the
 fluid's Newton updates (route, outer iterations), the two mesh-motion PCG
-counts and the seconds of the fluid, solid and mesh-motion solves.  The
-distributed branches raise, naming ``parallel/``.
+counts and the seconds of the fluid, solid and mesh-motion solves.  A
+``distributed`` run hands the flag to every participant (their distributed
+routes) and solves the mesh motion by the halo CG when there is more than
+one shard.
 """
 
 from __future__ import annotations
@@ -34,13 +36,14 @@ import time
 import numpy as np
 import torch
 
+from .. import config
 from ..core.function import Function
 from ..core.spaces import VectorFunctionSpace
 from ..la import krylov
 from ..ops import assembly, geometry
 from .linear_elasticity import LinearElasticitySolver
 from .navier_stokes import CoupledNavierStokesSolver
-from .solver_base import SolverError, not_ported
+from .solver_base import SolverError
 
 
 class CoupledSolver:
@@ -134,7 +137,7 @@ class FSISolver(CoupledSolver):
         self.settings = solver_input
         # a top-level solver_parameters.distributed (or
         # coupling_settings.distributed) goes into every participant, as in
-        # the reference; their distributed solves wait for parallel/
+        # the reference
         dist = solver_input.get("solver_settings", {}).get(
             "solver_parameters", {}).get("distributed") or solver_input.get(
             "coupling_settings", {}).get("distributed")
@@ -332,10 +335,10 @@ class FSISolver(CoupledSolver):
 
     def _solve_mesh_motion(self, boundary_field):
         """The pseudo-elastic problem with the given interface values:
-        Jacobi-PCG to 1e-10 on the device; the vertex displacements (nv, d)."""
-        if self._distributed:
-            raise not_ported("the mesh-motion solve of a distributed FSI run, "
-                             "the halo CG,", "parallel/")
+        Jacobi-PCG to 1e-10 on the device, the halo CG on the shards of a
+        distributed run with more than one shard (reference ``:355-377``;
+        one shard: serial); the vertex displacements (nv, d).  The PCG
+        counts go to ``_mm_iterations``."""
         V = self.mm_space
         d = V.vdim
         u_bc = np.zeros(V.ndof)
@@ -346,6 +349,17 @@ class FSISolver(CoupledSolver):
         A = self._mm_A
         freej = torch.as_tensor(free, dtype=self.dtype, device=self.device)
         ubcj = torch.as_tensor(u_bc, dtype=self.dtype, device=self.device)
+        if self._distributed and len(config.shard_devices()) > 1:
+            hs = getattr(self, "_mm_halo", None)
+            if hs is None:
+                from ..parallel.halo import HaloShardedSolver
+
+                hs = self._mm_halo = HaloShardedSolver(
+                    A, V.dof_coords, devices=config.shard_devices())
+            x, it = hs.solve(torch.zeros_like(ubcj), freej, ubcj, tol=1e-10,
+                             maxiter=2000)
+            self._mm_iterations.append(int(it))
+            return x.cpu().numpy().astype(np.float64).reshape(-1, d)
         op = assembly.constrained_operator(A.matvec, freej)
         rhs = assembly.constrained_rhs(A.matvec, torch.zeros_like(ubcj), freej,
                                        ubcj)

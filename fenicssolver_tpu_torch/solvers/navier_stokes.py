@@ -40,8 +40,17 @@ broadcast); the boundary block is gathered from the Jacobian's values and
 inverted with ``torch.linalg.inv`` on the device; the p-multigrid transfers
 are CSR products; and a Picard step on a cached transient form refreshes
 the frozen advection velocity on its first iteration as well (the cached
-form holds the previous step's last iterate there).  The distributed
-branches raise, naming ``parallel/``.
+form holds the previous step's last iterate there).
+
+Distributed (``solver_parameters.distributed`` with more than one shard,
+reference ``:1464-1830``): every Newton update and every Picard solve runs
+the halo FGMRES over the mixed (u, p) partition
+(``_distributed_saddle_solve``), preconditioned by the sharded fieldsplit
+(``_distributed_fieldsplit_amg``: the sharded SA-AMG V-cycle of the viscous
+proxy, aligned with the mixed partition, the exact boundary-block
+correction, the lumped-mass Schur), or by the fieldsplit diagonal
+(``fieldsplit_distributed: "diag"``, or after a failed set-up, with a
+warning).  With one shard, the reference's warning and the serial routes.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import config
 from ..core.expression import Constant, Expression
 from ..core.function import Function, interpolate
 from ..core.spaces import FunctionSpace, MixedFunctionSpace, VectorFunctionSpace
@@ -76,6 +86,11 @@ def _in_block(we, r, start):
 
 
 class CoupledNavierStokesSolver(SolverBase):
+    #: the distributed saddle solve's preconditioner: "amg" (the sharded
+    #: momentum fieldsplit) or "diag"
+    _dist_fieldsplit_default = "amg"
+    NS_ONE_SHARD = ("distributed NS solve requested but only one device is "
+                    "visible; falling back to the serial path")
     #: the backward-Euler history; the Picard advection aux ``wfrozen`` is
     #: not history, and swapping it must never keep A
     _HISTORY_AUX = ("wprev",)
@@ -1279,7 +1294,7 @@ class CoupledNavierStokesSolver(SolverBase):
         from ..la.newton import newton_solve
 
         sp = self._solver_params()
-        self._check_ported(sp)
+        distributed = self._sharded(sp, self.NS_ONE_SHARD)
         free = dirichlet.free_mask if dirichlet and dirichlet.any else None
         ubc = dirichlet.u_bc if dirichlet and dirichlet.any else None
         steps = self.last_newton = []
@@ -1303,7 +1318,11 @@ class CoupledNavierStokesSolver(SolverBase):
         def lin_solve(J, rhs):
             fm = free if free is not None else torch.ones_like(rhs)
             with timers.phase("newton_solve"):
-                x, route, it, res = self._saddle_solve(J, rhs, fm)
+                if distributed:
+                    x, route, it, res = self._distributed_saddle_solve(
+                        J, rhs, fm, torch.zeros_like(rhs))
+                else:
+                    x, route, it, res = self._saddle_solve(J, rhs, fm)
             steps.append(dict(jacobian_s=timers.last["jacobian"],
                               solve_s=timers.last["newton_solve"], route=route,
                               iterations=it, relres=res))
@@ -1322,6 +1341,187 @@ class CoupledNavierStokesSolver(SolverBase):
         self.last_iterations = int(its)
         u_current.values = x.cpu().numpy().astype(np.float64)
         return u_current
+
+    # -- distributed ---------------------------------------------------------------
+    def solve_static(self, A, b, dirichlet, x0=None, spd=True):
+        """The distributed non-SPD (Picard) solves by the halo saddle solve;
+        everything else by ``SolverBase.solve_static`` (with one shard the
+        warning comes twice, as in the reference)."""
+        sp = self._solver_params()
+        if not spd and self._sharded(sp, self.NS_ONE_SHARD):
+            if dirichlet is not None and dirichlet.any:
+                free, ubc = dirichlet.free_mask, dirichlet.u_bc
+            else:
+                free, ubc = torch.ones_like(b), torch.zeros_like(b)
+            x, _, it, _ = self._distributed_saddle_solve(
+                A, b, free, ubc, tol=sp.get("relative_tolerance", 1e-9))
+            self.last_iterations = it
+            return x
+        return super().solve_static(A, b, dirichlet, x0=x0, spd=spd)
+
+    def _distributed_saddle_solve(self, J, b, free, ubc, tol=1e-9):
+        """The halo FGMRES over the mixed (u, p) partition (reference
+        ``:1685-1756``), preconditioned by the sharded fieldsplit or the
+        fieldsplit diagonal: |diag J| on the momentum, rho^2 nu / m_p (the
+        serial fieldsplit's scaling) on the pressure.  Returns (x, route,
+        outer iterations, relres); ``_ns_halo_solver`` keeps the layout
+        across Newton steps (its values refreshed)."""
+        from ..parallel.halo import HaloShardedSolver
+
+        W = self.function_space
+        pat = J.pattern
+        pkey = (pat.n, int(pat.nnz), hash(pat.indices.cpu().numpy().tobytes()))
+        hs = getattr(self, "_ns_halo_solver", None)
+        if hs is None or getattr(hs, "_pattern_key", None) != pkey:
+            with self.timers.phase("halo_setup"):
+                hs = HaloShardedSolver(J, W.dof_coords,
+                                       devices=config.shard_devices())
+            hs._pattern_key = pkey
+            self._ns_halo_solver = hs
+        else:
+            hs.update_values(J)
+        nu = float(self.material["kinematic_viscosity"])
+        rho = float(self.material["density"])
+        diag = (free * J.diagonal() + (1.0 - free)).abs()
+        slp = W.slice_of(1)
+        mp = self._pressure_mass_diag()
+        diag[slp] = torch.where(free[slp] > 0.5, mp / max(rho * rho * nu, 1e-300),
+                                torch.ones_like(mp))
+        sp = self._solver_params()
+        restart = int(sp.get("gmres_restart", 120))
+        M_build, route = None, "halo_diag"
+        if sp.get("fieldsplit_distributed", self._dist_fieldsplit_default) == "amg":
+            try:
+                M_build = self._distributed_fieldsplit_amg(J, hs, free)
+                route = "halo_fieldsplit"
+            except Exception as e:  # the reference's fallback, kept loud
+                self.logger.warning(
+                    "distributed momentum-AMG setup failed (%s); using the "
+                    "fieldsplit diagonal", e)
+        with self.timers.phase("fgmres"):
+            x, it, res = hs.solve_krylov(
+                b, free, ubc, method="fgmres", prec_diag=diag, tol=tol,
+                maxiter=max(sp.get("maximum_iterations", 50), 50) * restart,
+                restart=restart, M_build=M_build)
+        self._last_outer_iters = int(it)
+        self._last_linear_rel_res = float(res)
+        if sp.get("monitor_convergence"):
+            self.logger.info("distributed fieldsplit-FGMRES: %d iters, rel res "
+                             "%.2e", it, res)
+        return x, route, int(it), float(res)
+
+    def _momentum_proxy_singular(self):
+        """Whether the SPD viscous proxy of the momentum block is singular
+        (the DG solver without weak velocity-Dirichlet facets)."""
+        return False
+
+    def _distributed_fieldsplit_amg(self, J, hs, free):
+        """``M_build`` of the sharded fieldsplit (reference ``:1464-1683``):
+        the sharded SA-AMG hierarchy of the viscous proxy A_hat = 2 nu
+        eps:eps + (1/dt) m, aligned with the mixed partition (each free
+        momentum dof keeps its mixed owner) and cached across Newton and
+        Picard iterations; the exact boundary-block correction from the true
+        Jacobian; M = z_p = Schur-diag r_p, the triangular coupling, a
+        V-cycle on the proxy, the boundary block, a second V-cycle on the
+        true advective residual."""
+        from ..la.amg import rigid_body_modes
+        from ..parallel.amg_halo import HaloAMGSolver
+
+        if self._momentum_proxy_singular():
+            raise SolverError(
+                "the momentum proxy has no weak velocity-Dirichlet facets and "
+                "is singular")
+        W = self.function_space
+        su = W.slice_of(0)
+        V = W.subspaces[0]
+        lay = hs._lay
+        free_np = free.cpu().numpy()
+        su_ids = np.arange(su.start, su.stop)
+        free_u = free_np[su_ids] > 0.5
+        nu0 = float(self.material["kinematic_viscosity"])
+        dt_inv = float(getattr(self, "_pcd_dt_inv", 0.0))
+        mkey = (hs._pattern_key, hash(free_u.tobytes()), dt_inv,
+                self._geometry_key())
+        hm = getattr(self, "_ns_mom_amg", None)
+        if hm is None or getattr(hm, "_mixed_key", None) != mkey:
+            MF = su_ids[free_u]
+            ns = rigid_body_modes(V.scalar_space.dof_coords, V.vdim)
+            with self.timers.phase("momentum_amg_setup"):
+                A2 = self._visc_mass_matrix(V, self.vel_degree, nu0, dt_inv)
+                A2c = assembly.constrain_csr(A2, self._tensor(free_u.astype(float)))
+                hm = HaloAMGSolver(A2c, W.dof_coords[su_ids],
+                                   free_u.astype(np.float64), nullspace=ns,
+                                   owner=hs._owner[MF], devices=hs.devices,
+                                   dtype=self.dtype)
+            hm._mixed_key = mkey
+            # the owners agree, so every momentum level-0 owned slot maps to
+            # an owned slot of the mixed layout on the same shard
+            lay_m = hm._lay[0]
+            mix, mom = [], []
+            for r in range(lay.n_dev):
+                ids = lay_m._owned[r]  # indices into MF
+                mix.append(lay.local_slots(r, MF[ids]))
+                mom.append(r * lay_m.Lp + np.arange(len(ids)))
+            hm._u_mix = torch.as_tensor(np.concatenate(mix), device=self.device)
+            hm._u_mom = torch.as_tensor(np.concatenate(mom), device=self.device)
+            is_p = np.zeros(W.ndof)
+            pr = np.arange(W.slice_of(1).start, W.slice_of(1).stop)
+            is_p[pr] = free_np[pr] > 0.5
+            is_u = np.zeros(W.ndof)
+            is_u[MF] = 1.0
+            hm._p_sel = lay.own * lay.scatter_local(is_p)
+            hm._u_sel = lay.own * lay.scatter_local(is_u)
+            self._ns_mom_amg = hm
+        n_m = hm._lay[0].n_dev * hm._lay[0].Lp
+        u_mix, u_mom, p_sel, u_sel = hm._u_mix, hm._u_mom, hm._p_sel, hm._u_sel
+        bcorr = self._momentum_bcorr(J, free, su)
+        if bcorr is not None:
+            bdofs_u, A_bb_inv = bcorr
+            g_b = (su.start or 0) + bdofs_u.cpu().numpy()
+            owner_b = hs._owner[g_b]
+            loc_b = np.zeros(len(g_b), dtype=np.int64)
+            for r in np.unique(owner_b):
+                mine = owner_b == r
+                loc_b[mine] = lay.local_slots(int(r), g_b[mine])
+            loc_b = torch.as_tensor(loc_b, device=self.device)
+
+        def M_build(h):
+            own, fr, inv_pd = h["own"], h["free"], h["inv_pd"]
+            exchange, spmv_own = h["exchange"], h["spmv_own"]
+
+            def vcyc_mixed(rm):
+                # the V-cycle on the free momentum part of a mixed-layout
+                # vector, scattered back into the mixed layout
+                rum = torch.zeros(n_m, dtype=rm.dtype, device=rm.device)
+                rum[u_mom] = rm[u_mix]
+                out = torch.zeros_like(rm)
+                out[u_mix] = hm.vcycle(rum)[u_mom]
+                return u_sel * out
+
+            def A_uu_m(xm):
+                # the true advective momentum block in the mixed layout
+                return u_sel * spmv_own(exchange(fr * xm))
+
+            def M(r):
+                z = own * (inv_pd * r)  # Jacobi / Schur diagonal
+                zp = z * p_sel
+                # the triangular coupling: momentum rows of J on z_p
+                y = own * (fr * spmv_own(exchange(fr * zp)))
+                ru = u_sel * (r - y)
+                xm = vcyc_mixed(ru)
+                if bcorr is not None:
+                    # the exact boundary block on the true residual: the
+                    # touched dofs gathered, a dense solve, added at owners
+                    r2 = ru - A_uu_m(xm)
+                    xm = xm + u_sel * torch.zeros_like(xm).index_add(
+                        0, loc_b, A_bb_inv @ r2[loc_b])
+                xm = xm + vcyc_mixed(ru - A_uu_m(xm))
+                z = z * (1.0 - u_sel) + xm
+                return own * (fr * z + (1.0 - fr) * r)
+
+            return M
+
+        return M_build
 
     def solve_form(self, F, up_, Dirichlet_bcs_up):
         if self.using_nonlinear_solver:

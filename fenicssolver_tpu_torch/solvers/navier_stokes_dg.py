@@ -28,9 +28,12 @@ coarse level is SA-AMG on the P1 rediscretisation, constrained at the
 Dirichlet vertices.  The transfers are CSR products built once per mesh, so
 two solves of one system repeat bit for bit on the card (the reference's
 restriction is a scatter-add).  As in the reference, the DG form does not
-record a time step for the proxy's mass term, the open-boundary block
-correction of the CG solver does not apply, and the distributed branches
-raise, naming ``parallel/`` (the parent's ``_check_ported``).
+record a time step for the proxy's mass term and the open-boundary block
+correction of the CG solver does not apply.  The distributed routes are
+the parent's; the sharded fieldsplit is built on the SIPG proxy, except
+when there are no weak velocity-Dirichlet facets: the proxy is then
+singular, and the distributed solve takes the fieldsplit diagonal with a
+warning (R2 in ROADMAP.md: the reference builds the hierarchy unguarded).
 """
 
 from __future__ import annotations
@@ -447,6 +450,9 @@ class NSDGSolver(CoupledNavierStokesSolver):
         if not out:
             return np.zeros(0, dtype=np.int32)
         return np.unique(np.concatenate(out)).astype(np.int32)
+
+    def _momentum_proxy_singular(self):
+        return len(self._dg_dirichlet_facet_ids()) == 0
 
     def _visc_mass_matrix(self, Vv, deg, nu0, dt_inv):
         """The SIPG momentum proxy on a DG space:

@@ -22,10 +22,18 @@ last Krylov solve ran with (``"jacobi"``, ``"gmg"``, ``"amg"``,
 ``"chebyshev"``), so that a fallback after a failed set-up shows.
 
 Every solver takes ``device=`` (default: ``FST_DEVICE``, else ``cuda``);
-tensors are created there in ``config.default_float()``.  Features outside
-the port raise ``NotImplementedError`` naming the module that will bring
-them: ``distributed``, HDF5/XDMF meshes.  ``spmv: "bell"`` (the reference's
+tensors are created there in ``config.default_float()``.  Meshes load from
+dolfin XML, HDF5 and XDMF files.  ``spmv: "bell"`` (the reference's
 default, a block-ELL layout) maps to the CSR matvec, in the AMG levels too.
+
+``solver_parameters.distributed`` (reference ``:762-1331``) shards over
+``config.shard_devices()``: SPD systems by the sharded AMG-CG
+(``_halo_amg_solve``, falling back to the Jacobi halo CG), the others by the
+halo BiCGStab then GMRES(80), ``"element"`` by the element-sharded assembly
+and halo CG, Newton updates by the sharded AMG Krylov.  With one shard each
+route logs the reference's warning and solves serially.  On a BoxMesh
+lattice with a P1 space the reference's route is the sharded lattice GMG,
+which is not ported: that case raises, naming ``parallel/lattice.py``.
 
 Deviations from the reference's time loop: a saved step carries the time
 its field belongs to (the end of the step; the reference's loop writes the
@@ -175,12 +183,31 @@ class SolverBase:
             raise SolverError(f"mesh file: {filename} does not exist")
         if filename.endswith(".xml"):
             self._read_xml_mesh(filename)
-        elif filename.endswith((".h5", ".hdf5", ".xdmf")):
-            raise not_ported(
-                f"reading {filename!r}",
-                "io/meshio.py's HDF5/XDMF readers, which need h5py")
+        elif filename.endswith((".h5", ".hdf5")):
+            self._read_hdf5_mesh(filename)
+        elif filename.endswith(".xdmf"):
+            self.mesh = Mesh(filename=filename)
+            self.subdomains = MeshFunction("size_t", self.mesh, self.mesh.tdim)
+            self.generate_boundary_facets()
         else:
             raise SolverError(f"unsupported mesh format: {filename}")
+
+    def _read_hdf5_mesh(self, filename):
+        """The dolfin HDF5 layout with its subdomain and boundary values
+        (reference ``:203-221``)."""
+        from ..io import meshio
+
+        coords, cells, sub, bnd = meshio.read_hdf5(filename)
+        self.mesh = Mesh(coords, cells)
+        self.subdomains = MeshFunction("size_t", self.mesh, self.mesh.tdim)
+        if sub is not None:
+            self.subdomains.values[:] = sub
+        if bnd is not None:
+            self.boundary_facets = MeshFunction("size_t", self.mesh,
+                                                self.mesh.tdim - 1)
+            self.boundary_facets.values[:] = bnd
+        else:
+            self.generate_boundary_facets()
 
     def _read_xml_mesh(self, filename):
         """dolfin XML + facet/physical region sidecars (SolverBase.py:223-238)."""
@@ -527,9 +554,131 @@ class SolverBase:
         sp.update(self.solver_settings.get("solver_parameters", {}))
         return sp
 
-    def _check_ported(self, sp):
-        if sp.get("distributed"):
-            raise not_ported("solver_parameters.distributed", "parallel/")
+    #: the reference's warning when a distributed route finds one device
+    ONE_SHARD = ("distributed solve requested but only one device is "
+                 "visible; falling back to the serial path")
+
+    def _sharded(self, sp, warning=ONE_SHARD):
+        """Whether ``solver_parameters.distributed`` asks for a sharded
+        route and more than one shard is there (``config.shard_devices()``,
+        the reference's ``len(jax.devices()) > 1``); with one shard, the
+        reference's warning and False (the serial path)."""
+        if not sp.get("distributed"):
+            return False
+        if len(config.shard_devices()) > 1:
+            return True
+        self.logger.warning(warning)
+        return False
+
+    def _check_lattice(self):
+        """The reference's sharded lattice GMG (``parallel/lattice.py``,
+        ``solver_base.py:870-945``) is the SPD route on a BoxMesh lattice
+        with a scalar P1 space or the 3-D vector P1 of elasticity; it is not
+        ported yet, so that case raises rather than take another route."""
+        V = self.function_space
+        if (getattr(self.mesh, "lattice_info", None) is not None
+                and V.degree == 1 and V.family == "CG"
+                and (type(V) is FunctionSpace
+                     or (isinstance(V, VectorFunctionSpace) and V.vdim == 3
+                         and callable(getattr(self, "lame_parameters", None))))):
+            raise not_ported(
+                "the distributed solve of a BoxMesh lattice, the sharded "
+                "lattice GMG-CG,", "parallel/lattice.py")
+
+    def _halo_amg_solve(self, A, b, free, ubc, tol, maxiter, spd=True):
+        """Distributed solve of an assembled system (reference ``:762-830``):
+        Krylov (CG, or FGMRES when not ``spd``) preconditioned by the
+        sharded smoothed-aggregation V-cycle (``parallel/amg_halo.py``), the
+        hierarchy cached on the pattern and the mask (a re-assembly with
+        the same pattern refreshes the fine operator only), the rigid-body
+        near-nullspace for vector spaces.  When the set-up throws or the
+        solve ends above ``10 * tol``, the Jacobi halo Krylov (CG, or
+        BiCGStab) with a warning.  ``last_preconditioner`` ("amg" or
+        "jacobi"), ``last_krylov`` and ``last_relres`` record the route.
+        Returns (x, iterations)."""
+        from ..parallel.amg_halo import HaloAMGSolver
+        from ..parallel.halo import HaloShardedSolver
+
+        V = self.function_space
+        free_np = free.cpu().numpy()
+        pat = A.pattern
+        pkey = (pat.n, int(pat.nnz), hash(pat.indices.cpu().numpy().tobytes()),
+                hash((free_np > 0.5).tobytes()))
+        sp = self._solver_params()
+        devices = config.shard_devices()
+        try:
+            hs = getattr(self, "_halo_amg_solver", None)
+            if hs is not None and getattr(hs, "_pattern_key", None) == pkey:
+                hs.update_values(A)
+            else:
+                nullspace = None
+                if isinstance(V, VectorFunctionSpace):
+                    from ..la.amg import rigid_body_modes
+
+                    nullspace = rigid_body_modes(V.scalar_space.dof_coords,
+                                                 V.vdim)
+                with self.timers.phase("halo_amg_setup"):
+                    hs = HaloAMGSolver(A, V.dof_coords, free_np,
+                                       nullspace=nullspace, devices=devices)
+                hs._pattern_key = pkey
+                self._halo_amg_solver = hs
+            with self.timers.phase("halo_krylov"):
+                x, it, res = hs.solve(b, ubc, method="cg" if spd else "fgmres",
+                                      tol=tol, maxiter=maxiter)
+            if np.isfinite(res) and res <= tol * 10:
+                self.last_preconditioner = "amg"
+                self.last_krylov = "CG" if spd else "FGMRES"
+                self.last_relres = res
+                if sp.get("monitor_convergence"):
+                    self.logger.info("halo-sharded AMG-%s: %d iters, rel res "
+                                     "%.2e", self.last_krylov, it, res)
+                return x, int(it)
+            self.logger.warning(
+                "sharded AMG solve stalled (res %.2e after %d iters); "
+                "falling back to the Jacobi halo Krylov", res, it)
+        except Exception as e:  # the reference's fallback, kept loud
+            self.logger.warning(
+                "sharded AMG setup failed (%s); falling back to the Jacobi "
+                "halo Krylov", e)
+        hs = HaloShardedSolver(A, V.dof_coords, devices=devices)
+        with self.timers.phase("halo_krylov"):
+            if spd:
+                x, it = hs.solve(b, free, ubc, tol=tol, maxiter=maxiter)
+                res = hs.last_relres
+            else:
+                diag = free * A.diagonal() + (1.0 - free)
+                x, it, res = hs.solve_krylov(b, free, ubc, method="bicgstab",
+                                             prec_diag=diag, tol=tol,
+                                             maxiter=maxiter)
+        self.last_preconditioner = "jacobi"
+        self.last_krylov = "CG" if spd else "BiCGStab"
+        self.last_relres = res
+        if sp.get("monitor_convergence"):
+            self.logger.info("halo-sharded Jacobi Krylov: %d iters", it)
+        return x, int(it)
+
+    def _halo_krylov(self, A, b, free, ubc, sp):
+        """The non-SPD distributed solve (reference ``:955-985``): Jacobi
+        halo BiCGStab, then halo GMRES(80) after a breakdown or a stall.
+        Returns (x, iterations, relres) and records ``last_krylov``."""
+        from ..parallel.halo import HaloShardedSolver
+
+        tol = sp.get("relative_tolerance", 1e-8)
+        maxiter = sp.get("maximum_iterations", 2000)
+        hs = HaloShardedSolver(A, self.function_space.dof_coords,
+                               devices=config.shard_devices())
+        diag = free * A.diagonal() + (1.0 - free)
+        with self.timers.phase("halo_krylov"):
+            self.last_krylov = "BiCGStab"
+            x, it, res = hs.solve_krylov(b, free, ubc, method="bicgstab",
+                                         prec_diag=diag, tol=tol,
+                                         maxiter=maxiter)
+            if not res <= tol * 10:  # a breakdown (NaN) or a stall
+                self.last_krylov = "GMRES"
+                x, it, res = hs.solve_krylov(b, free, ubc, method="gmres",
+                                             prec_diag=diag, tol=tol,
+                                             maxiter=maxiter, restart=80)
+        return x, it, res
 
     def _periodic_slaves(self):
         """(slave dofs, master of every dof) of a periodic space, or None."""
@@ -565,7 +714,6 @@ class SolverBase:
         after the master remap of ``core.spaces``) are fixed to 0 during the
         solve and mirrored from their masters after it."""
         sp = self._solver_params()
-        self._check_ported(sp)
         n = A.pattern.n
         if dirichlet is not None and dirichlet.any:
             free, ubc = dirichlet.free_mask, dirichlet.u_bc
@@ -578,6 +726,24 @@ class SolverBase:
             free, ubc = free.clone(), ubc.clone()
             free[slaves] = 0.0
             ubc[slaves] = 0.0
+        # distributed (reference ``:860-990``): SPD systems by the sharded
+        # AMG-CG (the lattice GMG on a BoxMesh raises, not ported), the
+        # others by halo BiCGStab then GMRES(80); one shard: serial
+        if pinfo is None and self._sharded(sp):
+            if spd:
+                self._check_lattice()
+                x, it = self._halo_amg_solve(
+                    A, b, free, ubc, sp.get("relative_tolerance", 1e-8),
+                    sp.get("maximum_iterations", 2000), spd=True)
+            else:
+                x, it, res = self._halo_krylov(A, b, free, ubc, sp)
+                self.last_preconditioner = "jacobi"
+                self.last_relres = float(res)
+                if sp.get("monitor_convergence"):
+                    self.logger.info("halo-sharded Krylov (%s): %d iters, rel "
+                                     "res %.3e", self.last_krylov, it, res)
+            self.last_iterations = int(it)
+            return x
         if sp.get("spmv", "bell") == "bell":
             self.logger.info(
                 "spmv='bell' (block-ELL) maps to the CSR matvec in "
@@ -700,10 +866,50 @@ class SolverBase:
         return A, b
 
     def solve_linear_problem(self, form, u, dirichlet, spd=True):
+        sp = self._solver_params()
+        if (sp.get("distributed") == "element" and spd
+                and self._periodic_slaves() is None
+                and self._sharded(sp, "distributed=element requested but only "
+                                  "one device is visible; falling back to the "
+                                  "serial path")):
+            return self._solve_element_sharded(form, u, dirichlet, sp)
         with self.timers.phase("assembly"):
             A, b = self._linear_system(form)
         x0 = torch.as_tensor(u.values, dtype=self.dtype, device=self.device)
         x = self.solve_static(A, b, dirichlet, x0=x0, spd=spd)
+        u.values = x.cpu().numpy().astype(np.float64)
+        return u
+
+    def _solve_element_sharded(self, form, u, dirichlet, sp):
+        """``distributed = "element"`` (reference ``:1153-1207``): the
+        element-sharded assembly and halo CG of ``HaloElementSolver``,
+        rebuilt when the form or its aux changes."""
+        from ..parallel.halo import HaloElementSolver, batches_from_form
+
+        V = self.function_space
+        if dirichlet is not None and dirichlet.any:
+            free, ubc = dirichlet.free_mask, dirichlet.u_bc
+        else:
+            free = torch.ones(V.ndof, dtype=self.dtype, device=self.device)
+            ubc = torch.zeros_like(free)
+        hs = getattr(self, "_halo_element_solver", None)
+        if (hs is None or hs._form is not form
+                or hs._form_version != form.aux_version):
+            with self.timers.phase("halo_element_setup"):
+                hs = HaloElementSolver(batches_from_form(form, self.dtype),
+                                       V.dof_coords, V.ndof,
+                                       devices=config.shard_devices(),
+                                       dtype=self.dtype)
+            hs._form, hs._form_version = form, form.aux_version
+            self._halo_element_solver = hs
+        with self.timers.phase("halo_krylov"):
+            x, it = hs.solve(free, ubc, tol=sp.get("relative_tolerance", 1e-8),
+                             maxiter=sp.get("maximum_iterations", 2000))
+        self.last_iterations = int(it)
+        self.last_relres = hs.last_relres
+        self.last_krylov, self.last_preconditioner = "CG", "jacobi"
+        if sp.get("monitor_convergence"):
+            self.logger.info("element-sharded assembly + halo CG: %d iters", it)
         u.values = x.cpu().numpy().astype(np.float64)
         return u
 
@@ -717,11 +923,18 @@ class SolverBase:
         solve's Krylov iterations and relative residual ("direct" and None
         for the dense LU)."""
         sp = self._solver_params()
-        self._check_ported(sp)
         free = dirichlet.free_mask if dirichlet and dirichlet.any else None
         ubc = dirichlet.u_bc if dirichlet and dirichlet.any else None
         steps = self.last_newton = []
         timers = self.timers
+        distributed = self._sharded(
+            sp, "distributed Newton solve requested but only one device is "
+            "visible; falling back to the serial path")
+        if distributed and self._periodic_slaves() is not None:
+            distributed = False
+            self.logger.warning("distributed Newton solve does not support "
+                                "periodic constraints; falling back to the "
+                                "serial path")
 
         def residual(u):
             with timers.phase("residual"):
@@ -738,10 +951,21 @@ class SolverBase:
 
         def lin_solve(J, rhs):
             with timers.phase("newton_solve"):
-                x, it, res = self._newton_update(J, rhs, free, spd)
+                if distributed:
+                    # the update with exact zeros on the Dirichlet dofs: the
+                    # masked system with zero boundary values
+                    fm = free if free is not None else torch.ones_like(rhs)
+                    x, it = self._halo_amg_solve(
+                        J, fm * rhs, fm, torch.zeros_like(rhs), tol=1e-10,
+                        maxiter=5000, spd=spd)
+                    res, route = self.last_relres, (
+                        "halo_" + self.last_preconditioner)
+                else:
+                    x, it, res = self._newton_update(J, rhs, free, spd)
+                    route = "serial"
             steps.append(dict(jacobian_s=timers.last["jacobian"],
                               solve_s=timers.last["newton_solve"],
-                              iterations=it, relres=res))
+                              iterations=it, relres=res, route=route))
             return x
 
         u0 = torch.as_tensor(u_current.values, dtype=self.dtype, device=self.device)
@@ -807,7 +1031,6 @@ class SolverBase:
             free, ubc = torch.ones_like(b), torch.zeros_like(b)
         rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
         sp = self._solver_params()
-        self._check_ported(sp)
         op = assembly.constrained_operator(A.matvec, free)
         try:
             with self.timers.phase("amg_setup"):

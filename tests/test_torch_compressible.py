@@ -6,7 +6,7 @@ tests/test_compressible.py (the closed box's conservation, the Taylor-Green
 decay rate, Sod's tube, the ideal-gas post-processing), each state within
 1e-12 of the JAX march after the test's steps and held to the test's
 bounds; a JAX state marched on by the port (``interop.compressible_state``);
-``main``; the distributed march, which raises."""
+``main``; the distributed march with one shard and with eight."""
 
 import numpy as np
 import pytest
@@ -190,16 +190,24 @@ def test_jax_state_marched_on_by_the_port():
         interop.compressible_state(ts, js.state[:, :5])
 
 
-def test_main_dispatches_and_distributed_raises():
+def test_main_dispatches_and_distributed_raises(monkeypatch):
+    """``main``; ``distributed``: with one shard the serial march (F4), with
+    8 the sharded one (``parallel/explicit.py``), both equal to ``main``'s
+    march bit for bit (tests/test_torch_distributed.py holds the sharded
+    march to the JAX one); a steady setting raises."""
     from fenicssolver_tpu_torch.main import main
 
     solver = main(box(tcore, n=4, t_end=0.05), device="cpu")
     assert type(solver).__name__ == "CompressibleNSSolver"
     assert np.isfinite(solver.state).all() and solver.steps_taken > 0
-    s = box(tcore, n=4, t_end=0.05)
-    s["solver_settings"]["solver_parameters"] = {"distributed": True}
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        TC(s).solve()
+    for shards in ("1", "8"):
+        monkeypatch.setenv("FST_SHARDS", shards)
+        s = box(tcore, n=4, t_end=0.05)
+        s["solver_settings"]["solver_parameters"] = {"distributed": True}
+        dist = TC(s)
+        dist.solve()
+        assert np.array_equal(dist.state, solver.state)
+        assert hasattr(dist, "last_stepper") == (shards == "8")
     s = box(tcore, n=4, t_end=0.05)
     s["solver_settings"]["transient_settings"]["transient"] = False
     from fenicssolver_tpu_torch.solvers.solver_base import SolverError

@@ -6,7 +6,7 @@ the moved fluid vertices held to the JAX run's after every step (1e-8),
 with the test's bounds (the cantilever's tip within 15% of
 Euler-Bernoulli); the ``LargeDeformationSolver`` solid likewise; a restart
 from the JAX run's state after two steps (``interop.fsi_state``); ``main``;
-the distributed branches, which raise."""
+a distributed run on 8 shards and on one."""
 
 import copy
 
@@ -118,17 +118,36 @@ def test_restart_from_the_jax_state(jax_runs):
     _close_steps([got], want[2:])
 
 
-def test_main_dispatches_and_distributed_raises():
+def test_main_dispatches_and_distributed_raises(jax_runs, monkeypatch):
+    """``main``; a distributed run (the dry run's
+    ``distributed_fsi_channel``): with 8 shards the fluid's Newton updates
+    take the halo fieldsplit FGMRES, the mesh motion the halo CG, the
+    solid (2-D, no lattice) the sharded AMG-CG; the solid within 1e-10 of
+    the serial run and each step within 1e-8 of the JAX serial run (the
+    JAX distributed run is slow-marked there); with one shard, the serial
+    run bit for bit (F4)."""
     from fenicssolver_tpu_torch.main import main
 
     fsi = main(fsi_channel(tcore), device="cpu")
     assert type(fsi).__name__ == "FSISolver" and fsi.steps_taken == 3
+    u_serial = fsi.solid_solver.w_current.values
     s = fsi_channel(tcore)
     s["solver_settings"] = {"solver_parameters": {"distributed": True}}
+    monkeypatch.setenv("FST_SHARDS", "1")
+    one = TFSI(copy.deepcopy(s))
+    one.solve()
+    assert one._distributed and getattr(one, "_mm_halo", None) is None
+    assert np.array_equal(one.solid_solver.w_current.values, u_serial)
+    monkeypatch.setenv("FST_SHARDS", "8")
     dist = TFSI(copy.deepcopy(s))
-    assert dist._distributed
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        dist.solve()
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        dist._solve_mesh_motion(np.zeros((dist.fluid_solver.mesh.num_vertices(),
-                                          2)))
+    got = fsi_snapshots(dist)
+    assert dist._mm_halo.n_dev == 8 and dist.fluid_solver._ns_halo_solver
+    assert all(st["route"] == "halo_fieldsplit"
+               for st in dist.fluid_solver.last_newton)
+    # the mesh-motion halo PCG takes the serial Jacobi-PCG's counts
+    assert len(dist._mm_iterations) == len(fsi._mm_iterations) > 0
+    assert all(abs(a - b) <= 1 for a, b in zip(dist._mm_iterations,
+                                               fsi._mm_iterations))
+    u = dist.solid_solver.w_current.values
+    assert np.linalg.norm(u - u_serial) / np.linalg.norm(u_serial) < 1e-10
+    _close_steps(got, jax_run(jax_runs, "channel"))

@@ -3,7 +3,7 @@ in f64: the cases of tests/test_ns_dg.py (Poiseuille, the symmetry
 half-channel, the farfield outlet, the 3-D Couette duct), each ``up`` within
 1e-9 of the JAX solution with the same Newton steps and within 1e-8 of the
 exact flow; the exact pressure and wall shear; the turbulence-model checks;
-``main`` and the distributed branch.  The momentum preconditioner, Picard,
+``main`` and the one-shard distributed branch.  The momentum preconditioner, Picard,
 the cylinder and the adjoint are in tests/test_torch_ns_dg_pmg.py."""
 
 import numpy as np
@@ -178,7 +178,9 @@ def test_poiseuille_pressure_and_wall_force():
     assert abs(abs(drag) - 2 * tau) / (2 * tau) < 1e-8 and abs(lift) < 1e-8 * tau
 
 
-def test_main_dispatches_and_distributed_raises():
+def test_main_dispatches_and_distributed_raises(monkeypatch):
+    """``main``; ``distributed`` with one shard: the serial solve (F4),
+    bit for bit (the sharded routes: tests/test_torch_distributed_ns.py)."""
     from fenicssolver_tpu_torch.main import main
 
     solver = main(dg(tcore, 3, 3), device="cpu")
@@ -187,10 +189,10 @@ def test_main_dispatches_and_distributed_raises():
     assert solver.function_space.subspaces[0].family == "DG"
     u = _velocity(solver, solver.result)
     assert _rel(u, _exact_velocity(solver, _poiseuille)) < 1e-8
-    s = dg(tcore, 2, 2)
+    monkeypatch.delenv("FST_SHARDS", raising=False)
+    s = dg(tcore, 3, 3)
     s["solver_settings"]["solver_parameters"]["distributed"] = True
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        TDG(s).solve()
+    assert np.array_equal(TDG(s).solve().values, solver.result.values)
 
 
 def test_bare_boundary_form_is_taken():

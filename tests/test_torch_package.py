@@ -49,6 +49,9 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.parallel",
     "fenicssolver_tpu_torch.parallel.partition",
     "fenicssolver_tpu_torch.parallel.sharding",
+    "fenicssolver_tpu_torch.parallel.halo",
+    "fenicssolver_tpu_torch.parallel.amg_halo",
+    "fenicssolver_tpu_torch.parallel.explicit",
     "fenicssolver_tpu_torch.la.sparse",
     "fenicssolver_tpu_torch.la.direct",
     "fenicssolver_tpu_torch.la.krylov",
@@ -283,17 +286,37 @@ def _feature_settings(change):
 
 
 @pytest.mark.parametrize("change", ["distributed", "restart_file"])
-def test_unported_features_raise(change):
-    """Distributed solves wait for their module; a restart file is read by
-    io/checkpoint.py now, which takes ``.npz`` files only."""
+def test_unported_features_raise(change, monkeypatch, caplog):
+    """A restart file is read by io/checkpoint.py, which takes ``.npz``
+    files only.  ``distributed`` (F4): with one shard the solve logs the
+    reference's warning and equals the serial solve; with 8 shards on a
+    BoxMesh lattice (the reference's sharded lattice GMG, not ported) it
+    raises, naming parallel/lattice.py."""
+    import logging
+
+    import numpy as np
+
     from fenicssolver_tpu_torch.solvers.scalar_transport import (
         ScalarTransportSolver,
     )
 
-    error, match = ((ValueError, r"\.npz") if change == "restart_file" else
-                    (NotImplementedError, "fenicssolver_tpu_torch"))
-    with pytest.raises(error, match=match):
-        ScalarTransportSolver(_feature_settings(change)).solve()
+    if change == "restart_file":
+        with pytest.raises(ValueError, match=r"\.npz"):
+            ScalarTransportSolver(_feature_settings(change)).solve()
+        return
+    monkeypatch.delenv("FST_SHARDS", raising=False)
+    serial = ScalarTransportSolver(_feature_settings("none")).solve().values
+    s = _feature_settings(change)
+    s["report_settings"]["logging_level"] = logging.WARNING
+    with caplog.at_level(logging.WARNING):
+        dist = ScalarTransportSolver(s).solve().values
+    assert "only one device is visible" in caplog.text
+    assert np.array_equal(dist, serial)
+    s = _feature_settings(change)
+    s["function_space"] = FunctionSpace(UnitCubeMesh(2, 2, 2), "CG", 1)
+    monkeypatch.setenv("FST_SHARDS", "8")
+    with pytest.raises(NotImplementedError, match="parallel/lattice.py"):
+        ScalarTransportSolver(s).solve()
 
 
 @pytest.mark.parametrize(
@@ -335,38 +358,101 @@ def _periodic_x():
     "what", ["xdmf", "hdf5", "hdf5_solver", "ns_distributed_newton",
              "ns_distributed_picard"]
 )
-def test_unported_spaces_and_readers_raise(what, tmp_path):
-    with pytest.raises(NotImplementedError, match="fenicssolver_tpu_torch") as e:
-        if what in ("xdmf", "hdf5"):
-            from fenicssolver_tpu_torch.io import meshio
+def test_unported_spaces_and_readers_raise(what, tmp_path, monkeypatch, caplog):
+    """What raised before the distributed layer and the readers came: an
+    inline-XML XDMF mesh and an HDF5 round trip, each against the JAX
+    package's reader of the same file; a solver reading an ``.h5`` mesh
+    with its boundary markers (tests/test_solver_base_extras.py's case,
+    against the JAX solver); and a distributed NS solve (Newton, Picard)
+    with one shard, which logs the reference's warning and equals the
+    serial solve bit for bit."""
+    import logging
 
-            meshio.read_mesh(str(tmp_path / ("m.xdmf" if what == "xdmf"
-                                             else "m.h5")))
-        elif what == "hdf5_solver":
-            from fenicssolver_tpu_torch.solvers.scalar_transport import (
-                ScalarTransportSolver,
-            )
+    import numpy as np
 
-            path = tmp_path / "m.h5"
-            path.write_bytes(b"")
-            ScalarTransportSolver(_settings(None, mesh=str(path)))
-        else:
-            # the distributed saddle-point solves wait with parallel/
-            from fenicssolver_tpu_torch.solvers.navier_stokes import (
-                CoupledNavierStokesSolver,
-            )
-            import fenicssolver_tpu_torch.core as tcore
-            from tests.test_torch_navier_stokes import channel
+    from fenicssolver_tpu.io import meshio as jmeshio
+    from fenicssolver_tpu_torch.io import meshio
 
+    if what == "xdmf":
+        mesh = UnitSquareMesh(3, 2)
+        path = tmp_path / "m.xdmf"
+        cells = " ".join(map(str, mesh.cells_array.ravel()))
+        xy = " ".join(f"{v:.17g}" for v in mesh.coords.ravel())
+        path.write_text(
+            '<?xml version="1.0"?>\n<Xdmf Version="3.0"><Domain><Grid>'
+            f'<Topology TopologyType="Triangle" NumberOfElements="{mesh.num_cells()}">'
+            f'<DataItem Format="XML" Dimensions="{mesh.num_cells()} 3">{cells}'
+            '</DataItem></Topology><Geometry GeometryType="XY">'
+            f'<DataItem Format="XML" Dimensions="{mesh.num_vertices()} 2">{xy}'
+            '</DataItem></Geometry></Grid></Domain></Xdmf>')
+        m = meshio.read_mesh(str(path))
+        coords, cells = jmeshio.read_xdmf(str(path))
+        assert np.array_equal(m.coords, coords)
+        assert np.array_equal(m.cells_array, np.sort(cells, axis=1))
+        assert np.array_equal(m.cells_array, mesh.cells_array)
+    elif what == "hdf5":
+        mesh = UnitSquareMesh(3, 3)
+        fn = str(tmp_path / "m.h5")
+        meshio.write_hdf5(fn, mesh, subdomains=np.arange(mesh.num_cells()))
+        got, want = meshio.read_hdf5(fn), jmeshio.read_hdf5(fn)
+        for a, b in zip(got[:3], want[:3]):
+            assert np.array_equal(a, b)
+        assert got[3] is None and want[3] is None
+        assert np.array_equal(got[1], mesh.cells_array)
+    elif what == "hdf5_solver":
+        from fenicssolver_tpu.solvers.scalar_transport import (
+            ScalarTransportSolver as JS,
+        )
+        from fenicssolver_tpu_torch.core import AutoSubDomain, MeshFunction, near
+        from fenicssolver_tpu_torch.solvers.scalar_transport import (
+            ScalarTransportSolver,
+        )
+        from tests.test_heat_transfer import base_settings as jbase
+        from tests.test_heat_transfer import make_bcs as jbcs
+        from tests.test_torch_heat import (DIRICHLET_COLD, DIRICHLET_HOT,
+                                           base_settings, make_bcs)
+
+        mesh = UnitSquareMesh(6, 6)
+        mf = MeshFunction("size_t", mesh, mesh.tdim - 1)
+        AutoSubDomain(lambda x: near(x[1], 1.0)).mark(mf, 1)
+        AutoSubDomain(lambda x: near(x[1], 0.0)).mark(mf, 2)
+        AutoSubDomain(lambda x: near(x[0], 0.0)).mark(mf, 3)
+        fn = str(tmp_path / "m.h5")
+        meshio.write_hdf5(fn, mesh, boundaries=mf.values)
+        out = []
+        for settings, cls, bcs in ((base_settings, ScalarTransportSolver,
+                                    make_bcs(DIRICHLET_HOT, DIRICHLET_COLD)),
+                                   (jbase, JS, jbcs())):
+            s = settings(None, bcs)
+            s.update(function_space=None, mesh=fn, fe_degree=1)
+            solver = cls(s)
+            solver.material["conductivity"] = 0.6
+            out.append((solver, np.asarray(solver.solve().values)))
+        (solver, T), (_, T_jax) = out
+        assert np.array_equal(solver.boundary_facets.values, mf.values)
+        T_exact = 300 + 60 * solver.function_space.dof_coords[:, 1]
+        assert np.linalg.norm(T - T_exact) / np.linalg.norm(T_exact) < 1e-9
+        assert np.linalg.norm(T - T_jax) / np.linalg.norm(T_jax) < 1e-10
+    else:
+        from fenicssolver_tpu_torch.solvers.navier_stokes import (
+            CoupledNavierStokesSolver,
+        )
+        import fenicssolver_tpu_torch.core as tcore
+        from tests.test_torch_navier_stokes import channel
+
+        monkeypatch.delenv("FST_SHARDS", raising=False)
+        out = []
+        for distributed in (False, True):
             s = channel(tcore, 2, 2)
-            s["solver_settings"]["solver_parameters"]["distributed"] = True
+            s["report_settings"]["logging_level"] = logging.WARNING
+            if distributed:
+                s["solver_settings"]["solver_parameters"]["distributed"] = True
             solver = CoupledNavierStokesSolver(s)
             solver.using_nonlinear_solver = what.endswith("newton")
-            solver.solve()
-    if what in ("xdmf", "hdf5", "hdf5_solver"):
-        assert "io/meshio.py" in str(e.value) and "h5py" in str(e.value)
-    else:
-        assert "parallel/" in str(e.value)
+            with caplog.at_level(logging.WARNING):
+                out.append(solver.solve().values.copy())
+        assert "only one device is visible" in caplog.text
+        assert np.array_equal(out[0], out[1])
 
 
 def _raised_module_names():
@@ -387,19 +473,18 @@ def _raised_module_names():
 
 def test_remaining_errors_name_modules_that_are_still_missing():
     """No ``NotImplementedError`` names a module that the port now has, and
-    each one left names a module of the reference (or ``parallel/``, whose
-    distributed layer waits, or ``io/meshio.py``'s HDF5 readers)."""
+    each one left names a module of the reference that the port lacks."""
     pairs = _raised_module_names()
-    # solver_base.py's two (parallel/, io/meshio.py), compressible_ns.py's
-    # (parallel/explicit.py) and fsi.py's (parallel/)
-    assert len(pairs) >= 4
+    # solver_base.py's distributed BoxMesh route (parallel/lattice.py)
+    assert ("solver_base.py", "parallel/lattice.py") in pairs
     ref = os.path.join(REPO, "fenicssolver_tpu")
     for fn, module in pairs:
         assert os.path.exists(os.path.join(ref, module)), (fn, module)
-        if module in ("parallel/", "io/meshio.py"):
-            continue  # there in part: ranks and the h5py readers wait
         assert not os.path.exists(os.path.join(PKG, module)), (fn, module)
     waiting = {m for _, m in pairs}
+    assert not waiting & {"parallel/", "parallel/halo.py",
+                          "parallel/amg_halo.py", "parallel/explicit.py",
+                          "io/meshio.py"}
     assert not waiting & {"la/amg.py", "la/lobpcg.py", "core/spaces.py",
                           "solvers/linear_elasticity.py", "solvers/maxwell.py",
                           "solvers/wave.py", "utils/plotting.py",

@@ -135,3 +135,21 @@ def test_native_library_is_the_ports_own_build():
     assert os.path.exists(so)
     assert os.path.dirname(so) == tnative.BUILD_DIR
     assert not hasattr(tnative, "build_ell")  # block-ELL is not ported
+
+
+@pytest.mark.parametrize("products", [1 << 26, 500, 1])
+def test_device_products_match_the_reference(products, monkeypatch):
+    """The AMG set-up's products on a torch device (``dev_matmat`` in row
+    blocks of at most ``products`` scalar products, ``dev_rap``,
+    ``dev_add``) against the JAX package's host products: the same CSR
+    structure with sorted columns, values to 1e-14."""
+    monkeypatch.setattr(tsa, "SPGEMM_PRODUCTS", products)
+    A, B = A_SQ, B_RECT
+    dA, dB = tsa.to_device(tsa.from_scipy(A), "cpu"), tsa.to_device(
+        tsa.from_scipy(B), "cpu")
+    JA, JB = jsa.from_scipy(A), jsa.from_scipy(B)
+    _same(tsa.to_host(tsa.dev_matmat(dA, dB)), jsa.sp_matmat(JA, JB))
+    Ac, Pt = tsa.dev_rap(dA, dB)
+    _same(tsa.to_host(Ac), jsa.rap(JA, JB))
+    _same(tsa.to_host(Pt), jsa.sp_transpose(JB))
+    _same(tsa.to_host(tsa.dev_add(dB, dB, 1.0, -0.5)), jsa.sp_add(JB, JB, 1.0, -0.5))
