@@ -84,7 +84,11 @@ non-zero and no result line is printed):
    thermal free expansion on ``UnitSquareMesh(256)`` (sliding supports,
    +50 K, AMG-CG) against the exact field to 1e-9; then the vector P2
    cantilever (k = 30) at 20 x 3 x 3 on the card against the port's CPU
-   solve (1e-8, equal iterations);
+   solve (1e-8, equal iterations).  F5: the cantilever's AMG V-cycle
+   applied twice is bit-equal and a second CG solve takes main()'s count to
+   the same bits; ``csr_spmv`` (its launches counted in main()) against
+   cuSPARSE on the hierarchy's level 0 (A, a block of 6 columns, R, P) and
+   timed on A; the same CG to 1e-10 for 8h;
 8c. modal: ``solve_modal(6)`` of a clamped P1 beam at 41,904 dofs; the
    recorded backend must be ``lobpcg`` (LOBPCG with the AMG V-cycle on the
    card), the frequencies within 1e-4 of scipy's shift-invert ``eigsh`` on
@@ -136,8 +140,21 @@ non-zero and no result line is printed):
    sharded AMG-CG of the perturbed-tet Poisson at n = 64 (iterations within
    2 of serial), the 12,027-dof NS channel by the sharded fieldsplit (outer
    within 15%), the distributed Newton of the twist; the sharded acoustic
-   pulse at 256^2 (1e-12); the FSI cantilever x4 (tip 1e-8); a BoxMesh case
-   raises naming ``parallel/lattice.py``;
+   pulse at 256^2 (1e-12); the FSI cantilever x4 (tip 1e-8); F5: the
+   serial and sharded AMG hierarchies applied twice bit-equal, a second
+   solve with each the same count;
+8h. the sharded lattice GMG (``parallel/lattice.py``) on the same 8 shards,
+   f64, rtol 1e-10, right after the fast path: the dry run's lattice
+   Poisson at n = 128 (slabs), 64 (two axes) and 96 (2 x 4 pencils), each
+   against ``run_stencil(n, tol=1e-10)`` (1e-8, iterations within 2, K1 and
+   K2 launched, two solves bit-equal), then the steady heat case through
+   ``main()`` with ``distributed: true`` (``last_preconditioner`` must be
+   ``lattice_gmg``, 1e-8 against the serial solve); and right after 8b the
+   vector route: the cantilever through ``main()`` with ``distributed:
+   true`` (``lattice_gmg_vector``, truncated taps) against 8b's AMG-CG to
+   1e-10 (tip and rel-L2 within 1e-6), ``run_elasticity(80)`` in f32 (the
+   bench's elasticity path, 1,594,323 dofs) and ``run_elasticity(16)`` on
+   the card against the CPU (1e-10);
 9. lattice path: ``lattice_poisson.run_stencil(128)`` (the port of
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
@@ -162,7 +179,10 @@ Kernel times in the kernels' record are those of the dtype and mask of
 the path that launches the kernel: K2 f64 all-Dirichlet (the transient
 heat path, whose launches the record counts),
 K1 (all-Dirichlet mask) and K3 f32 (the lattice path, in the bench's
-dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path).
+dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path),
+``csr_spmv`` f64 on the cantilever's AMG level 0 (its launches: the
+elasticity ``main()``).  ``lattice_launches`` counts K1 and K2 in the
+lattice runs of 8h.
 ``ms``, ``plain_ms`` and ``library_ms`` are medians with the L2 flushed
 before each run; ``bound_ms`` is the larger of the modelled bytes (each
 input read once, each output written once: ``k1_bytes`` .. ``k5_bytes``)
@@ -218,6 +238,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
                      "fenicssolver_tpu/ops/pallas_kernels.py:74"),
     "element_matvec": ("fenicssolver_tpu_torch/csrc/element_matvec.cu",
                        "fenicssolver_tpu/ops/pallas_kernels.py:28"),
+    # not a TPU kernel: the repair of F5, in place of the reference's
+    # segment_sum products of its AMG levels
+    "csr_spmv": ("fenicssolver_tpu_torch/csrc/csr_spmv.cu",
+                 "fenicssolver_tpu/la/amg.py:430"),
 }
 #: u_max of the same problem (n = 128, tol 1e-6) from the same-algorithm
 #: f64 CPU mirror of the JAX package's bench (``bench.py:155-156``)
@@ -1131,7 +1155,8 @@ def phase_main_path(device="cuda", n=N_MAIN):
     if on_cuda:
         check(launches > 0, "K2 was not launched on the main path")
         profile_vcycle(solver._gmg_cache[1])
-    return {"launches": launches, "iterations": solver.last_iterations, "V": V}
+    return {"launches": launches, "iterations": solver.last_iterations, "V": V,
+            "T": T}
 
 
 def _profiled(fn, reps):
@@ -2166,17 +2191,20 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
     import torch
 
     import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import krylov
     from fenicssolver_tpu_torch.main import main as run_main
-    from fenicssolver_tpu_torch.ops import assembly
+    from fenicssolver_tpu_torch.ops import assembly, cuda_kernels
 
     on_card = device is None or str(device).startswith("cuda")
     V, bcs, beam = cantilever(core, n, 1)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with CountCG() as cap:
         solver = run_main(elasticity_settings(V, bcs, rtol=1e-8), device=device)
     wall = time.perf_counter() - t0
+    spmv_launches = cuda_kernels.LAUNCHES["csr_spmv"]
     dev = solver.device
     if on_card:
         check(dev.type == "cuda", f"the elasticity case ran on {dev}")
@@ -2218,7 +2246,34 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
           f"{solver.last_relres}")
     check(abs(tip - beam) / beam < 0.08, f"tip deflection {tip} vs {beam}")
     check(np.isfinite(vm.values).all(), "von Mises is not finite")
-    del solver, amg, cap, op, rhs, kw
+    print(f"[elasticity] csr_spmv launches in main(): {spmv_launches}")
+    if on_card:
+        check(spmv_launches > 0, "csr_spmv was not launched by the AMG-CG")
+
+    # F5: the hierarchy applied twice to one vector gives the same bits; a
+    # second CG solve with it takes main()'s iterations to the same bits
+    z1, z2 = amg(rhs), amg(rhs)
+    x2, it2, _ = krylov.cg(op, rhs, **kw)
+    same_x = np.array_equal(x2.cpu().numpy(), solver.result.values.ravel())
+    print(f"[elasticity] F5: V-cycle twice bit-equal {torch.equal(z1, z2)}; "
+          f"a second CG solve {it2} iterations (main() {solver.last_iterations}"
+          f"), solution bit-equal {same_x}")
+    check(torch.equal(z1, z2), "the AMG V-cycle applied twice differs")
+    check(it2 == solver.last_iterations and same_x,
+          f"a second AMG-CG solve took {it2} iterations against "
+          f"{solver.last_iterations}, bit-equal {same_x}")
+    del z1, z2, x2
+    spmv = phase_csr_spmv(amg) if on_card else None
+    # the serial reference of [lattice-elasticity]: the same hierarchy to 1e-10
+    t0 = time.perf_counter()
+    x10, it10, res10 = krylov.cg(op, rhs, **dict(kw, tol=1e-10))
+    _sync(device)
+    serial = {"V": V, "bcs": bcs, "x": x10.cpu().numpy(), "iterations": it10,
+              "seconds": time.perf_counter() - t0, "relres": res10,
+              "spmv": spmv, "spmv_launches": spmv_launches}
+    print(f"[elasticity] AMG-CG to 1e-10: {it10} iterations, "
+          f"{serial['seconds']:.2f} s, rel res {res10:.3e}")
+    del solver, amg, cap, op, rhs, kw, x10
 
     # thermal stress: sliding supports, a uniform temperature, no load
     mesh = core.UnitSquareMesh(n_thermal, n_thermal)
@@ -2267,6 +2322,76 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
     check(rel <= 1e-8, f"P2 card vs CPU rel-L2 {rel}")
     check(ig == ic, f"P2 iterations {ig} on the card, {ic} on the CPU")
     check(abs(tg - beam) / beam < 0.08, f"P2 tip deflection {tg} vs {beam}")
+    return serial
+
+
+def spmv_bytes(n_rows, n_cols, nnz, itemsize):
+    """csr_spmv on a vector: the values and column indices (int32) and the
+    row pointer read once, x read once, y written once."""
+    return nnz * (itemsize + 4) + (n_rows + 1) * 4 + (n_rows + n_cols) * itemsize
+
+
+def phase_csr_spmv(amg):
+    """``csr_spmv`` against its plain version (PyTorch's CSR product, i.e.
+    cuSPARSE, the library call) on the AMG hierarchy of the elasticity
+    path: the level-0 operator on a vector and on a block of 6 columns (as
+    LOBPCG passes), R and P; timed on the level-0 operator and a vector."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    lv = amg.levels[0]
+    A, p = lv["A"], lv["A"].pattern
+    gen = torch.Generator(device=A.data.device).manual_seed(12)
+
+    def operands(ip, ix, data, shape, cols=None):
+        x = torch.randn((shape[1],) if cols is None else (shape[1], cols),
+                        generator=gen, dtype=data.dtype, device=data.device)
+        return (ip, ix, data, x, shape)
+
+    cases = {"A": operands(p.indptr, p.indices, A.data, A.shape),
+             "A, 6 columns": operands(p.indptr, p.indices, A.data, A.shape, 6)}
+    for name in ("R", "P"):
+        M = lv[name]
+        cases[name] = operands(M.indptr, M.indices, M.data, M.shape)
+    coarse = getattr(amg, "_coarse_cheb", None)
+    if coarse is not None:  # the stalled level's Chebyshev "solve"
+        C = coarse["A"]
+        cases["coarsest A"] = operands(C.pattern.indptr, C.pattern.indices,
+                                       C.data, C.shape)
+    for name, args in cases.items():
+        times = []
+        for lanes in cuda_kernels.SPMV_LANES:
+            err, _ = _agree("csr-spmv", f"{name}, {lanes} lanes",
+                            lambda: cuda_kernels.csr_spmv(*args, lanes=lanes),
+                            lambda: cuda_kernels.csr_spmv_reference(*args),
+                            TOL["float64"])
+            y1 = cuda_kernels.csr_spmv(*args, lanes=lanes)
+            y2 = cuda_kernels.csr_spmv(*args, lanes=lanes)
+            check(torch.equal(y1, y2),
+                  f"csr_spmv {name} with {lanes} lanes twice differs")
+            ms = time_ms(lambda: cuda_kernels.csr_spmv(*args, lanes=lanes),
+                         flush=True)
+            times.append(f"{lanes} lanes {ms:.4f}")
+        lib = time_ms(lambda: cuda_kernels.csr_spmv_reference(*args),
+                      flush=True)
+        nnz, rows = args[2].numel(), args[4][0]
+        print(f"[csr-spmv] {name} {tuple(args[4])}, {nnz} nnz "
+              f"({nnz / rows:.1f} a row): max abs err {err:.2e} against "
+              f"cuSPARSE, each twice bit-equal; ms flushed: "
+              + ", ".join(times) + f"; cuSPARSE {lib:.4f}; default "
+              f"{cuda_kernels.spmv_lanes(nnz, rows, args[3][0].numel())} "
+              "lanes")
+    args = cases["A"]
+    n_rows, n_cols = A.shape
+    return _compare(
+        "csr-spmv", f"level 0 A: {n_rows} rows, {p.nnz} nnz, f64",
+        lambda: cuda_kernels.csr_spmv(*args),
+        lambda: cuda_kernels.csr_spmv_reference(*args),
+        spmv_bytes(n_rows, n_cols, p.nnz, 8), 2 * p.nnz, "float64",
+        TOL["float64"], library=lambda: cuda_kernels.csr_spmv_reference(*args),
+        library_case="torch.sparse_csr_tensor @ x (cuSPARSE), which is the "
+                     "plain version")
 
 
 def phase_modal(device=None, n=(96, 11, 11), n_modes=6):
@@ -4793,7 +4918,27 @@ def phase_amg_halo(device=None, n=N_AMG_HALO, nx_ns=N_NS_FIELDSPLIT,
           f"{t2 - t1:.3f} s; rel-L2 {rel:.2e} (tol 1e-10)")
     check(it <= it_ref + 2 and rel <= 1e-10,
           f"sharded AMG: {it} iterations vs serial {it_ref}, rel-L2 {rel}")
-    del V, form, A, b, dd, hs, M, ctx
+    # F5: each hierarchy (serial, sharded) applied twice to one vector gives
+    # the same bits, a second CG solve with it the same count and bits
+    lay0 = hs._lay[0]
+    gen = torch.Generator(device=lay0.own.device).manual_seed(5)
+    v = lay0.own * torch.randn(lay0.own.shape, generator=gen, dtype=f64,
+                               device=lay0.own.device)
+    same_v = (torch.equal(hs.vcycle(v), hs.vcycle(v)),
+              torch.equal(M(rhs), M(rhs)))
+    t5 = time.perf_counter()
+    x2, it2, _ = hs.solve(b, dd.u_bc, tol=1e-10, maxiter=300)
+    x_ref2, it_ref2, _ = krylov.cg(op, rhs, M=M, tol=1e-10, maxiter=300)
+    _sync(device)
+    same_x = (torch.equal(x2, x), torch.equal(x_ref2, x_ref))
+    print(f"[amg-halo] F5: V-cycle twice bit-equal (sharded, serial) {same_v}; "
+          f"second solves {it2} and {it_ref2} iterations (first {it} and "
+          f"{it_ref}), bit-equal {same_x}, {time.perf_counter() - t5:.2f} s")
+    check(all(same_v), f"an AMG V-cycle applied twice differs: {same_v}")
+    check(it2 == it and it_ref2 == it_ref and all(same_x),
+          f"second AMG-CG solves: {it2}, {it_ref2} against {it}, {it_ref}; "
+          f"bit-equal {same_x}")
+    del V, form, A, b, dd, hs, M, ctx, x2, x_ref2, v
 
     # (b) the distributed NS fieldsplit at 12k mixed dofs
     def mild(**params):
@@ -4925,26 +5070,264 @@ def phase_distributed_fsi(device=None, scale=4):
     check(rel <= 1e-8, f"distributed FSI tip {w_d} vs {w_s}")
 
 
-def phase_lattice_guard(device=None, n=8):
-    """A BoxMesh heat case with SHARDS shards: the reference's route is the
-    sharded lattice GMG (``parallel/lattice.py``), not ported, so it must
-    raise ``NotImplementedError`` naming that module."""
+#: the dry run's lattice cases (``__graft_entry__.py:762-788``), raised:
+#: lattice_gmg_poisson3d_64 to the heat path's lattice, 2,146,689 dofs;
+#: lattice_gmg_2axis from 32 to 64; lattice_gmg_pencil_48 to 96
+N_LATTICE_HALO, N_LATTICE_AXES, N_LATTICE_PENCIL = 128, 64, 96
+#: bench.py's BENCH_N_ELAS (``bench.py:2191``): 3 * 81^3 = 1,594,323 dofs
+N_ELAS_BENCH = 80
+
+
+def _lattice_system(n, device):
+    """The dry run's lattice Poisson system (f = 1, Dirichlet shell) at n on
+    the card in f64: the stencil fields and load of ``assemble_stencil``
+    (K3) and the free mask."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops.stencil_assembly import (
+        assemble_stencil,
+        box_geometry,
+    )
+
+    JinvT, detJ = box_geometry((n, n, n), dtype=torch.float64, device=device)
+    coef, b3 = assemble_stencil(JinvT, detJ, (n, n, n), mode="sym")
+    free = torch.zeros_like(b3)
+    free[1:-1, 1:-1, 1:-1] = 1.0
+    return coef, b3.reshape(-1), free.reshape(-1)
+
+
+def _lattice_kernels_agree(what, ls, free):
+    """K1 and K2 against their plain versions on a lattice solver's own
+    inputs, f64 at ``TOL``: its stacked haloed fields ``_coef_e`` and each
+    sharded level's haloed mask, on a seeded vector split and haloed at that
+    level's shape (K1 masked and unmasked at level 0, as the CG operator and
+    the Dirichlet lift call it; K2 at every sharded level with that level's
+    taps).  Returns each kernel's max abs error."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    dtype = torch.float64
+    _, free_e, _, _ = ls._level_data(free, dtype)
+    coef_e = ls._coef_e.to(dtype)
+    errs = {"stencil_apply_var": 0.0, "stencil_apply_const": 0.0}
+    shapes = []
+    for l in range(ls.Ls):
+        nl = tuple(((v - 1) >> l) + 1 for v in ls.shape3)
+        x = torch.as_tensor(np.random.default_rng(l).standard_normal(nl),
+                            dtype=dtype, device=ls.device)
+        xe = ls._halo(ls._split(x, l), l)
+        flat = xe.reshape((-1,) + tuple(xe.shape[-2:]))
+        shapes.append(tuple(flat.shape))
+        cases = [("stencil_apply_const", f"K2 level {l}",
+                  lambda f=free_e[l], t=ls.taps[l]:
+                      cuda_kernels.stencil_apply_const(flat, t, f),
+                  lambda f=free_e[l], t=ls.taps[l]:
+                      cuda_kernels.stencil_apply_const_reference(flat, t, f))]
+        if l == 0:
+            cases += [("stencil_apply_var", f"K1 {mname}",
+                       lambda f=f: cuda_kernels.stencil_apply_var(
+                           flat, coef_e, f),
+                       lambda f=f: cuda_kernels.stencil_apply_var_reference(
+                           flat, coef_e, f))
+                      for mname, f in (("masked", free_e[0]),
+                                       ("unmasked", None))]
+        for name, k, kernel, plain in cases:
+            err, _ = _agree("lattice-halo", f"{what} {k} {tuple(flat.shape)}",
+                            kernel, plain, TOL["float64"])
+            errs[name] = max(errs[name], err)
+        del x, xe, flat
+    print(f"[lattice-halo] {what}: K1 and K2 against their plain versions on "
+          f"the solver's stacked haloed inputs {shapes} (f64, tol "
+          f"{TOL['float64']:g}): max abs err K1 "
+          f"{errs['stencil_apply_var']:.2e}, K2 "
+          f"{errs['stencil_apply_const']:.2e}")
+    return errs
+
+
+def phase_lattice_halo(device=None, V=None, T_serial=None, n=N_LATTICE_HALO,
+                       n_axes=N_LATTICE_AXES, n_pencil=N_LATTICE_PENCIL):
+    """``parallel/lattice.py`` on SHARDS shards of the card, f64, each held
+    to the port's serial GMG-CG (``run_stencil(n, tol=1e-10)``) on the same
+    system at rtol 1e-10: the slab solver at ``n``, the two-axis slab solver
+    (("dcn", 2), ("ici", 4)) at ``n_axes``, the 2 x 4 pencil solver at
+    ``n_pencil`` (iterations, ms an iteration sharded and serial, K1 and K2
+    launches, two solves bit-equal), and K1 and K2 against their plain
+    versions on each solver's own inputs (``_lattice_kernels_agree``); then
+    the solver route: the heat case of ``phase_main_path`` through
+    ``main()`` with ``distributed: true`` on its space ``V`` against its
+    serial solution ``T_serial``.  Returns the K1 and K2 launches of the
+    lattice runs (each reset just before the run and read just after) and
+    the kernels' max abs errors on the lattice inputs."""
+    import torch
+
     import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.lattice_poisson import run_stencil
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.parallel.lattice import (
+        LatticeHaloSolver,
+        LatticePencilSolver,
+    )
+
+    dev = device or "cuda:0"
+    kernels = ("stencil_apply_var", "stencil_apply_const")
+    launches = dict.fromkeys(kernels, 0)
+    errs = dict.fromkeys(kernels, 0.0)
+    shards = _shard_devices(device)
+    cases = (
+        ("slabs", n, lambda c, info: LatticeHaloSolver(c, info, devices=shards)),
+        ("two axes (dcn 2) x (ici 4)", n_axes,
+         lambda c, info: LatticeHaloSolver(
+             c, info, devices=shards, mesh_axes=(("dcn", 2), ("ici", 4)))),
+        ("pencils 2 x 4", n_pencil,
+         lambda c, info: LatticePencilSolver(c, info, devices=shards,
+                                             mesh_shape=(2, 4))),
+    )
+    for what, nn, make in cases:
+        ser = run_stencil(nn, tol=1e-10, dtype=torch.float64, device=dev)
+        coef, b, free = _lattice_system(nn, dev)
+        _sync(device)
+        t0 = time.perf_counter()
+        ls = make(coef, {"n": (nn, nn, nn)})
+        del coef
+        _sync(device)
+        t1 = time.perf_counter()
+        cuda_kernels.reset_launch_counts()
+        x, it = ls.solve(b, free, torch.zeros_like(b), tol=1e-10, maxiter=200)
+        _sync(device)
+        t2 = time.perf_counter()
+        counts = {k: cuda_kernels.LAUNCHES[k] for k in kernels}
+        for k in kernels:
+            launches[k] += counts[k]
+        x2, it2 = ls.solve(b, free, torch.zeros_like(b), tol=1e-10, maxiter=200)
+        _sync(device)
+        t3 = time.perf_counter()
+        rel = _rel_l2(x.cpu().numpy(), ser["u"].cpu().numpy())
+        print(f"[lattice-halo] {what} at n = {nn}: {x.numel()} dofs, "
+              f"{ls.n_dev} shards, {ls.Ls} sharded levels: set-up "
+              f"{t1 - t0:.2f} s, first solve {t2 - t1:.3f} s, {it} iterations "
+              f"(serial GMG-CG {ser['iterations']}); "
+              f"{1e3 * (t3 - t2) / max(it2, 1):.3f} ms an iteration sharded "
+              f"against {1e3 * ser['solve_s'] / max(ser['iterations'], 1):.3f} "
+              f"serial; launches K1 {counts['stencil_apply_var']}, K2 "
+              f"{counts['stencil_apply_const']}; rel-L2 against the serial "
+              f"{rel:.2e} (tol 1e-8); a second solve bit-equal "
+              f"{torch.equal(x, x2)}")
+        check(rel <= 1e-8, f"lattice {what}: rel-L2 {rel} against the serial")
+        check(it <= ser["iterations"] + 2, f"lattice {what}: {it} iterations "
+              f"against the serial {ser['iterations']}")
+        check(all(counts[k] > 0 for k in kernels),
+              f"lattice {what} did not launch K1 and K2: {counts}")
+        check(it2 == it and torch.equal(x, x2),
+              f"lattice {what}: a second solve differs")
+        for k, e in _lattice_kernels_agree(what, ls, free).items():
+            errs[k] = max(errs[k], e)
+        del ls, x, x2, ser, b, free
+
+    # the solver route: the steady heat case with distributed: true
+    s = _dist(heat_settings(core, V))
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Shards(SHARDS):
+        solver = run_main(s, device=device)
+    wall = time.perf_counter() - t0
+    counts = {k: cuda_kernels.LAUNCHES[k] for k in kernels}
+    for k in kernels:
+        launches[k] += counts[k]
+    tt = solver.timers.totals
+    rel = _rel_l2(solver.result.values, T_serial)
+    print(f"[lattice-halo] heat case through main(), distributed: true, "
+          f"{V.ndof} dofs: {solver.last_preconditioner}-{solver.last_krylov} "
+          f"{solver.last_iterations} iterations, main() {wall:.2f} s (lattice "
+          f"set-up {tt.get('lattice_setup', 0):.2f} s, solve "
+          f"{tt.get('lattice_krylov', 0):.2f} s); launches K1 "
+          f"{counts['stencil_apply_var']}, K2 {counts['stencil_apply_const']}; "
+          f"rel-L2 against the serial GMG-CG {rel:.2e} (tol 1e-8)")
+    check(solver.last_preconditioner == "lattice_gmg",
+          f"the distributed heat case ran {solver.last_preconditioner}, not "
+          "the lattice GMG")
+    check(rel <= 1e-8, f"distributed heat rel-L2 {rel}")
+    check(all(counts[k] > 0 for k in kernels),
+          f"the heat route did not launch K1 and K2: {counts}")
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def phase_lattice_elasticity(device=None, serial=None, n_bench=N_ELAS_BENCH,
+                             n_check=16):
+    """The vector lattice route: ``LinearElasticitySolver`` with
+    ``distributed: true`` on ``phase_elasticity``'s cantilever (``serial``:
+    its V, bcs and AMG-CG solution to 1e-10) on SHARDS shards, by the
+    sharded vector GMG with the truncated-tap hierarchy, to 1e-10: the tip
+    and the rel-L2 against the serial AMG-CG within 1e-6, the iterations,
+    the block operator's ms; then ``lattice_poisson.run_elasticity`` at
+    ``n_bench`` in f32 (``bench.py``'s elasticity path) and at ``n_check``
+    in f64 on the card against the CPU (1e-10, equal iterations)."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch.lattice_poisson import run_elasticity
     from fenicssolver_tpu_torch.main import main as run_main
 
-    V = core.FunctionSpace(core.UnitCubeMesh(n, n, n), "CG", 1)
-    s = heat_settings(core, V)
-    s["solver_settings"]["solver_parameters"].pop("preconditioner")
-    msg = None
+    V, bcs = serial["V"], serial["bcs"]
+    t0 = time.perf_counter()
     with _Shards(SHARDS):
-        try:
-            run_main(_dist(s), device=device)
-        except NotImplementedError as e:  # the guard under test
-            msg = str(e)
-    print(f"[lattice-guard] BoxMesh heat, {SHARDS} shards: NotImplementedError "
-          f"{msg!r}")
-    check(msg is not None and "parallel/lattice.py" in msg,
-          "the BoxMesh distributed case did not raise naming parallel/lattice.py")
+        solver = run_main(_dist(elasticity_settings(V, bcs, rtol=1e-10)),
+                          device=device)
+    wall = time.perf_counter() - t0
+    ls = solver._lattice_halo_solver
+    tt = solver.timers.totals
+    x = solver.result.values.ravel()
+    rel = _rel_l2(x, serial["x"])
+    X = V.scalar_space.dof_coords
+    tip_of = (lambda u: float(u.reshape(-1, 3)[abs(X[:, 0] - X[:, 0].max())
+                                               < 1e-9, 1].mean()))
+    tip, tip_s = tip_of(x), tip_of(serial["x"])
+    it = solver.last_iterations
+    xt = torch.randn((ls.n_dev, 3, ls.mp[0]) + ls.shape3[1:],
+                     dtype=torch.float64, device=ls.device)
+    block_ms = time_ms(lambda: ls._apply(xt, 0, ls._coef), reps=5, warmup=1)
+    print(f"[lattice-elasticity] cantilever {ls.shape3}, {V.ndof} dofs, "
+          f"{ls.n_dev} shards, {ls.Ls} sharded levels + tail {ls._tail_n}, "
+          f"truncated taps {ls.truncated}: {solver.last_preconditioner}-"
+          f"{solver.last_krylov} {it} iterations to 1e-10 (serial AMG-CG "
+          f"{serial['iterations']}, {serial['seconds']:.2f} s); main() "
+          f"{wall:.2f} s (lattice set-up {tt.get('lattice_setup', 0):.2f} s, "
+          f"solve {tt.get('lattice_krylov', 0):.2f} s, "
+          f"{1e3 * tt.get('lattice_krylov', 0) / max(it, 1):.1f} ms an "
+          f"iteration); the block operator at level 0 {block_ms:.3f} ms (4 a "
+          f"V-cycle at each sharded level, 1 an iteration); tip {tip:.6e} "
+          f"against {tip_s:.6e} (rel {abs(tip - tip_s) / abs(tip_s):.2e}), "
+          f"rel-L2 {rel:.2e} (tol 1e-6)")
+    check(solver.last_preconditioner == "lattice_gmg_vector" and ls.truncated,
+          f"the distributed cantilever ran {solver.last_preconditioner}")
+    check(rel <= 1e-6 and abs(tip - tip_s) <= 1e-6 * abs(tip_s),
+          f"vector lattice against the serial AMG-CG: rel-L2 {rel}, tip "
+          f"{tip} vs {tip_s}")
+    del solver, ls, xt, x
+
+    r = run_elasticity(n_bench, dtype=torch.float32, device=device)
+    check_r = {}
+    for where in (device, "cpu"):
+        c = run_elasticity(n_check, tol=1e-10, dtype=torch.float64,
+                           device=where)
+        check_r[where] = (c["u"].cpu().numpy(), c["iterations"], c["u_max"])
+    (ug, ig, mg), (uc, ic, _) = check_r[device], check_r["cpu"]
+    rel = _rel_l2(ug, uc)
+    print(f"[lattice-elasticity] run_elasticity({n_bench}) f32: {r['ndof']} "
+          f"dofs, {r['iterations']} iterations, rel res {r['relres']:.3e}, "
+          f"umax {r['u_max']:.6e}; set-up {r['setup_s']:.2f} s, assembly "
+          f"{r['assembly_s']:.3f} s, solve {r['solve_s']:.3f} s "
+          f"({1e3 * r['solve_s'] / max(r['iterations'], 1):.2f} ms an "
+          f"iteration); n = {n_check} f64: {ig} iterations on the card, {ic} "
+          f"on the CPU, rel-L2 {rel:.2e} (tol 1e-10)")
+    check(r["ndof"] == 3 * (n_bench + 1) ** 3 and r["relres"] <= 1e-6
+          and np.isfinite(r["u_max"]), f"run_elasticity({n_bench}): {r}")
+    check(abs(r["u_max"] - mg) <= 0.05 * mg,
+          f"umax {r['u_max']} at n = {n_bench} against {mg} at n = {n_check}")
+    check(rel <= 1e-10 and ig == ic, f"run_elasticity({n_check}) card vs CPU: "
+          f"rel-L2 {rel}, iterations {ig} vs {ic}")
 
 
 def measure_amg_setup(device=None, n=N_CANTILEVER):
@@ -5093,6 +5476,7 @@ def main():
     transient = phase_transient(V=V)
     phase_determinism(transient.pop("solver"))
     phase_fast_path(V=V, T_loop=transient.pop("T"))
+    lattice_halo = phase_lattice_halo(V=V, T_serial=steady.pop("T"))
     del V
     phase_advection()
     phase_nonlinear()
@@ -5103,7 +5487,10 @@ def main():
     phase_restart()
     phase_body_source()
     phase_cli()
-    phase_elasticity()
+    elas = phase_elasticity()
+    phase_lattice_elasticity(serial=elas)
+    spmv, spmv_launches = elas["spmv"], elas["spmv_launches"]
+    del elas
     phase_modal()
     phase_amg_scalar()
     phase_wave()
@@ -5127,7 +5514,6 @@ def main():
     phase_amg_halo()
     phase_explicit()
     phase_distributed_fsi()
-    phase_lattice_guard()
     lat = phase_lattice()
     csr = phase_csr()
     k5 = phase_k5()
@@ -5139,10 +5525,13 @@ def main():
                              lat["launches"]["p1_stiffness_sym"]),
         "p1_stiffness": (k34["p1_stiffness"], csr["launches"]["p1_stiffness"]),
         "element_matvec": (k5, shard["launches"]),
+        "csr_spmv": (spmv, spmv_launches),
     }
     kernels = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,
+        "lattice_launches": lattice_halo["launches"].get(name, 0),
+        "lattice_max_abs_err": lattice_halo["max_abs_err"].get(name),
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -31,10 +31,10 @@ stiffness and stencil operator kernels, ``csrc/p1_stiffness.cu``); and the
 cell-sharded matrix-free solver (``parallel/``, ``csrc/element_matvec.cu``)
 and the dof-sharded distributed layer behind
 ``solver_parameters.distributed`` (``parallel/halo.py``, ``amg_halo.py``,
-``explicit.py``; shards from ``config.shard_devices()``).  Every solver
-class of the JAX package is here.  Features not ported yet (the sharded
-lattice GMG of a BoxMesh, ``parallel/lattice.py``) raise
-``NotImplementedError`` naming the module that will bring them.
+``explicit.py``, and on BoxMesh lattices the sharded geometric multigrid
+of ``lattice.py`` with ``la/gmg_elastic.py``; shards from
+``config.shard_devices()``).  Every solver class and every distributed
+route of the JAX package is here.
 """
 
 __version__ = "0.1.0"

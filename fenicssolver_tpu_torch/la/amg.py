@@ -7,10 +7,13 @@ on the host (``la/sparse_algebra``, ``native.aggregate``), the sparse
 products (smoothed prolongator, Galerkin RAP) and the power iterations on
 the hierarchy's device by PyTorch's CSR product (``sparse_algebra.dev_*``).
 The V-cycle runs on the device: every level's operator, prolongator and
-restriction are ``torch.sparse_csr_tensor``s in the hierarchy's dtype, each
-product is PyTorch's CSR product, and the cycle reads nothing back: the
-Chebyshev bounds are Python floats fixed at set-up and the coarse solve is
-one dense product.
+restriction are CSR arrays in the hierarchy's dtype, each product is
+``ops/cuda_kernels.csr_spmv`` (on the card a kernel that sums each row in
+an order fixed by the matrix, so one hierarchy applied twice to one vector
+gives the same bits, as the reference's ``segment_sum``; PyTorch's CSR
+product on the CPU), and the cycle reads nothing back: the Chebyshev
+bounds are Python floats fixed at set-up and the coarse solve is one dense
+product.
 
 Deviation from the reference: its block-ELL level storage and the
 bandwidth-reducing relabelling of the coarse spaces that only serves that
@@ -25,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops import cuda_kernels
 from .sparse import csr_from_scipy, sparse_csr
 
 
@@ -390,12 +394,12 @@ class AMGPreconditioner:
                                 lmin_ratio=1.0 / 30.0)
         lv = self.levels[li]
         x = self._smooth(lv, b, degree=self.presmooth + 1)
-        r = b - lv["A"].matvec(x)
+        r = b - level_matvec(lv["A"], x)
         rc = rect_matvec(lv["R"], r)
         ec = self._vcycle(li + 1, rc)
         x = x + rect_matvec(lv["P"], ec)
         x = x + self._smooth(
-            lv, b - lv["A"].matvec(x), degree=self.postsmooth + 1
+            lv, b - level_matvec(lv["A"], x), degree=self.postsmooth + 1
         )
         return x
 
@@ -416,7 +420,7 @@ class AMGPreconditioner:
         x = d
         rho = 1.0 / sigma
         for _ in range(degree - 1):
-            r = r - A.matvec(d) / l1
+            r = r - level_matvec(A, d) / l1
             rho_new = 1.0 / (2.0 * sigma - rho)
             d = rho_new * rho * d + (2.0 * rho_new / delta) * r
             x = x + d
@@ -426,14 +430,13 @@ class AMGPreconditioner:
 
 class RectCSR:
     """A rectangular CSR matrix on the device (prolongators, restrictions):
-    the index and value tensors and the sparse tensor made of them."""
+    the index and value tensors."""
 
     def __init__(self, indptr, indices, data, shape):
         self.indptr = indptr
         self.indices = indices
         self.data = data
         self.shape = tuple(int(s) for s in shape)
-        self.sparse = sparse_csr(indptr, indices, data, self.shape)
 
 
 def csr_from_scipy_rect(S, device=None, dtype=None):
@@ -453,9 +456,17 @@ def csr_from_scipy_rect(S, device=None, dtype=None):
 
 
 def rect_matvec(M: RectCSR, x):
-    """y = M @ x for a vector or a block of columns (PyTorch's CSR product,
-    where the reference sums segments)."""
-    return M.sparse @ x
+    """y = M @ x for a vector or a block of columns, each row summed in an
+    order fixed by M (``cuda_kernels.csr_spmv``; the reference sums
+    segments)."""
+    return cuda_kernels.csr_spmv(M.indptr, M.indices, M.data, x, M.shape)
+
+
+def level_matvec(A, x):
+    """y = A @ x for a level operator (a ``CSRMatrix``), in the fixed order
+    of ``rect_matvec``."""
+    p = A.pattern
+    return cuda_kernels.csr_spmv(p.indptr, p.indices, A.data, x, A.shape)
 
 
 def rigid_body_modes(coords, vdim):

@@ -126,12 +126,16 @@ def build_gmg(
     omega=0.8,
     dtype=None,
     device=None,
+    identity_on_constrained=True,
 ):
     """Host setup of the level hierarchy; masks and the coarse inverse are
     placed on ``device`` in ``dtype``.
 
     ``free3``: 0/1 fine-lattice mask of unconstrained dofs (default: whole
-    boundary Dirichlet).  Coarse masks are derived by vertex injection."""
+    boundary Dirichlet).  Coarse masks are derived by vertex injection.
+    ``identity_on_constrained=False`` leaves ``fine_free`` None: the cycle
+    then returns zero on constrained dofs (the replicated tail of the
+    sharded lattice solvers, ``parallel/lattice.py``)."""
     from .. import config
 
     device = config.resolve_device(device)
@@ -178,7 +182,9 @@ def build_gmg(
     # rows, whose identity would return it at unit scale (a factor-|A|
     # pollution of the prolongated correction)
     coarse_inv = _as(fr[:, None] * np.linalg.inv(D) * fr[None, :])
-    fine_free = levels[0].free3.reshape(-1) if levels else _as(fr)
+    fine_free = None
+    if identity_on_constrained:
+        fine_free = levels[0].free3.reshape(-1) if levels else _as(fr)
     return GMGData(
         levels=tuple(levels),
         coarse_inv=coarse_inv,

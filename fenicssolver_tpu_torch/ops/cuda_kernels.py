@@ -29,6 +29,13 @@ Kernels (ids of the table in ``PERF.md``):
   matvec ``y_e = A_e x_e`` of the matrix-free operator
   (``parallel/sharding.py``).  Replaces
   ``fenicssolver_tpu/ops/pallas_kernels.py:28``.
+- ``csr_spmv`` (``csrc/csr_spmv.cu``): a CSR matrix times a vector or a
+  block of columns, each row summed in an order fixed by the matrix (a
+  group of ``spmv_lanes`` threads a row and column, a fixed shuffle tree):
+  the products of the AMG
+  V-cycles (``la/amg.py``, ``parallel/amg_halo.py``).  Not a TPU kernel:
+  it repairs F5 (ROADMAP.md), PyTorch's CSR product summing long rows in
+  an order that changes from run to run.
 
 Every kernel takes tensors of fewer than 2^31 elements (raises otherwise).
 """
@@ -59,10 +66,11 @@ LAUNCHES = {
     "p1_stiffness_sym": 0,
     "p1_stiffness": 0,
     "element_matvec": 0,
+    "csr_spmv": 0,
 }
 
 #: the CUDA sources under ``csrc/``, one shared library each
-SOURCES = ("stencil", "p1_stiffness", "element_matvec")
+SOURCES = ("stencil", "p1_stiffness", "element_matvec", "csr_spmv")
 
 #: the element sizes k that K5 is built for (``kBuiltK`` in
 #: ``csrc/element_matvec.cu``; checked when the library loads)
@@ -206,6 +214,21 @@ def _element_matvec_lib():
             f"ELEMENT_MATVEC_K says {ELEMENT_MATVEC_K}"
         )
     _libs["element_matvec"] = lib
+    return lib
+
+
+def _csr_spmv_lib():
+    lib = _libs.get("csr_spmv")
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(build("csr_spmv"))
+    vp = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    for fn in ("fst_csr_spmv_f64", "fst_csr_spmv_f32"):
+        f = getattr(lib, fn)
+        f.restype = ctypes.c_int
+        f.argtypes = [vp, vp, vp, vp, vp, i64, i64, ctypes.c_int, vp]
+    _libs["csr_spmv"] = lib
     return lib
 
 
@@ -597,4 +620,89 @@ def element_matvec(Ae_T, xe_T):
         stream = torch.cuda.current_stream(Ae_T.device).cuda_stream
         rc = fn(Ae_T.data_ptr(), xe_T.data_ptr(), y.data_ptr(), nc, k, stream)
     _launch("element_matvec", rc)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# csr_spmv: fixed-order CSR product (the AMG V-cycles; repairs F5)
+# ---------------------------------------------------------------------------
+
+
+def csr_spmv_reference(indptr, indices, data, x, shape):
+    """Plain PyTorch version of ``csr_spmv``: PyTorch's CSR product."""
+    from ..la.sparse import sparse_csr
+
+    return sparse_csr(indptr, indices, data, tuple(shape)) @ x
+
+
+#: the group sizes ``csr_spmv`` is built for (threads a row)
+SPMV_LANES = (4, 8, 16, 32)
+
+
+def spmv_lanes(nnz, n_rows, cols=1):
+    """The threads a row of ``csr_spmv`` for a matrix of ``nnz`` entries in
+    ``n_rows`` rows times ``cols`` columns: the smallest of ``SPMV_LANES``
+    whose threads sum at least ~8 entries each over the row's columns
+    (``8 * lanes * cols >= nnz / n_rows``), else 32.  On the H100 this was
+    the fastest group at 43.5, 82 and 183 entries a row (the cantilever's
+    AMG level 0 A, P and R), and 4 for a block of 6 columns (PERF.md)."""
+    mean = nnz / max(n_rows, 1)
+    return next((v for v in SPMV_LANES if 8 * v * cols >= mean),
+                SPMV_LANES[-1])
+
+
+def csr_spmv(indptr, indices, data, x, shape, lanes=None):
+    """``y = A @ x`` for the CSR matrix ``A`` (``indptr``, ``indices``,
+    ``data``, ``shape`` = (rows, cols)) and ``x`` a vector (cols,) or a
+    block of columns (cols, m); ``y`` is (rows,) or (rows, m).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    of ``csrc/csr_spmv.cu`` on the current stream, which sums each row in an
+    order fixed by the matrix and the column count (and ``lanes``, the
+    threads a row, by default ``spmv_lanes`` of them), so equal inputs give
+    equal bits.  On the
+    card ``indptr`` and ``indices`` must be int32 and ``data`` of ``x``'s
+    dtype (float32 or float64); ``x`` is made contiguous."""
+    n_rows, n_cols = (int(v) for v in shape)
+    if x.dim() not in (1, 2) or x.shape[0] != n_cols:
+        raise ValueError(
+            f"csr_spmv: x must be ({n_cols},) or ({n_cols}, m), got "
+            f"{tuple(x.shape)}"
+        )
+    if tuple(indptr.shape) != (n_rows + 1,) or indices.shape != data.shape:
+        raise ValueError(
+            f"csr_spmv: indptr must be ({n_rows + 1},) and indices like data, "
+            f"got {tuple(indptr.shape)}, {tuple(indices.shape)}, "
+            f"{tuple(data.shape)}"
+        )
+    m = 1 if x.dim() == 1 else int(x.shape[1])
+    lanes = (spmv_lanes(data.numel(), n_rows, m) if lanes is None
+             else int(lanes))
+    if lanes not in SPMV_LANES:
+        raise ValueError(f"csr_spmv: lanes must be one of {SPMV_LANES}, "
+                         f"not {lanes}")
+    if _device_kind("csr_spmv", x) == "cpu":
+        _check_like("csr_spmv", x, data=data)
+        return csr_spmv_reference(indptr, indices, data, x, shape)
+    x = x.contiguous()
+    _check_like("csr_spmv", x, x=x, data=data)
+    for arg, t in (("indptr", indptr), ("indices", indices)):
+        if t.dtype != torch.int32 or t.device != x.device:
+            raise ValueError(
+                f"csr_spmv: {arg} is {t.dtype} on {t.device}, expected "
+                f"int32 on {x.device}"
+            )
+    if n_rows * m * 32 >= 2**31:
+        raise ValueError("csr_spmv: rows * columns * 32 reaches 2^31")
+    y = torch.empty((n_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device=x.device)
+    if n_rows * m == 0:
+        return y
+    lib = _csr_spmv_lib()
+    fn = lib.fst_csr_spmv_f64 if x.dtype == torch.float64 else lib.fst_csr_spmv_f32
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n_rows, m, lanes, stream)
+    _launch("csr_spmv", rc)
     return y

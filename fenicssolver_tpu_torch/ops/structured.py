@@ -1,6 +1,6 @@
 """Structured-lattice helpers for P1 problems on BoxMesh grids.
 
-Port of ``fenicssolver_tpu/ops/structured.py:22-187,226-243`` (host numpy,
+Port of ``fenicssolver_tpu/ops/structured.py:22-243`` (host numpy,
 unchanged): the 15 Freudenthal stencil offsets and the CSR pattern of the
 P1 stencil on an (Nx, Ny, Nz) vertex lattice, which the geometric multigrid
 (``la/gmg.py``) uses for its coarsest dense operator; and the Kuhn 6-tet
@@ -10,7 +10,10 @@ geometry, which the structured-lattice Poisson path
 BoxMesh (``core/mesh.py``) triangulates the lattice with the Kuhn 6-tet
 pattern, so a P1 space's sparsity is this fixed 15-point monotone-offset
 stencil.  Cells are type-major: 6 blocks of nx*ny*nz congruent tets.
-(``elasticity_stencil_tables`` comes with the elasticity slice.)
+``elasticity_stencil_tables`` gives the vector elasticity counterpart of the
+scalar tables: the 3x3 blocks of the geometric multigrid of
+``la/gmg_elastic.py`` and the slice-add assembly of
+``lattice_poisson.run_elasticity``.
 """
 
 from __future__ import annotations
@@ -183,6 +186,41 @@ def scalar_stencil_tables(nx, ny, nz, extent=(1.0, 1.0, 1.0)):
                 w[t] += vol * float(g[a] @ g[b])
     return [(oi, ca, w) for (oi, ca), w in sorted(groups.items())]
 
+
+def elasticity_stencil_tables(nx, ny, nz, extent=(1.0, 1.0, 1.0)):
+    """Grouped slice-add tables for VECTOR P1 elasticity stencil assembly.
+
+    For each distinct (offset, row-corner) pair, sums the per-type constant
+    element blocks over every (tet type, a, b) entry mapping there:
+
+        Kmu[a,i,b,j]  = V_t (delta_ij g_a.g_b + g_a[j] g_b[i])   [2 mu eps:eps]
+        Klam[a,i,b,j] = V_t g_a[i] g_b[j]                        [lam div div]
+
+    so assembly is  coef[oi,:,:,slice] += mu3*Bmu + lam3*Blam  per group,
+    with no scatters.  Returns a list of (oi, ca, Bmu (3,3), Blam (3,3))."""
+    hx, hy, hz = extent[0] / nx, extent[1] / ny, extent[2] / nz
+    h = np.array([hx, hy, hz])
+    gref = np.array([[-1.0, -1, -1], [1, 0, 0], [0, 1, 0], [0, 0, 1]])
+    groups = {}
+    for t, path in enumerate(TET_PATHS):
+        X = np.array(path, dtype=np.float64) * h
+        J = (X[1:] - X[:1]).T
+        vol = abs(np.linalg.det(J)) / 6.0
+        g = gref @ np.linalg.inv(J)  # (4, 3) physical gradients
+        for a in range(4):
+            ca = np.array(path[a])
+            for b in range(4):
+                o = np.array(path[b]) - ca
+                oi = int(np.nonzero((OFFSETS == o).all(axis=1))[0][0])
+                key = (oi, tuple(int(x) for x in ca))
+                Bmu, Blam = groups.setdefault(
+                    key, (np.zeros((3, 3)), np.zeros((3, 3)))
+                )
+                gab = float(g[a] @ g[b])
+                Bmu += vol * (gab * np.eye(3) + np.outer(g[b], g[a]))
+                Blam += vol * np.outer(g[a], g[b])
+    return [(oi, ca, Bmu, Blam) for (oi, ca), (Bmu, Blam) in
+            sorted(groups.items())]
 
 def box_tet_geometry(nx, ny, nz, extent=(1.0, 1.0, 1.0), dtype=np.float32):
     """Per-cell (Jinv, detJ) for BoxMesh without per-cell linear algebra.

@@ -25,8 +25,10 @@ owned-only convention.  The reference's ``build_vcycle`` (the closure a
 ``shard_map`` program embeds) is the method ``HaloAMGSolver.vcycle`` here,
 which the NS fieldsplit calls directly.  As in ``parallel/halo.py``, the shards of one
 process are stacked on one device and each level's local operators are
-block-diagonal ``torch.sparse_csr_tensor``s (the reference's padded COO
-``segment_sum``).
+block-diagonal CSR arrays (``la/amg.RectCSR``), multiplied by
+``la/amg.rect_matvec``: each row summed in an order fixed by the matrix,
+as the reference's padded COO ``segment_sum``, so the sharded V-cycle
+repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 
 from .. import config
 from ..la import krylov
+from ..la.amg import RectCSR, rect_matvec
 from ..la.sparse import sparse_csr
 from .halo import (
     _Layout,
@@ -93,8 +96,8 @@ def build_sa_hierarchy(A, B, theta=0.08, max_levels=10, coarse_size=600,
 def _local_csr(M, rows_lay, row_ids, cols_lay, device, dtype):
     """The shards' row blocks of the host matrix ``M`` (rows ``row_ids[r]``
     of rank r, in order, at ``rows_lay``'s owned slots; columns at
-    ``cols_lay``'s local slots) as one block-diagonal sparse CSR tensor.
-    Returns (the tensor, the nnz gather of M's values)."""
+    ``cols_lay``'s local slots) as one block-diagonal ``RectCSR``.
+    Returns (the matrix, the nnz gather of M's values)."""
     nd = rows_lay.n_dev
     counts_flat = np.zeros(nd * rows_lay.Lp, dtype=np.int64)
     takes, cols = [], []
@@ -106,14 +109,15 @@ def _local_csr(M, rows_lay, row_ids, cols_lay, device, dtype):
     take = np.concatenate(takes)
     crow = np.zeros(len(counts_flat) + 1, dtype=np.int64)
     np.cumsum(counts_flat, out=crow[1:])
-    itype = torch.int32 if len(take) < 2**31 else torch.int64
+    if len(take) >= 2**31:
+        raise ValueError("a level's row blocks hold 2^31 or more entries")
     vals = torch.as_tensor(np.asarray(M.data, np.float64)[take],
                            device=device).to(dtype)
     shape = (nd * rows_lay.Lp, nd * cols_lay.Lp)
-    return sparse_csr(torch.as_tensor(crow, device=device).to(itype),
-                      torch.as_tensor(np.concatenate(cols),
-                                      device=device).to(itype),
-                      vals, shape), take
+    return RectCSR(torch.as_tensor(crow.astype(np.int32), device=device),
+                   torch.as_tensor(np.concatenate(cols).astype(np.int32),
+                                   device=device),
+                   vals, shape), take
 
 
 class HaloAMGSolver:
@@ -240,7 +244,7 @@ class HaloAMGSolver:
 
     # -- the V-cycle ------------------------------------------------------
     def _matvec(self, li, x):
-        return self._ops[li]["A"] @ self._lay[li].exchange(x)
+        return rect_matvec(self._ops[li]["A"], self._lay[li].exchange(x))
 
     def _smooth(self, li, b, degree):
         """l1-Chebyshev, x0 = 0, interval [lam/4, lam] (owned-only in and
@@ -278,9 +282,9 @@ class HaloAMGSolver:
         ops = self._ops[li]
         x = self._smooth(li, b, self.presmooth + 1)
         r = b - self._matvec(li, x)
-        rc = ops["R"] @ self._lay[li].exchange(r)
+        rc = rect_matvec(ops["R"], self._lay[li].exchange(r))
         ec = self._vcycle_at(li + 1, rc)
-        x = x + ops["P"] @ self._lay[li + 1].exchange(ec)
+        x = x + rect_matvec(ops["P"], self._lay[li + 1].exchange(ec))
         return x + self._smooth(li, b - self._matvec(li, x),
                                 self.postsmooth + 1)
 
@@ -302,8 +306,8 @@ class HaloAMGSolver:
         self._A_full = sparse_csr(full.crow_indices(), full.col_indices(),
                                   data, full.shape)
         A0 = self._ops[0]["A"]
-        self._ops[0]["A"] = sparse_csr(A0.crow_indices(), A0.col_indices(),
-                                       data[self._take0], A0.shape)
+        self._ops[0]["A"] = RectCSR(A0.indptr, A0.indices, data[self._take0],
+                                    A0.shape)
 
     def solve(self, b, u_bc=None, method="cg", tol=1e-10, maxiter=500,
               restart=80):

@@ -27,13 +27,16 @@ dolfin XML, HDF5 and XDMF files.  ``spmv: "bell"`` (the reference's
 default, a block-ELL layout) maps to the CSR matvec, in the AMG levels too.
 
 ``solver_parameters.distributed`` (reference ``:762-1331``) shards over
-``config.shard_devices()``: SPD systems by the sharded AMG-CG
-(``_halo_amg_solve``, falling back to the Jacobi halo CG), the others by the
-halo BiCGStab then GMRES(80), ``"element"`` by the element-sharded assembly
-and halo CG, Newton updates by the sharded AMG Krylov.  With one shard each
-route logs the reference's warning and solves serially.  On a BoxMesh
-lattice with a P1 space the reference's route is the sharded lattice GMG,
-which is not ported: that case raises, naming ``parallel/lattice.py``.
+``config.shard_devices()``: SPD systems on a BoxMesh lattice with a P1
+space (scalar, or the 3-D vector of elasticity) by the sharded lattice
+GMG-CG (``parallel/lattice.py``: slabs, or pencils with
+``distributed: "pencil"``; ``last_preconditioner`` "lattice_gmg" or
+"lattice_gmg_vector"), the other SPD systems, and a lattice too small to
+shard, by the sharded AMG-CG (``_halo_amg_solve``, falling back to the
+Jacobi halo CG), the others by the halo BiCGStab then GMRES(80),
+``"element"`` by the element-sharded assembly and halo CG, Newton updates
+by the sharded AMG Krylov.  With one shard each route logs the reference's
+warning and solves serially.
 
 Deviations from the reference's time loop: a saved step carries the time
 its field belongs to (the end of the step; the reference's loop writes the
@@ -82,13 +85,6 @@ default_solver_parameters = {
     "maximum_iterations": 500,
     "monitor_convergence": True,
 }
-
-
-def not_ported(what, module):
-    return NotImplementedError(
-        f"{what} is not ported to fenicssolver_tpu_torch yet; it comes with "
-        f"{module} (see ROADMAP.md)"
-    )
 
 
 class SolverBase:
@@ -570,20 +566,63 @@ class SolverBase:
         self.logger.warning(warning)
         return False
 
-    def _check_lattice(self):
-        """The reference's sharded lattice GMG (``parallel/lattice.py``,
-        ``solver_base.py:870-945``) is the SPD route on a BoxMesh lattice
-        with a scalar P1 space or the 3-D vector P1 of elasticity; it is not
-        ported yet, so that case raises rather than take another route."""
+    def _lattice_solve(self, A, b, free, ubc, sp):
+        """The distributed SPD solve of a BoxMesh lattice with a P1 space
+        (reference ``:870-945``): the sharded lattice GMG-CG of
+        ``parallel/lattice.py``, scalar (slabs, or pencils with
+        ``distributed: "pencil"``) or the 3-D vector of elasticity with the
+        solver's Lame parameters; cached as ``_lattice_halo_solver`` and
+        refreshed by ``update_operator`` on the next assembly.  Returns
+        (x, iterations), or None when the case is not a lattice or the
+        lattice is too small to shard (the reference's ``ValueError``
+        branch, here ``LatticeTooSmall`` from the set-up only, logged as a
+        warning: the caller takes ``_halo_amg_solve``)."""
+        from ..parallel.lattice import (
+            LatticeHaloSolver,
+            LatticeHaloVectorSolver,
+            LatticePencilSolver,
+            LatticeTooSmall,
+        )
+
         V = self.function_space
-        if (getattr(self.mesh, "lattice_info", None) is not None
-                and V.degree == 1 and V.family == "CG"
-                and (type(V) is FunctionSpace
-                     or (isinstance(V, VectorFunctionSpace) and V.vdim == 3
-                         and callable(getattr(self, "lame_parameters", None))))):
-            raise not_ported(
-                "the distributed solve of a BoxMesh lattice, the sharded "
-                "lattice GMG-CG,", "parallel/lattice.py")
+        info = getattr(self.mesh, "lattice_info", None)
+        lame = getattr(self, "lame_parameters", None)
+        scalar = type(V) is FunctionSpace
+        if not (info is not None and V.degree == 1 and V.family == "CG"
+                and (scalar or (isinstance(V, VectorFunctionSpace)
+                                and V.vdim == 3 and callable(lame)))):
+            return None
+        devices = config.shard_devices()
+        ls = getattr(self, "_lattice_halo_solver", None)
+        if ls is None:
+            try:
+                with self.timers.phase("lattice_setup"):
+                    if not scalar:
+                        mu, lam = lame()
+                        ls = LatticeHaloVectorSolver(A, info, mu, lam,
+                                                     devices=devices)
+                    elif sp.get("distributed") == "pencil":
+                        ls = LatticePencilSolver(A, info, devices=devices)
+                    else:
+                        ls = LatticeHaloSolver(A, info, devices=devices)
+            except LatticeTooSmall as e:  # the reference's own branch
+                self.logger.warning("lattice halo solver unavailable (%s); "
+                                    "using the sharded AMG-CG", e)
+                return None
+            self._lattice_halo_solver = ls
+        else:
+            ls.update_operator(A)
+        with self.timers.phase("lattice_krylov"):
+            x, it = ls.solve(b, free, ubc,
+                             tol=sp.get("relative_tolerance", 1e-8),
+                             maxiter=sp.get("maximum_iterations", 2000))
+        self.last_preconditioner = ("lattice_gmg" if scalar
+                                    else "lattice_gmg_vector")
+        self.last_krylov = "CG"
+        self.last_relres = ls.last_relres
+        if sp.get("monitor_convergence"):
+            self.logger.info("lattice halo GMG-CG: %d iters", it)
+        return x, it
 
     def _halo_amg_solve(self, A, b, free, ubc, tol, maxiter, spd=True):
         """Distributed solve of an assembled system (reference ``:762-830``):
@@ -727,12 +766,13 @@ class SolverBase:
             free[slaves] = 0.0
             ubc[slaves] = 0.0
         # distributed (reference ``:860-990``): SPD systems by the sharded
-        # AMG-CG (the lattice GMG on a BoxMesh raises, not ported), the
-        # others by halo BiCGStab then GMRES(80); one shard: serial
+        # lattice GMG-CG on a BoxMesh P1 space, else by the sharded
+        # AMG-CG, the others by halo BiCGStab then GMRES(80); one shard:
+        # serial
         if pinfo is None and self._sharded(sp):
             if spd:
-                self._check_lattice()
-                x, it = self._halo_amg_solve(
+                out = self._lattice_solve(A, b, free, ubc, sp)
+                x, it = out if out is not None else self._halo_amg_solve(
                     A, b, free, ubc, sp.get("relative_tolerance", 1e-8),
                     sp.get("maximum_iterations", 2000), spd=True)
             else:

@@ -11,9 +11,9 @@ JAX package's on the CPU in f64, the port on 8 shards of ``cpu``
   (1e-12) and bit-equal to the port's serial march;
 - F4: with one shard every route logs the reference's warning and equals
   the serial solve bit for bit (Newton, the compressible march);
-- a BoxMesh lattice with a P1 space and 8 shards raises, naming
-  ``parallel/lattice.py`` (the reference's sharded lattice GMG, not
-  ported).
+- vector P1 elasticity on a BoxMesh lattice with 8 shards takes the
+  sharded vector lattice GMG (``parallel/lattice.py``) and equals the
+  serial solve (1e-8; the lattice CG stops at 1e-12).
 
 The NS, DG-NS and R2 routes are in tests/test_torch_distributed_ns.py; the
 distributed FSI run in tests/test_torch_fsi.py (against its JAX runs)."""
@@ -121,19 +121,32 @@ def test_one_shard_warns_and_solves_serially(case, monkeypatch, caplog):
 
 
 def test_lattice_with_more_than_one_shard_raises(monkeypatch):
-    """3-D vector P1 elasticity on a BoxMesh, ``distributed: True``, 8
-    shards: the reference's route is the sharded vector lattice GMG."""
+    """3-D vector P1 elasticity on a BoxMesh (a beam clamped at x = 0, free
+    elsewhere), ``distributed: True``, 8 shards: the reference's route, the
+    sharded vector lattice GMG with its truncated-tap hierarchy, runs (it
+    raised until the lattice was ported) and equals the serial solve."""
+    from fenicssolver_tpu_torch.parallel.lattice import LatticeHaloVectorSolver
     from fenicssolver_tpu_torch.solvers.linear_elasticity import (
         LinearElasticitySolver,
     )
     from tests.test_linear_elasticity import solver_settings
 
-    mesh = tcore.BoxMesh(tcore.Point(0, 0, 0), tcore.Point(4, 1, 1), 4, 2, 2)
+    mesh = tcore.BoxMesh(tcore.Point(0, 0, 0), tcore.Point(4, 1, 1), 16, 4, 4)
     V = tcore.VectorFunctionSpace(mesh, "CG", 1)
     bcs = {"fixed": {"boundary": tcore.AutoSubDomain(
         lambda x: tcore.near(x[0], 0.0)), "boundary_id": 1,
         "type": "Dirichlet", "value": tcore.Constant((0, 0, 0))}}
-    s = _distributed(solver_settings(V, bcs))
+    def settings():
+        s = solver_settings(V, bcs)
+        s["body_source"] = (0.0, 0.0, -9.8e3)
+        return s
+
+    monkeypatch.delenv("FST_SHARDS", raising=False)
+    serial = LinearElasticitySolver(settings()).solve().values
     monkeypatch.setenv("FST_SHARDS", "8")
-    with pytest.raises(NotImplementedError, match="parallel/lattice.py"):
-        LinearElasticitySolver(s).solve()
+    solver = LinearElasticitySolver(_distributed(settings()))
+    dist = solver.solve().values
+    assert isinstance(solver._lattice_halo_solver, LatticeHaloVectorSolver)
+    assert solver._lattice_halo_solver.truncated
+    assert solver.last_preconditioner == "lattice_gmg_vector"
+    assert _rel(dist, serial) < 1e-8

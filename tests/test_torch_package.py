@@ -52,11 +52,13 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.parallel.halo",
     "fenicssolver_tpu_torch.parallel.amg_halo",
     "fenicssolver_tpu_torch.parallel.explicit",
+    "fenicssolver_tpu_torch.parallel.lattice",
     "fenicssolver_tpu_torch.la.sparse",
     "fenicssolver_tpu_torch.la.direct",
     "fenicssolver_tpu_torch.la.krylov",
     "fenicssolver_tpu_torch.la.newton",
     "fenicssolver_tpu_torch.la.gmg",
+    "fenicssolver_tpu_torch.la.gmg_elastic",
     "fenicssolver_tpu_torch.utils.timers",
     "fenicssolver_tpu_torch.solvers.solver_base",
     "fenicssolver_tpu_torch.solvers.scalar_transport",
@@ -290,8 +292,9 @@ def test_unported_features_raise(change, monkeypatch, caplog):
     """A restart file is read by io/checkpoint.py, which takes ``.npz``
     files only.  ``distributed`` (F4): with one shard the solve logs the
     reference's warning and equals the serial solve; with 8 shards on a
-    BoxMesh lattice (the reference's sharded lattice GMG, not ported) it
-    raises, naming parallel/lattice.py."""
+    BoxMesh lattice it takes the reference's route, the sharded lattice GMG
+    (``parallel/lattice.py``; it raised until that was ported), and equals
+    the serial solve (1e-9; both stop at 1e-10)."""
     import logging
 
     import numpy as np
@@ -312,11 +315,17 @@ def test_unported_features_raise(change, monkeypatch, caplog):
         dist = ScalarTransportSolver(s).solve().values
     assert "only one device is visible" in caplog.text
     assert np.array_equal(dist, serial)
+    cube = FunctionSpace(UnitCubeMesh(16, 16, 16), "CG", 1)
+    s = _feature_settings("none")
+    s["function_space"], s["body_source"] = cube, 1000.0
+    serial = ScalarTransportSolver(s).solve().values
     s = _feature_settings(change)
-    s["function_space"] = FunctionSpace(UnitCubeMesh(2, 2, 2), "CG", 1)
+    s["function_space"], s["body_source"] = cube, 1000.0
     monkeypatch.setenv("FST_SHARDS", "8")
-    with pytest.raises(NotImplementedError, match="parallel/lattice.py"):
-        ScalarTransportSolver(s).solve()
+    solver = ScalarTransportSolver(s)
+    dist = solver.solve().values
+    assert solver.last_preconditioner == "lattice_gmg"
+    assert np.linalg.norm(dist - serial) / np.linalg.norm(serial) < 1e-9
 
 
 @pytest.mark.parametrize(
@@ -475,14 +484,18 @@ def test_remaining_errors_name_modules_that_are_still_missing():
     """No ``NotImplementedError`` names a module that the port now has, and
     each one left names a module of the reference that the port lacks."""
     pairs = _raised_module_names()
-    # solver_base.py's distributed BoxMesh route (parallel/lattice.py)
-    assert ("solver_base.py", "parallel/lattice.py") in pairs
+    # solver_base.py's distributed BoxMesh route raised naming
+    # parallel/lattice.py until the sharded lattice GMG was ported
+    assert ("solver_base.py", "parallel/lattice.py") not in pairs
+    for module in ("parallel/lattice.py", "la/gmg_elastic.py"):
+        assert os.path.exists(os.path.join(PKG, module)), module
     ref = os.path.join(REPO, "fenicssolver_tpu")
     for fn, module in pairs:
         assert os.path.exists(os.path.join(ref, module)), (fn, module)
         assert not os.path.exists(os.path.join(PKG, module)), (fn, module)
     waiting = {m for _, m in pairs}
     assert not waiting & {"parallel/", "parallel/halo.py",
+                          "parallel/lattice.py", "la/gmg_elastic.py",
                           "parallel/amg_halo.py", "parallel/explicit.py",
                           "io/meshio.py"}
     assert not waiting & {"la/amg.py", "la/lobpcg.py", "core/spaces.py",
