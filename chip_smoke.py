@@ -20,7 +20,10 @@ non-zero and no result line is printed):
    at 129^3 with CUDA events, L2 flushed and warm, beside its bound and
    ``F.conv3d`` (the unmasked apply, the library yardstick);
 4. K1 (``stencil_apply_var``) likewise with random tap fields (no single
-   PyTorch call computes it);
+   PyTorch call computes it); K1's bf16-storage instance
+   (``stencil_apply_var_bf16``) over the same shapes and masks, every
+   output within one bf16 ulp of its plain version, timed at 129^3 beside
+   the f32 K1 on the same values;
 5. K3 (``p1_stiffness_sym``) and K4 (``p1_stiffness``) likewise at
    6 * 128^3 = 12,582,912 cells with random well-conditioned Jacobians,
    K4 also with the 2-D reference gradients (k = 3);
@@ -48,7 +51,7 @@ non-zero and no result line is printed):
    products are bit-equal;
 6b''. fast path: ``fast_paths.compile_transient_heat`` on the same settings,
    three steps (``T_final`` against the time loop's third step to 1e-7, the
-   CN decay) and twenty (seconds a step), Jacobi-PCG iterations a step;
+   CN decay) and ten (seconds a step), Jacobi-PCG iterations a step;
 6c. SUPG advection at n = 48 (BiCGStab, or GMRES after a breakdown) against
    the exact exponential profile to 1e-3; its iteration count is the same
    in every call of this script (the sums of assembly have a fixed order);
@@ -88,7 +91,12 @@ non-zero and no result line is printed):
    applied twice is bit-equal and a second CG solve takes main()'s count to
    the same bits; ``csr_spmv`` (its launches counted in main()) against
    cuSPARSE on the hierarchy's level 0 (A, a block of 6 columns, R, P) and
-   timed on A; the same CG to 1e-10 for 8h;
+   timed on A; the same CG to 1e-10 for 8h.  Before it, F5's set-up part
+   ([amg-setup-repeat]): the cantilever's set-up at 160 x 16 x 16 (139,587
+   dofs) in this process and in another at the same time gives the same
+   bits in every step (strength graph, aggregates, tentative prolongator,
+   D^-1 A, power estimates, the products) and every level's arrays, and
+   the two AMG-CG solves the same count and bits;
 8c. modal: ``solve_modal(6)`` of a clamped P1 beam at 41,904 dofs; the
    recorded backend must be ``lobpcg`` (LOBPCG with the AMG V-cycle on the
    card), the frequencies within 1e-4 of scipy's shift-invert ``eigsh`` on
@@ -107,8 +115,8 @@ non-zero and no result line is printed):
    chunk; at 4^3 the card against the CPU to 1e-9); the contact cases of
    examples/test_contact_mechanics.py (a plane at 64 x 64 for two penalties:
    force balance, the forces within 2%, the penetration ratio; the ball at
-   24 x 24); the J2 bar of tests/test_plasticity.py at ``UnitCubeMesh(32)``
-   (107,811 dofs, every quadrature point's sigma_xx within 1e-6 of the
+   24 x 24); the J2 bar of tests/test_plasticity.py at ``UnitCubeMesh(24)``
+   (46,875 dofs, every quadrature point's sigma_xx within 1e-6 of the
    bilinear law at every load step, alpha frozen while unloading); the
    large-deformation beam at 128 x 16 for nu = 0.3 and 0.5 (and at n = 16
    the card against the CPU to 1e-9); the elastodynamics fast path against
@@ -121,8 +129,10 @@ non-zero and no result line is printed):
    device: ``NSDGSolver`` on the DG2/DG1 channel of
    examples/test_dg_flow.py at 64 x 64 (122,880 dofs) by ``fieldsplit``
    with the DG p-multigrid present (``check_dg_fieldsplit``), exact to
-   1e-8, two solves of one system bit-equal, the 3-D Couette duct at 8^3
-   (104,448 dofs), the transient start-up against the CPU (1e-9);
+   1e-8, two solves of one system bit-equal, the 3-D Couette duct at 6^3
+   and 8^3 (104,448 dofs) with its peak device memory by part (each
+   Jacobian term, the residual, ``_build_pmg``, FGMRES), the transient
+   start-up against the CPU (1e-9);
    ``CompressibleNSSolver`` on the acoustic pulse of
    examples/test_compressible_flow.py at 1024^2 (1,050,625 nodes; mass and
    energy to 1e-12, the front within 10% of c t), Sod's tube at n = 400,
@@ -142,7 +152,8 @@ non-zero and no result line is printed):
    within 15%), the distributed Newton of the twist; the sharded acoustic
    pulse at 256^2 (1e-12); the FSI cantilever x4 (tip 1e-8); F5: the
    serial and sharded AMG hierarchies applied twice bit-equal, a second
-   solve with each the same count;
+   solve with each the same count, a second sharded set-up bit-equal on
+   every level with the same count;
 8h. the sharded lattice GMG (``parallel/lattice.py``) on the same 8 shards,
    f64, rtol 1e-10, right after the fast path: the dry run's lattice
    Poisson at n = 128 (slabs), 64 (two axes) and 96 (2 x 4 pencils), each
@@ -159,6 +170,17 @@ non-zero and no result line is printed):
    ``bench.py``'s structured-lattice Poisson solve, 2,146,689 dofs, K3
    assembly, K1 operator, GMG-CG to 1e-6) in f32 and f64, held to the
    same-size CPU mirror's u_max; the three assembly modes' fields agree;
+9b. ``bench.py``'s last two paths: ``run_stencil(128, bf16=True)`` (the
+    bf16 refinement solve: bf16 tap fields and PCG carries, K1's bf16
+    instance, the f32 V-cycle and an f32 refinement on the true residual)
+    against ``run_stencil(128)`` in f32 (u_max within 1e-3, the bench's
+    rule; passes, residual, solve seconds and their ratio; K1-bf16 on the
+    solver's own fields within one bf16 ulp); ``run_unstructured(100)``
+    (P1 Poisson on the perturbed tets, 1,030,301 dofs, SA-AMG PCG in f32,
+    every product ``csr_spmv``) to res 1e-6: set-up by step, levels,
+    seconds, launches, the idle share of a PCG iteration, ``csr_spmv``
+    against cuSPARSE on every level's A, R and P in f32, and at n = 12 the
+    card against the CPU;
 10. CSR path: ``lattice_poisson.run_csr(96)`` (K4 assembly into CSR)
     against ``run_stencil(96)``, in f64: K4's f32 element matrices lose the
     exact zero row sums that K3's packing keeps, which moves the f32
@@ -181,8 +203,10 @@ heat path, whose launches the record counts),
 K1 (all-Dirichlet mask) and K3 f32 (the lattice path, in the bench's
 dtype), K4 f64 (the CSR path), K5 f64 at k = 4 (the sharded Poisson path),
 ``csr_spmv`` f64 on the cantilever's AMG level 0 (its launches: the
-elasticity ``main()``).  ``lattice_launches`` counts K1 and K2 in the
-lattice runs of 8h.
+elasticity ``main()``), K1-bf16 at 129^3 all-Dirichlet (its launches: the
+bf16 refinement solve).  ``lattice_launches`` counts K1 and K2 in the
+lattice runs of 8h, ``bench_bf16_launches`` and
+``bench_unstructured_launches`` each kernel in the runs of 9b.
 ``ms``, ``plain_ms`` and ``library_ms`` are medians with the L2 flushed
 before each run; ``bound_ms`` is the larger of the modelled bytes (each
 input read once, each output written once: ``k1_bytes`` .. ``k5_bytes``)
@@ -230,6 +254,9 @@ STENCIL_SHAPES = ((129, 129, 129), (65, 65, 65), (33, 33, 33), (17, 17, 17),
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "stencil_apply_var": ("fenicssolver_tpu_torch/csrc/stencil.cu",
                           "fenicssolver_tpu/ops/pallas_kernels.py:308"),
+    # K1's bf16-storage instance: the bench's bf16 refinement solve
+    "stencil_apply_var_bf16": ("fenicssolver_tpu_torch/csrc/stencil.cu",
+                               "fenicssolver_tpu/ops/pallas_kernels.py:308"),
     "stencil_apply_const": ("fenicssolver_tpu_torch/csrc/stencil.cu",
                             "fenicssolver_tpu/ops/pallas_kernels.py:363"),
     "p1_stiffness_sym": ("fenicssolver_tpu_torch/csrc/p1_stiffness.cu",
@@ -394,9 +421,15 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    cpu = "unknown"
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            cpu = next((line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("model name")), cpu)
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s), "
-          f"using {torch.cuda.get_device_name(0)}")
+          f"using {torch.cuda.get_device_name(0)}; host CPU {cpu}, "
+          f"{os.cpu_count()} cores")
     return card
 
 
@@ -674,6 +707,96 @@ def time_k1(device="cuda", n=N_MAIN):
     return out
 
 
+def k1_bf16_bytes(shape):
+    """K1 with bf16 storage: the 15 tap fields, x and the mask read, y
+    written, 2 B each."""
+    return (15 + 3) * math.prod(shape) * 2
+
+
+def k1_bf16_flops(shape):
+    """The masked K1's operations and the identity rows: 1 - f, its product
+    with x and the sum, per vertex (all f32)."""
+    return stencil_flops(shape) + 3 * math.prod(shape)
+
+
+def bf16_ulps(y, ref):
+    """The largest |y - ref| over one bf16 ulp of ``ref`` (the spacing of
+    bf16 values at |ref|, normal range)."""
+    import torch
+
+    r = ref.float().abs().clamp(min=2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(r)) - 7)
+    return float(((y.float() - ref.float()).abs() / ulp).max())
+
+
+def _bf16_operands(shape, device, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal(shape), device=device)
+    c = torch.as_tensor(rng.standard_normal((15,) + shape), device=device)
+    return x.to(torch.bfloat16), c.to(torch.bfloat16)
+
+
+def phase_k1_bf16(device="cuda", shapes=STENCIL_SHAPES, n=N_MAIN):
+    """K1's bf16-storage instance (``stencil_apply_var_bf16``) against its
+    plain version over ``STENCIL_SHAPES``, each mask of ``stencil_masks``
+    (all ones for "no mask": the instance is masked), random bf16 taps and
+    x, and a misaligned x: every output within one bf16 ulp of the plain
+    version's (both sum in f32 in one order; only the FMA contraction
+    differs).  Then timed at (n + 1)^3 all-Dirichlet beside the f32 K1 on
+    the same values (no single PyTorch call computes it).  Returns the
+    timed dict with ``max_abs_err``, ``max_ulps`` and ``f32_ms``."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    bf16 = torch.bfloat16
+    worst_ulps, worst_err = 0.0, 0.0
+    for shape in shapes:
+        x, c = _bf16_operands(shape, device, sum(shape) + 2)
+        ulps = []
+        for mname, m_np in stencil_masks(shape, seed=sum(shape)):
+            f = torch.as_tensor(np.ones(shape) if m_np is None else m_np,
+                                device=device).to(bf16)
+            for what, xk in (("", x), (" misaligned", _misaligned(x))):
+                y_p = cuda_kernels.stencil_apply_var_bf16_reference(x, c, f)
+                y_k = cuda_kernels.stencil_apply_var_bf16(xk, c, f)
+                torch.cuda.synchronize()
+                u = bf16_ulps(y_k, y_p)
+                worst_ulps = max(worst_ulps, u)
+                worst_err = max(worst_err,
+                                float((y_k.float() - y_p.float()).abs().max()))
+                check(u <= 1.0, f"k1-bf16 {mname}{what} {shape}: {u} bf16 "
+                      "ulps from the plain version")
+                ulps.append(f"{mname}{what} {u:.2f}")
+        plan = cuda_kernels.stencil_plan(x, f, c)
+        print(f"[k1-bf16] {shape}: bf16 ulps from the plain version "
+              f"{', '.join(ulps)} (tol 1); {plan_text(plan)}")
+        del x, c, f
+    shape = (n + 1,) * 3
+    x, c = _bf16_operands(shape, device, 3)
+    f = torch.as_tensor(dict(stencil_masks(shape))["all-dirichlet"],
+                        device=device).to(bf16)
+    t = _timed("k1-bf16", f"bf16 all-dirichlet {shape}",
+               lambda: cuda_kernels.stencil_apply_var_bf16(x, c, f),
+               lambda: cuda_kernels.stencil_apply_var_bf16_reference(x, c, f),
+               k1_bf16_bytes(shape), k1_bf16_flops(shape), "float32")
+    x32, c32, f32 = x.float(), c.float(), f.float()
+    f32_ms = time_ms(lambda: cuda_kernels.stencil_apply_var(x32, c32, f32),
+                     flush=True)
+    print(f"[k1-bf16] {shape}: the f32 K1 on the same values {f32_ms:.4f} ms "
+          f"flushed ({k1_bytes(shape, 4):,} B); bf16 / f32 time "
+          f"{t['ms'] / f32_ms:.3f}; max {worst_ulps:.2f} bf16 ulps over the "
+          "sweep")
+    t.update(max_abs_err=worst_err, max_ulps=worst_ulps, f32_ms=f32_ms,
+             library_ms=None, library_kernel_ms=None,
+             library_case="none: the taps differ at each vertex")
+    return t
+
+
 def _compare(tag, what, kernel, plain, nbytes, flops, dtype_name, tol,
              library=False, library_case=None):
     """Kernel against plain version on the same inputs, then ``_timed``;
@@ -861,6 +984,161 @@ def phase_lattice(device="cuda", n=N_MAIN):
               f"b3 rel {rel_b:.3e} (tol 1e-5)")
         check(rel_c <= 1e-5 and rel_b <= 1e-5, f"assembly {m} vs sym")
     return {"launches": launches}
+
+
+def phase_bench_bf16(device="cuda", n=N_MAIN):
+    """``bench.py``'s bf16 refinement solve: ``run_stencil(n)`` in f32, then
+    ``run_stencil(n, bf16=True)`` (the launch counts reset just before it
+    and read just after), each twice (the second timed); the bf16 u_max
+    within 1e-3 of the f32 one (the bench's rule), K1's bf16 instance and
+    the f32 K1 and K2 launched; the bench's own variant, its inner iterate
+    stored in bf16 (``bf16_iterate=True``, R15), once, printed beside it;
+    then K1-bf16 against its plain version on the solver's own fields: the
+    assembled taps in bf16, the Dirichlet shell, the bf16 solution as x (a
+    smooth field: the taps cancel), within one bf16 ulp.  Returns the bf16
+    run's launch counts."""
+    import torch
+
+    from fenicssolver_tpu_torch.lattice_poisson import run_stencil
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.ops.stencil_assembly import (
+        assemble_stencil,
+        box_geometry,
+    )
+
+    f32 = torch.float32
+    r32 = run_stencil(n, dtype=f32, device=device)
+    cuda_kernels.reset_launch_counts()
+    rbf = run_stencil(n, bf16=True, device=device)
+    launches = dict(cuda_kernels.LAUNCHES)
+    r32b = run_stencil(n, dtype=f32, device=device)
+    rbfb = run_stencil(n, bf16=True, device=device)
+    ref = run_stencil(n, bf16=True, bf16_iterate=True, device=device)
+    rel = abs(rbf["u_max"] - r32["u_max"]) / abs(r32["u_max"])
+    rel_ref = abs(ref["u_max"] - r32["u_max"]) / abs(r32["u_max"])
+    ratio = rbfb["solve_s"] / r32b["solve_s"]
+    print(f"[bench-bf16] run_stencil({n}, bf16=True): {rbf['ndof']} dofs, "
+          f"{rbf['passes']} refinement passes x {rbf['inner_iters']} bf16 PCG "
+          f"iterations = {rbf['iterations']}, true f32 rel residual "
+          f"{rbf['relres']:.3e}, u_max {rbf['u_max']:.10f} against f32's "
+          f"{r32['u_max']:.10f} (rel {rel:.2e}, tol 1e-3; f32 "
+          f"{r32['iterations']} CG iterations, rel residual "
+          f"{r32['relres']:.3e})")
+    print(f"[bench-bf16] solve: bf16 {rbf['solve_s'] * 1e3:.2f} ms, then "
+          f"{rbfb['solve_s'] * 1e3:.2f} ms; f32 {r32['solve_s'] * 1e3:.2f} ms, "
+          f"then {r32b['solve_s'] * 1e3:.2f} ms; bf16 / f32 (the second runs) "
+          f"{ratio:.3f}; assembly bf16 {rbfb['assembly_s'] * 1e3:.2f} ms, f32 "
+          f"{r32b['assembly_s'] * 1e3:.2f} ms; launches {launches}")
+    print(f"[bench-bf16] the bench's variant (its inner iterate in bf16, "
+          f"R15): {ref['passes']} passes, true f32 rel residual "
+          f"{ref['relres']:.3e}, u_max rel {rel_ref:.2e} from f32's (the "
+          f"bench's rule: 1e-3), solve {ref['solve_s'] * 1e3:.2f} ms")
+    check(rel <= 1e-3, f"bf16 u_max {rbf['u_max']} vs f32 {r32['u_max']}")
+    check(rbfb["iterations"] == rbf["iterations"],
+          f"two bf16 solves: {rbf['iterations']} and {rbfb['iterations']}")
+    for k in ("stencil_apply_var_bf16", "stencil_apply_var",
+              "stencil_apply_const", "p1_stiffness_sym"):
+        check(launches[k] > 0, f"{k} was not launched by the bf16 solve")
+    JinvT, detJ = box_geometry((n, n, n), dtype=f32, device=device)
+    coef, _ = assemble_stencil(JinvT, detJ, (n, n, n), mode="sym")
+    del JinvT, detJ
+    bf = torch.bfloat16
+    c, x = coef.to(bf), rbf["u"].view(coef.shape[1:]).to(bf)
+    f = torch.zeros_like(x)
+    f[1:-1, 1:-1, 1:-1] = 1
+    y_p = cuda_kernels.stencil_apply_var_bf16_reference(x, c, f)
+    y_k = cuda_kernels.stencil_apply_var_bf16(x, c, f)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(y_k, y_p)
+    inner = (slice(1, -1),) * 3
+    cancel = float(y_p[inner].float().abs().max() / x[inner].float().abs().max())
+    print(f"[bench-bf16] K1-bf16 on the solver's fields {tuple(x.shape)}: "
+          f"{ulps:.2f} bf16 ulps from the plain version (tol 1), max abs err "
+          f"{float((y_k.float() - y_p.float()).abs().max()):.3e}; |A x| / |x| "
+          f"on the free rows {cancel:.2e}")
+    check(ulps <= 1.0, f"K1-bf16 on the solver's fields: {ulps} ulps")
+    return {"launches": launches}
+
+
+def phase_bench_unstructured(device="cuda", n=100, n_check=12):
+    """``bench.py``'s unstructured path: ``run_unstructured(n)`` (the launch
+    counts reset just before it and read just after), res <= 1e-6 within
+    500 iterations; the set-up by step, the levels, the seconds, the
+    ``csr_spmv`` launches, the device idle share of ten PCG iterations; then
+    ``csr_spmv`` against cuSPARSE (its plain version) on every level's A,
+    R and P in f32; and at ``n_check`` the card against the CPU (equal
+    iterations, u_max within 1e-5 relative).  Returns the launches and the
+    fine operator's ``_compare`` dict."""
+    import torch
+
+    from fenicssolver_tpu_torch.lattice_poisson import run_unstructured
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = run_unstructured(n, device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    solver, b = r["solver"], r["b"]
+    print(f"[bench-unstructured] run_unstructured({n}): {r['ndof']} dofs "
+          f"({r['nfree']} free), f32, levels {r['levels']}: {r['iters']} PCG "
+          f"iterations, res {r['res']:.3e}, umax {r['umax']:.10f}, timed solve "
+          f"{r['dt'] * 1e3:.2f} ms ({r['dt'] / max(r['iters'], 1) * 1e3:.3f} ms "
+          f"an iteration), set-up {r['setup_s']:.2f} s: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in r["setup_steps"].items())
+          + f"; whole call {wall:.2f} s; csr_spmv launches "
+          f"{launches['csr_spmv']}; peak {_peak_gib():.2f} GiB")
+    check(r["res"] <= 1e-6 and r["iters"] < 500,
+          f"unstructured: {r['iters']} iterations, res {r['res']}")
+    check(launches["csr_spmv"] > 0, "csr_spmv was not launched")
+    iters = 10
+    solver(b, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solver(b, tol=0.0, maxiter=iters)
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t1) / iters * 1e3
+    prof = _profiled(lambda: solver(b, tol=0.0, maxiter=iters), 1)
+    busy = "not measured" if prof is None else (
+        f"device busy {prof[0] / iters:.4f} ms an iteration ({prof[2] / iters:.0f}"
+        f" device events), idle {100 * (1 - prof[0] / iters / it_ms):.1f}%")
+    print(f"[bench-unstructured] a PCG iteration {it_ms:.3f} ms wall "
+          f"(synchronised, {iters} iterations); {busy}")
+    ops = [(f"level {li} {k}", m[k]) for li, m in enumerate(solver.levels)
+           for k in ("A", "R", "P")]  # level 0's A is the PCG operator
+    fine = None
+    for name, M in ops:
+        ip, ix, data = M.indptr, M.indices, M.data
+        gen = torch.Generator(device=data.device).manual_seed(7)
+        x = torch.randn(M.shape[1], generator=gen, dtype=data.dtype,
+                        device=data.device)
+        args = (ip, ix, data, x, M.shape)
+        t = _compare(
+            "bench-unstructured", f"csr_spmv {name} {M.shape}, "
+            f"{data.numel()} nnz ({data.numel() / M.shape[0]:.1f} a row), "
+            f"{cuda_kernels.spmv_lanes(data.numel(), M.shape[0])} lanes, f32",
+            lambda: cuda_kernels.csr_spmv(*args),
+            lambda: cuda_kernels.csr_spmv_reference(*args),
+            spmv_bytes(M.shape[0], M.shape[1], data.numel(), 4),
+            2 * data.numel(), "float32", TOL["float32"],
+            library=lambda: cuda_kernels.csr_spmv_reference(*args),
+            library_case="torch.sparse_csr_tensor @ x (cuSPARSE), which is "
+                         "the plain version")
+        fine = fine or t
+    del solver, b, r
+    res = {}
+    for where in (device, "cpu"):
+        res[where] = run_unstructured(n_check, device=where)
+    g, c = res[device], res["cpu"]
+    rel = abs(g["umax"] - c["umax"]) / abs(c["umax"])
+    print(f"[bench-unstructured] n = {n_check}: {g['ndof']} dofs, levels "
+          f"{g['levels']}: card {g['iters']} iterations, cpu {c['iters']}; "
+          f"umax rel {rel:.2e} (tol 1e-5)")
+    check(g["iters"] == c["iters"] and rel <= 1e-5,
+          f"unstructured {n_check}: {g['iters']} vs {c['iters']} iterations, "
+          f"umax rel {rel}")
+    return {"launches": launches, "spmv": fine}
 
 
 def phase_csr(device="cuda", n=N_CSR):
@@ -1609,7 +1887,7 @@ class CountCG:
 
 
 def phase_fast_path(device="cuda", n=N_MAIN, V=None, T_loop=None, steps=3,
-                    long_steps=20):
+                    long_steps=10):
     """``fast_paths.compile_transient_heat`` on the transient phase's
     settings: ``steps`` steps of ``DT`` at ``RTOL`` (setup seconds, seconds
     and Jacobi-PCG iterations a step), ``T_final`` against the time loop's
@@ -2394,6 +2672,271 @@ def phase_csr_spmv(amg):
                      "plain version")
 
 
+#: the cantilever's mesh for the set-up repeat check: 139,587 dofs, a set-up
+#: of seconds
+N_SETUP_REPEAT = (160, 16, 16)
+
+
+def cantilever_system(device=None, n=N_CANTILEVER):
+    """The elasticity cantilever's assembled system at ``n``: (the host CSR
+    of the constrained matrix, the free mask, the rigid-body modes, the
+    constrained operator and right-hand side on the device)."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import amg as amg_mod
+    from fenicssolver_tpu_torch.ops import assembly
+    from fenicssolver_tpu_torch.solvers.linear_elasticity import (
+        LinearElasticitySolver,
+    )
+
+    V, bcs, _ = cantilever(core, n, 1)
+    s = LinearElasticitySolver(elasticity_settings(V, bcs, rtol=1e-8),
+                               device=device)
+    s.init_solver()
+    s.current_step = 0
+    form, dd = s.generate_form(0, None, None, s.w_current, s.w_prev)
+    A, b = assembly.assemble_linear_system(form)
+    Ah = assembly.constrain_csr(A, dd.free_mask).to_host()
+    free = dd.free_mask.cpu().numpy() > 0.5
+    B = amg_mod.rigid_body_modes(V.scalar_space.dof_coords, 3)
+    op = assembly.constrained_operator(A.matvec, dd.free_mask)
+    rhs = assembly.constrained_rhs(A.matvec, b, dd.free_mask, dd.u_bc)
+    return Ah, free, B, op, rhs, s.device
+
+
+def _arrays(obj):
+    """The arrays of a set-up step's result, flattened: tensors and numpy
+    arrays as host arrays, CSR tuples and tuples element by element,
+    numbers as 0-d arrays."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(obj):
+        return [obj.detach().cpu().numpy()]
+    if isinstance(obj, (tuple, list)):
+        return [a for o in obj for a in _arrays(o)]
+    return [np.asarray(obj)]
+
+
+def digest(arrays):
+    """The first 16 hex digits of the sha256 of the arrays' bytes."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(b"".join(
+        np.ascontiguousarray(a).tobytes() for a in arrays)).hexdigest()[:16]
+
+
+class RecordSetup:
+    """While active, records in order the ``digest`` of what each step of
+    the AMG set-up returns, as ``records`` of (level, step, digest): on the
+    host the strength graph, the aggregates, the tentative prolongator and
+    D^-1 A (``sparse_algebra.sp_diag_scale``); on the device
+    ``la/amg._power`` (the D^-1 A estimate ``lam`` or an l1 estimate
+    ``lam1``, also kept as ``powers``) and ``sparse_algebra``'s
+    ``dev_matmat``, ``dev_add`` and ``dev_transpose``.  The level is counted
+    by the strength graphs (a stalled attempt is the coarsest level's)."""
+
+    HOST = ("_strength_graph", "_aggregate", "_tentative_prolongator")
+    DEVICE = ("dev_matmat", "dev_add", "dev_transpose")
+
+    def __enter__(self):
+        from fenicssolver_tpu_torch.la import amg as amg_mod
+        from fenicssolver_tpu_torch.la import sparse_algebra as sa
+
+        self.records, self.powers, self.saved = [], [], []
+        self.level = -1
+
+        def record(owner, name, label):
+            fn = getattr(owner, name)
+
+            def run(*args, **kw):
+                out = fn(*args, **kw)
+                if name == "_strength_graph":
+                    self.level += 1
+                step = label
+                if name == "_power":
+                    step += ": lam" if kw.get("final", True) else ": lam1"
+                    self.powers.append((self.level, step, out))
+                self.records.append((self.level, step, digest(_arrays(out))))
+                return out
+
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, run)
+
+        for name in self.HOST + ("_power",):
+            record(amg_mod, name, name.strip("_"))
+        record(sa, "sp_diag_scale", "D^-1 A")
+        for name in self.DEVICE:
+            record(sa, name, name)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def first_difference(rec1, rec2):
+    """The first (level, name) whose digests differ between two lists of
+    (level, name, digest), or None."""
+    for r1, r2 in zip(rec1, rec2):
+        if list(r1) != list(r2):
+            return tuple(r1[:2])
+    if len(rec1) != len(rec2):
+        return "length", (len(rec1), len(rec2))
+    return None
+
+
+def hierarchy_digests(M):
+    """The ``digest`` of every array of an ``AMGPreconditioner``'s
+    hierarchy, by level: [(level, name, digest)]."""
+    import numpy as np
+
+    out = []
+    for li, lv in enumerate(M.levels):
+        A = lv["A"]
+        out += [(li, "A", _arrays((A.pattern.indptr, A.pattern.indices,
+                                    A.data))),
+                (li, "l1", _arrays(lv["l1"])),
+                (li, "lam1", [np.float64(lv["lam1"])])]
+        for name in ("P", "R"):
+            T = lv[name]
+            out.append((li, name, _arrays((T.indptr, T.indices, T.data))))
+    L = len(M.levels)
+    if M.coarse_dense is not None:
+        out.append((L, "coarse pinv", _arrays(M.coarse_dense)))
+    else:
+        C = M._coarse_cheb
+        out += [(L, "coarse A", _arrays(C["A"].data)),
+                (L, "coarse l1", _arrays(C["l1"])),
+                (L, "coarse lam1", [np.float64(C["lam1"])])]
+    return [(li, name, digest(a)) for li, name, a in out]
+
+
+def recorded_setup(system):
+    """One AMG set-up of the cantilever ``system`` (``cantilever_system``)
+    under ``RecordSetup``, and an AMG-CG solve to 1e-8 with it: a dict of
+    the set-up's records and power estimates, the hierarchy's digests, the
+    iterations, the solution's digest, the seconds of each, the level sizes
+    and the digest of the inputs (A, B, the right-hand side)."""
+    from fenicssolver_tpu_torch.la import krylov
+    from fenicssolver_tpu_torch.la.amg import AMGPreconditioner
+
+    Ah, free, B, op, rhs, dev = system
+    t0 = time.perf_counter()
+    with RecordSetup() as rec:
+        M = AMGPreconditioner(Ah, nullspace=B, free_mask=free, device=dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    x, it, res = krylov.cg(op, rhs, M=M, tol=1e-8, maxiter=MAX_CG_CANTILEVER)
+    _sync(dev)
+    return dict(records=rec.records, powers=rec.powers,
+                arrays=hierarchy_digests(M), iterations=it, relres=res,
+                x=digest(_arrays(x)), setup_s=t1 - t0,
+                cg_s=time.perf_counter() - t1,
+                rows=[lv["rows"] for lv in M.levels] + [M.coarse_rows],
+                inputs=digest((Ah.indptr, Ah.indices, Ah.data, B,
+                               rhs.cpu().numpy())))
+
+
+def setup_digest_run(n=N_SETUP_REPEAT):
+    """Prints, as one JSON line, ``recorded_setup`` of the cantilever at
+    ``n`` without its timings: the other process of
+    ``phase_amg_setup_repeat``."""
+    sys.path.insert(0, HERE)
+    b = recorded_setup(cantilever_system(None, tuple(n)))
+    print(json.dumps({k: b[k] for k in ("inputs", "records", "arrays", "x",
+                                        "iterations")}))
+
+
+def phase_amg_setup_repeat(device=None, n=N_SETUP_REPEAT):
+    """F5's set-up part: the cantilever's AMG set-up at ``n`` in this
+    process and in a second one at the same time on the same card
+    (``setup_digest_run``) gives the same bits in every step of the set-up
+    (``RecordSetup``) and in every array of every level (A, l1, lam1, P, R,
+    the coarse solve), and the two AMG-CG solves, one with each hierarchy,
+    take the same count to the same bits.  On a difference it prints the
+    first level and array (or set-up step) that differ and fails.  Prints
+    every step's digest, to compare across machines."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.setup_digest_run({tuple(n)!r})"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ours = recorded_setup(cantilever_system(device, n))
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    print(f"[amg-setup-repeat] cantilever {n}: levels {ours['rows']}; set-up "
+          f"{ours['setup_s']:.2f} s, {len(ours['records'])} set-up steps "
+          f"recorded; power estimates {ours['powers']}; AMG-CG "
+          f"{ours['iterations']} iterations ({ours['cg_s']:.2f} s)")
+    print(f"[amg-setup-repeat] digests (to compare across machines): inputs "
+          f"{ours['inputs']}, steps " + " ".join(
+              f"{lvl}:{name}:{d}" for lvl, name, d in ours["records"]))
+    check(proc.returncode == 0,
+          f"the second process failed: {stderr[-2000:]}")
+    other = json.loads(stdout.strip().splitlines()[-1])
+    step = first_difference(ours["records"], other["records"])
+    arrays = first_difference(ours["arrays"], other["arrays"])
+    print(f"[amg-setup-repeat] the set-up in another process at the same "
+          f"time ({time.perf_counter() - t0:.1f} s in all): inputs "
+          f"{'equal' if other['inputs'] == ours['inputs'] else 'DIFFER'}; "
+          f"first set-up step that differs: {step or 'none'}; first "
+          f"hierarchy array that differs: {arrays or 'none'}; AMG-CG "
+          f"{other['iterations']} iterations, solutions bit-equal "
+          f"{other['x'] == ours['x']}")
+    check(other["inputs"] == ours["inputs"] and step is None
+          and arrays is None,
+          f"two AMG set-ups differ: inputs {other['inputs']} / "
+          f"{ours['inputs']}, first step {step}, first array {arrays} "
+          "(level, name)")
+    check(other["iterations"] == ours["iterations"]
+          and other["x"] == ours["x"],
+          f"AMG-CG from two set-ups: {other['iterations']} and "
+          f"{ours['iterations']} iterations, bit-equal "
+          f"{other['x'] == ours['x']}")
+    return {"iterations": ours["iterations"], "records": ours["records"]}
+
+
+def measure_amg_setup_repeat(n=N_CANTILEVER):
+    """``phase_amg_setup_repeat`` at ``n`` (the full cantilever by default:
+    two set-ups of ~45 s at the same time), then one more set-up whose power iterations
+    multiply by PyTorch's CSR product (cuSPARSE on the card) in place of
+    ``csr_spmv``: the first step where it differs, and its AMG-CG count.
+    Not part of ``main()``."""
+    from fenicssolver_tpu_torch.la import amg as amg_mod
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+
+    from fenicssolver_tpu_torch.la import krylov
+
+    ours = phase_amg_setup_repeat(n=n)
+    Ah, free, B, op, rhs, dev = cantilever_system(None, n)
+    fixed = amg_mod.rect_matvec
+
+    def library(M, x):
+        return cuda_kernels.csr_spmv_reference(M.indptr, M.indices, M.data,
+                                               x, M.shape)
+
+    # during the set-up only _power calls rect_matvec (the V-cycle's R and
+    # P products come after it)
+    amg_mod.rect_matvec = library
+    try:
+        with RecordSetup() as rec:
+            M = amg_mod.AMGPreconditioner(Ah, nullspace=B, free_mask=free,
+                                          device=dev)
+    finally:
+        amg_mod.rect_matvec = fixed
+    _, it, _ = krylov.cg(op, rhs, M=M, tol=1e-8, maxiter=MAX_CG_CANTILEVER)
+    print(f"[amg-setup-repeat] the power iterations by PyTorch's CSR product: "
+          f"first set-up step that differs from csr_spmv's "
+          f"{first_difference(ours['records'], rec.records) or 'none'}; "
+          f"power estimates {rec.powers}; AMG-CG {it} iterations (csr_spmv's "
+          f"{ours['iterations']})")
+
+
 def phase_modal(device=None, n=(96, 11, 11), n_modes=6):
     """``solve_modal`` of a clamped P1 beam (5 x 0.5 x 0.5, steel): LOBPCG
     with the AMG V-cycle on the device against scipy's shift-invert
@@ -2681,11 +3224,13 @@ N_TWIST = (24, 16, 16)
 #: 200-restart cap of the Newton updates.  The ball stays at 24 x 24: on
 #: finer meshes full Newton steps against it invert elements (NaN at 32).
 N_CONTACT, N_BALL = 64, 24
-#: the J2 bar: 196,608 tets, 107,811 dofs; the unloading step is taken in
-#: N_PLASTIC // 4 increments (one increment inverts the return map's branch
-#: in the layer of cells next to the pulled face and Newton cycles there,
-#: from 8 x 8 x 8 on; the unloaded state is elastic, so the same)
-N_PLASTIC = 32
+#: the J2 bar: 82,944 tets, 46,875 dofs (32^3, 107,811 dofs, took ~79 s
+#: of the script's time; cut to make room for the bench paths); the
+#: unloading step is taken in N_PLASTIC // 4 increments (one increment
+#: inverts the return map's branch in the layer of cells next to the pulled
+#: face and Newton cycles there, from 8 x 8 x 8 on; the unloaded state is
+#: elastic, so the same)
+N_PLASTIC = 24
 #: the 2-D beam of examples/test_large_deformation.py: 128 x 16, mixed P1,
 #: 10,965 dofs (dense LU)
 N_BEAM = 128
@@ -3192,7 +3737,7 @@ def dynamics_settings(core, n, steps):
 
 
 def phase_elastodynamics(device=None, n=N_DYNAMICS, n_loop=N_DYNAMICS_LOOP,
-                         steps=10, timed_steps=20):
+                         steps=5, timed_steps=10):
     """``fast_paths.compile_transient_elasticity_dynamics``: ``steps`` steps
     at ``n_loop`` against as many steps of the time loop with
     ``solving_dynamics`` (rel-L2 1e-6); at ``n`` its set-up (the form and K,
@@ -3671,7 +4216,7 @@ def probe_ns_budgets(device=None, dfg=N_DFG, budgets=((120, 8), (400, 3))):
 
 
 def phase_ns_transient(device=None, res=10, nx_check=22, steps=3, nx_timed=64,
-                       steps_timed=2):
+                       steps_timed=1):
     """The backward-Euler loop on the restart idiom of
     examples/test_flow_pass_cylinder.py at ``res`` (the steady Newton
     solve, then three transient Picard steps from it); then
@@ -3776,7 +4321,7 @@ def _iters_text(ks):
 
 
 def phase_ns_ipcs(device=None, drag_ref=None, dfg=N_DFG, dt=0.004, steps=500,
-                  big=N_DFG_BIG, big_steps=100, mf_steps=50):
+                  big=N_DFG_BIG, big_steps=40, mf_steps=20):
     """``compile_transient_ns_ipcs`` on the DFG mesh from rest: ``steps``
     steps of ``dt`` (T = 2) at tol 1e-8; the norm settles (2e-2 over the last
     100 steps) and the drag is within 1% of the monolithic steady drag
@@ -4173,7 +4718,112 @@ def _couette_field(X):
     return np.stack([X[:, 1], 0 * X[:, 0], 0 * X[:, 0]], 1)
 
 
-def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5)):
+class PeakParts:
+    """While active on the card: the peak device memory of each part of a
+    solve, reset at each part's start and read at its end.  The parts: each
+    term of a Jacobian assembly (``ops/assembly.assemble_jacobian``; the
+    term's context kind, element size k, batch and chunk), a residual
+    assembly, ``NSDGSolver._build_pmg``, the outer ``la/krylov.fgmres``, and
+    "other" (what runs between them).  ``peaks``: {part: bytes};
+    ``terms``: {part: (batch, k, cells a chunk)}."""
+
+    def __init__(self, device):
+        self.on = _on_card(device)
+        self.peaks, self.terms = {}, {}
+        self.current, self.depth, self.jacobian = "other", 0, False
+
+    def _mark(self, name):
+        import torch
+
+        if self.on:
+            torch.cuda.synchronize()
+            p = torch.cuda.max_memory_allocated()
+            self.peaks[self.current] = max(self.peaks.get(self.current, 0), p)
+            torch.cuda.reset_peak_memory_stats()
+        self.current = name
+
+    def _wrap(self, owner, attr, name, jacobian=False):
+        fn = getattr(owner, attr)
+
+        def run(*args, **kw):
+            if self.depth:
+                return fn(*args, **kw)
+            self.depth, self.jacobian = 1, jacobian
+            self._mark(name)
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._mark("other")
+                self.depth, self.jacobian = 0, False
+
+        self.saved.append((owner, attr, fn))
+        setattr(owner, attr, run)
+
+    def __enter__(self):
+        from fenicssolver_tpu_torch.la import krylov
+        from fenicssolver_tpu_torch.ops import assembly
+        from fenicssolver_tpu_torch.solvers.navier_stokes_dg import NSDGSolver
+
+        self.saved = []
+        scatters = assembly._scatters
+
+        def each_term(term):
+            if self.jacobian:
+                kind = type(term.ctx).__name__.replace("Context", "")
+                batch, k = term.ctx.cell_dofs.shape
+                name = f"jacobian {kind} k={k}"
+                self.terms[name] = (int(batch), int(k),
+                                    assembly._chunk_size(term))
+                self._mark(name)
+            return scatters(term)
+
+        self.saved.append((assembly, "_scatters", scatters))
+        assembly._scatters = each_term
+        self._wrap(assembly, "assemble_jacobian", "jacobian", jacobian=True)
+        self._wrap(assembly, "assemble_residual", "residual")
+        self._wrap(NSDGSolver, "_build_pmg", "_build_pmg")
+        self._wrap(krylov, "fgmres", "fgmres")
+        self._mark("other")
+        return self
+
+    def __exit__(self, *exc):
+        self._mark("other")
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+
+    def lines(self, tag, what):
+        from fenicssolver_tpu_torch.ops import assembly
+
+        out = []
+        for name, b in sorted(self.peaks.items(), key=lambda kv: -kv[1]):
+            extra = ""
+            if name in self.terms:
+                batch, k, chunk = self.terms[name]
+                model = min(chunk, batch) * k * k * assembly.JACFWD_BYTES_PER_ENTRY
+                extra = (f": {batch} in the batch, {chunk} a chunk, the chunk "
+                         f"model's {model / 2**30:.2f} GiB for a chunk "
+                         f"({b / max(model, 1):.1f}x)")
+            out.append(f"[{tag}] {what} peak of {name}: {b / 2**30:.2f} GiB"
+                       + extra)
+        return out
+
+
+def couette_run(core, run_main, device, n):
+    """The 3-D Couette duct at ``n`` through ``main()`` with
+    ``DG_COUETTE_BUDGET``, its peak memory split by ``PeakParts``: (solver,
+    wall seconds, the ``PeakParts``)."""
+    s = dg_couette(core, n)
+    s["solver_settings"]["solver_parameters"].update(
+        gmres_restart=DG_COUETTE_BUDGET[0], gmres_maxiter=DG_COUETTE_BUDGET[1])
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    with PeakParts(device) as parts:
+        duct = run_main(s, device=device)
+    return duct, time.perf_counter() - t0, parts
+
+
+def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5),
+                couette_small=6):
     """NSDGSolver through ``main(settings)`` on the default device: the
     steady DG2/DG1 Poiseuille channel of examples/test_dg_flow.py on
     ``UnitSquareMesh(n)`` (n = 64: 8,192 cells, 122,880 dofs), every Newton
@@ -4182,8 +4832,10 @@ def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5)):
     one outer iteration's wall and device time and two solves of one
     system (equal outer counts, bit-equal); the 3-D Couette duct on
     ``UnitCubeMesh(n_couette)`` (n = 8: 3,072 cells, 104,448 dofs), exact
-    to 1e-8; the example's transient start-up at ``startup``, the card
-    against the port on the CPU (1e-9) and within the example's 2e-3."""
+    to 1e-8, with its peak device memory by part (``PeakParts``) at
+    ``couette_small`` and ``n_couette``; the example's transient start-up
+    at ``startup``, the card against the port on the CPU (1e-9) and within
+    the example's 2e-3."""
     import numpy as np
 
     import fenicssolver_tpu_torch.core as core
@@ -4212,20 +4864,26 @@ def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5)):
     check(it1 == it2 and same, "two DG FGMRES solves of one system differ")
     del solver
 
-    _reset_peak(device)
-    t0 = time.perf_counter()
-    s = dg_couette(core, n_couette)
-    s["solver_settings"]["solver_parameters"].update(
-        gmres_restart=DG_COUETTE_BUDGET[0], gmres_maxiter=DG_COUETTE_BUDGET[1])
-    duct = run_main(s, device=device)
-    wall = time.perf_counter() - t0
+    if _on_card(device):  # the Couette's peak by part, at two sizes
+        small, wall, parts = couette_run(core, run_main, device, couette_small)
+        print(f"[ns-dg] 3-D Couette UnitCubeMesh({couette_small}): "
+              f"{small.function_space.ndof} dofs, main() {wall:.2f} s, outer "
+              f"{[st['iterations'] for st in small.last_newton]}; peak "
+              f"{max(parts.peaks.values()) / 2**30:.2f} GiB")
+        print("\n".join(parts.lines("ns-dg", f"Couette {couette_small}^3")))
+        del small
+    duct, wall, parts = couette_run(core, run_main, device, n_couette)
     err = _dg_velocity_error(duct, _couette_field)
     pmax = float(np.abs(duct.result.values[duct.function_space.slice_of(1)]).max())
     print(f"[ns-dg] 3-D Couette UnitCubeMesh({n_couette}): "
           f"{duct.mesh.num_cells()} cells, {duct.function_space.ndof} dofs: "
           f"main() {wall:.2f} s, {duct.last_iterations} Newton steps, outer "
           f"{[st['iterations'] for st in duct.last_newton]}; {_ns_timers(duct)}; "
-          f"velocity rel-L2 {err:.2e}, max|p| {pmax:.1e}" + _peak_text(device))
+          f"velocity rel-L2 {err:.2e}, max|p| {pmax:.1e}"
+          + (f"; peak {max(parts.peaks.values()) / 2**30:.2f} GiB"
+             if _on_card(device) else ""))
+    if _on_card(device):
+        print("\n".join(parts.lines("ns-dg", f"Couette {n_couette}^3")))
     check_dg_fieldsplit(duct)
     check(err <= 1e-8 and pmax < 1e-6, f"Couette error {err}, max|p| {pmax}")
     del duct
@@ -4843,6 +5501,26 @@ def phase_halo(device=None, n=N_HALO, n_elas=N_HALO_ELAS, n_elem=N_ELEM,
     print(f"[halo] phase {time.perf_counter() - t_phase:.2f} s")
 
 
+def halo_hierarchy_digests(hs):
+    """The ``digest`` of every host array of a ``HaloAMGSolver``'s
+    hierarchy, by level: [(level, name, digest)], the coarse level last."""
+    import numpy as np
+
+    out = []
+    for li, lv in enumerate(hs._levels_host):
+        for name in ("A", "P", "R"):
+            M = lv[name]
+            out.append((li, name, (M.indptr, M.indices, M.data)))
+        out += [(li, "agg", (lv["agg"],)), (li, "l1", (lv["l1"],)),
+                (li, "lam1", (np.float64(lv["lam1"]),))]
+    c = hs._coarse_host
+    L = len(hs._levels_host)
+    out += [(L, "coarse A", (c["A"].indptr, c["A"].indices, c["A"].data)),
+            (L, "coarse l1", (c["l1"],)),
+            (L, "coarse lam1", (np.float64(c["lam1"]),))]
+    return [(li, name, digest(a)) for li, name, a in out]
+
+
 def phase_amg_halo(device=None, n=N_AMG_HALO, nx_ns=N_NS_FIELDSPLIT,
                    n_twist=5):
     """``parallel/amg_halo.py`` and the routes through it, on SHARDS
@@ -4854,7 +5532,10 @@ def phase_amg_halo(device=None, n=N_AMG_HALO, nx_ns=N_NS_FIELDSPLIT,
     route, the final outer count within 15% of the serial fieldsplit's,
     rel-L2 1e-8 against the serial run; (c)
     ``distributed_newton_hyperelastic`` (the twist at ``n_twist``^3): every
-    update on the sharded AMG route, against the serial Newton to 1e-10."""
+    update on the sharded AMG route, against the serial Newton to 1e-10.
+    F5: each hierarchy applied twice and a second solve repeat bit for bit,
+    and a second sharded set-up gives the same bits on every level and the
+    same count."""
     import numpy as np
     import torch
 
@@ -4938,7 +5619,24 @@ def phase_amg_halo(device=None, n=N_AMG_HALO, nx_ns=N_NS_FIELDSPLIT,
     check(it2 == it and it_ref2 == it_ref and all(same_x),
           f"second AMG-CG solves: {it2}, {it_ref2} against {it}, {it_ref}; "
           f"bit-equal {same_x}")
-    del V, form, A, b, dd, hs, M, ctx, x2, x_ref2, v
+    # F5's set-up part: a second sharded set-up gives the same bits on every
+    # level and its solve the same count and bits
+    t5 = time.perf_counter()
+    hs2 = HaloAMGSolver(A, V.dof_coords, free.cpu().numpy(),
+                        devices=_shard_devices(device))
+    x3, it3, _ = hs2.solve(b, dd.u_bc, tol=1e-10, maxiter=300)
+    _sync(device)
+    diff = first_difference(halo_hierarchy_digests(hs),
+                            halo_hierarchy_digests(hs2))
+    print(f"[amg-halo] [amg-setup-repeat] a second sharded set-up: first "
+          f"level and array that differ {diff or 'none'}; its AMG-CG {it3} "
+          f"iterations (first {it}), bit-equal {torch.equal(x3, x)}, "
+          f"{time.perf_counter() - t5:.2f} s")
+    check(diff is None, f"two sharded AMG set-ups differ at {diff} (level, "
+          "array)")
+    check(it3 == it and torch.equal(x3, x),
+          f"the second sharded set-up's solve: {it3} iterations against {it}")
+    del V, form, A, b, dd, hs, hs2, M, ctx, x2, x_ref2, x3, v
 
     # (b) the distributed NS fieldsplit at 12k mixed dofs
     def mild(**params):
@@ -5469,6 +6167,7 @@ def main():
     phase_build()
     k2 = phase_k2()
     k1 = phase_k1()
+    k1_bf16 = phase_k1_bf16()
     k34 = phase_k3_k4()
     phase_default_device()
     steady = phase_main_path()
@@ -5487,6 +6186,7 @@ def main():
     phase_restart()
     phase_body_source()
     phase_cli()
+    phase_amg_setup_repeat()
     elas = phase_elasticity()
     phase_lattice_elasticity(serial=elas)
     spmv, spmv_launches = elas["spmv"], elas["spmv_launches"]
@@ -5515,11 +6215,15 @@ def main():
     phase_explicit()
     phase_distributed_fsi()
     lat = phase_lattice()
+    bench_bf16 = phase_bench_bf16()
+    unstr = phase_bench_unstructured()
     csr = phase_csr()
     k5 = phase_k5()
     shard = phase_sharded()
     measured = {
         "stencil_apply_var": (k1, lat["launches"]["stencil_apply_var"]),
+        "stencil_apply_var_bf16": (
+            k1_bf16, bench_bf16["launches"]["stencil_apply_var_bf16"]),
         "stencil_apply_const": (k2, transient["launches"]),
         "p1_stiffness_sym": (k34["p1_stiffness_sym"],
                              lat["launches"]["p1_stiffness_sym"]),
@@ -5531,6 +6235,8 @@ def main():
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches,
         "lattice_launches": lattice_halo["launches"].get(name, 0),
+        "bench_bf16_launches": bench_bf16["launches"].get(name, 0),
+        "bench_unstructured_launches": unstr["launches"].get(name, 0),
         "lattice_max_abs_err": lattice_halo["max_abs_err"].get(name),
         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

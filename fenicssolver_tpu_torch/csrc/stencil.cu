@@ -82,14 +82,25 @@
 //   shape is worked out once per kernel instance, device and lattice
 //   shape, and kept.  Deeper prefetch (4 or 6 planes) and 128 x 4 or
 //   512 x 1 blocks were no faster in the same trials.
+// - K1 with bf16 storage (the bf16 refinement solve of
+//   lattice_poisson.run_stencil(..., bf16=True), bench.py's matvec_bf):
+//   the same template with x, f, coef and y stored in bf16 and every
+//   product and sum in f32 registers (Acc<S> is the type a storage type S
+//   computes in), centre tap first.  Its constrained rows are the
+//   identity, folded in: y = f * A(f * x) + (1 - f) * x, rounded to bf16
+//   once at the store.  bf16 halves the bytes of the f32 instance; a 16 B
+//   copy holds 8 values, so the tiles and halo copies follow V = 8.  Only
+//   the masked K1 instance is built in bf16.
 // A fused damped-Jacobi sweep that also folds the smoother update into
 // this pass is left for a later change (ROADMAP.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -107,8 +118,49 @@ constexpr int kAhead = 2;               // planes in flight ahead of the one rea
 constexpr int kRing = kAhead + 2;       // plane buffers: i - 1 .. i + kAhead
 
 // Outputs a thread: 2 for K2 in f32, else 1 (see the note on sizes).
-template <typename T, bool kVar>
-constexpr int kOutputs = !kVar && sizeof(T) == 4 ? 2 : 1;
+template <typename S, bool kVar>
+constexpr int kOutputs = !kVar && sizeof(S) == 4 ? 2 : 1;
+
+// The type a storage type computes in: itself, or f32 for bf16.
+template <typename S>
+struct Acc {
+  using type = S;
+};
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+};
+
+// The bf16 instance is the refinement solve's operator, whose constrained
+// rows are the identity: f * A(f * x) + (1 - f) * x.
+template <typename S>
+constexpr bool kIdentityRows = std::is_same<S, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T to_acc(T v) {
+  return v;
+}
+
+// A read-only load through the non-coherent cache, widened to Acc.
+__device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+template <typename T>
+__device__ __forceinline__ T load_acc(const T* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ void store(T* p, T v) {
+  *p = v;
+}
 
 template <typename T>
 struct Taps {
@@ -169,17 +221,22 @@ __device__ __forceinline__ T tap_sum(const C& c, const T* pv, const T* cu,
   return acc;
 }
 
-template <typename T, bool kMasked, bool kVar>
+// S: the storage type of x, f, coef and y; T = Acc<S>: the type of every
+// product and sum.
+template <typename S, bool kMasked, bool kVar>
 __global__ void __launch_bounds__(kThreads)
-    stencil_march_kernel(const T* __restrict__ x, const T* __restrict__ f,
-                         const T* __restrict__ coef, T* __restrict__ y,
-                         const Geom g, __grid_constant__ const Taps<T> taps) {
-  constexpr int kSlots = kOutputs<T, kVar>;
+    stencil_march_kernel(const S* __restrict__ x, const S* __restrict__ f,
+                         const S* __restrict__ coef, S* __restrict__ y,
+                         const Geom g,
+                         __grid_constant__ const Taps<typename Acc<S>::type> taps) {
+  using T = typename Acc<S>::type;
+  constexpr bool kIdentity = kIdentityRows<S>;
+  constexpr int kSlots = kOutputs<S, kVar>;
   constexpr int kLoad = kSlots + 2;   // halo copies per thread (host checks)
-  constexpr int V = 16 / sizeof(T);   // values in a 16 B copy
+  constexpr int V = 16 / sizeof(S);   // values in a 16 B copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sx = reinterpret_cast<T*>(smem_raw);
-  T* const sf = sx + kRing * g.halo;  // masked only
+  S* const sx = reinterpret_cast<S*>(smem_raw);
+  S* const sf = sx + kRing * g.halo;  // masked only
   const int tid = threadIdx.x;
   const int plane = g.ny * g.nz;
   const int total = g.nx * plane;
@@ -237,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
       const int d = b + vrow[s] * g.pitch;
       if (inside && j >= 0 && j < g.ny) {
         if (a <= g0 + c_hi) {
-          const int n = min(V, total - a) * (int)sizeof(T);
+          const int n = min(V, total - a) * (int)sizeof(S);
           cp_async16(sx + d + a - base, x + a, n);
           if (kMasked) cp_async16(sf + d + a - base, f + a, n);
         }
@@ -247,9 +304,9 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   };
-  // the 7 values (f * x, or x) of plane q around slot s's centre, and f
-  // at the centre
-  auto read_plane = [&](int q, int s, T* v, T& fc) {
+  // the 7 values (f * x, or x) of plane q around slot s's centre, f at
+  // the centre and x at the centre (used by the identity rows)
+  auto read_plane = [&](int q, int s, T* v, T& fc, T& xc) {
     const int b = buffer(q), p = g.pitch;
     const int g0 = row_start(q, row[s] - 1);
     const int r0 = b + (row[s] - 1) * p + (g0 & (V - 1)) + col[s];
@@ -258,8 +315,9 @@ __global__ void __launch_bounds__(kThreads)
     const int at[7] = {r0 - 1, r0, r1 - 1, r1, r1 + 1, r2, r2 + 1};
 #pragma unroll
     for (int t = 0; t < 7; ++t)
-      v[t] = kMasked ? sx[at[t]] * sf[at[t]] : sx[at[t]];
-    fc = kMasked ? sf[r1] : T(1);
+      v[t] = kMasked ? to_acc(sx[at[t]]) * to_acc(sf[at[t]]) : to_acc(sx[at[t]]);
+    fc = kMasked ? to_acc(sf[r1]) : T(1);
+    xc = to_acc(sx[r1]);
     // the columns k - 1 < 0 and k + 1 = nz were not copied
     if (k_first[s]) v[0] = v[2] = T(0);
     if (k_last[s]) v[4] = v[6] = T(0);
@@ -269,11 +327,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int s = 0; s < kSlots; ++s)
 #pragma unroll
       for (int t = 0; t < 15; ++t)
-        cc[s][t] = dst[s] >= 0 ? __ldg(coef + t * total + q * plane + dst[s])
+        cc[s][t] = dst[s] >= 0 ? load_acc(coef + t * total + q * plane + dst[s])
                                : T(0);
   };
 
-  T pv[kSlots][7], cu[kSlots][7], fc[kSlots];
+  T pv[kSlots][7], cu[kSlots][7], fc[kSlots], xc[kSlots];
   T cc[kVar ? kSlots : 1][15];  // K1: this plane's coefficients
 #pragma unroll
   for (int d = 0; d < kRing; ++d) {
@@ -285,9 +343,9 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    T unused;
-    read_plane(i0 - 1, s, pv[s], unused);
-    read_plane(i0, s, cu[s], fc[s]);
+    T unused_f, unused_x;
+    read_plane(i0 - 1, s, pv[s], unused_f, unused_x);
+    read_plane(i0, s, cu[s], fc[s], xc[s]);
   }
   __syncthreads();  // the buffer of plane i0 - 1 is refilled next
 
@@ -310,18 +368,20 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      T nv[7], nf;
-      read_plane(i + 1, s, nv, nf);
+      T nv[7], nf, nx;
+      read_plane(i + 1, s, nv, nf, nx);
       T acc = kVar ? tap_sum(cc[s], pv[s], cu[s], nv)
                    : tap_sum(taps, pv[s], cu[s], nv);
       if (kMasked) acc = fc[s] * acc;
-      if (dst[s] >= 0) y[i * plane + dst[s]] = acc;
+      if (kIdentity) acc = acc + (T(1) - fc[s]) * xc[s];
+      if (dst[s] >= 0) store(y + i * plane + dst[s], acc);
 #pragma unroll
       for (int q = 0; q < 7; ++q) {
         pv[s][q] = cu[s][q];
         cu[s][q] = nv[q];
       }
       fc[s] = nf;
+      xc[s] = nx;
     }
     if (kVar) {
 #pragma unroll
@@ -382,11 +442,11 @@ struct Launch {
   int smem;
 };
 
-// The launch shape of kernel instance <T, kMasked, kVar> on an (nx, ny,
+// The launch shape of kernel instance <S, kMasked, kVar> on an (nx, ny,
 // nz) lattice (all > 0) on the current device.  It depends only on those,
 // so it is worked out once (the occupancy query, the chunk search) and
 // kept per (device, shape): the GMG levels launch with a few shapes.
-template <typename T, bool kMasked, bool kVar>
+template <typename S, bool kMasked, bool kVar>
 cudaError_t launch_shape(int nx, int ny, int nz, Launch* out) {
   struct Entry {
     int dev, nx, ny, nz;
@@ -407,14 +467,14 @@ cudaError_t launch_shape(int nx, int ny, int nz, Launch* out) {
       return cudaSuccess;
     }
   }
-  auto kern = stencil_march_kernel<T, kMasked, kVar>;
-  constexpr int kSlots = kOutputs<T, kVar>;
+  auto kern = stencil_march_kernel<S, kMasked, kVar>;
+  constexpr int kSlots = kOutputs<S, kVar>;
   constexpr int arrays = kMasked ? 2 : 1;
   Geom g = tile_geometry(nx, ny, nz, kSlots,
-                         kSmemBudget / (kRing * arrays * (int)sizeof(T)),
-                         16 / (int)sizeof(T));
+                         kSmemBudget / (kRing * arrays * (int)sizeof(S)),
+                         16 / (int)sizeof(S));
   if ((g.R + 2) * g.nvec > (kSlots + 2) * kThreads) return cudaErrorInvalidValue;
-  const int smem = kRing * g.halo * (int)sizeof(T) * arrays;  // <= budget
+  const int smem = kRing * g.halo * (int)sizeof(S) * arrays;  // <= budget
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSmemBudget);
@@ -441,29 +501,40 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <typename T, bool kMasked, bool kVar>
+template <typename S, bool kMasked, bool kVar>
 int launch_march(const Call& a) {
+  using T = typename Acc<S>::type;
   Launch l;
-  const cudaError_t e = launch_shape<T, kMasked, kVar>(a.nx, a.ny, a.nz, &l);
+  const cudaError_t e = launch_shape<S, kMasked, kVar>(a.nx, a.ny, a.nz, &l);
   if (e != cudaSuccess) return (int)e;
   Taps<T> taps;
   for (int t = 0; t < 15; ++t) taps.c[t] = a.taps ? (T)a.taps[t] : T(0);
-  stencil_march_kernel<T, kMasked, kVar><<<l.grid, kThreads, l.smem, a.stream>>>(
-      (const T*)a.x, (const T*)a.f, (const T*)a.coef, (T*)a.y, l.g, taps);
+  stencil_march_kernel<S, kMasked, kVar><<<l.grid, kThreads, l.smem, a.stream>>>(
+      (const S*)a.x, (const S*)a.f, (const S*)a.coef, (S*)a.y, l.g, taps);
   return (int)cudaGetLastError();
 }
 
 // A kernel instance, as a tag for dispatch.
-template <typename T, bool kMasked, bool kVar>
+template <typename S, bool kMasked, bool kVar>
 struct Instance {
-  using type = T;
+  using type = S;
   static constexpr bool masked = kMasked, var = kVar;
 };
 
-// fn(Instance<T, masked, var>{}) for the instance that the arguments name.
+// The storage types: the dtype argument of the C interface.
+enum Dtype { kF32 = 0, kF64 = 1, kBF16 = 2 };
+
+// fn(Instance<S, masked, var>{}) for the instance that the arguments name;
+// cudaErrorInvalidValue for one that is not built (bf16 other than masked
+// K1).
 template <typename Fn>
-int dispatch(bool f64, bool masked, bool var, Fn&& fn) {
-  if (f64) {
+int dispatch(int dtype, bool masked, bool var, Fn&& fn) {
+  if (dtype == kBF16) {
+    if (masked && var) return fn(Instance<__nv_bfloat16, true, true>{});
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != kF32 && dtype != kF64) return (int)cudaErrorInvalidValue;
+  if (dtype == kF64) {
     if (masked) return var ? fn(Instance<double, true, true>{})
                            : fn(Instance<double, true, false>{});
     return var ? fn(Instance<double, false, true>{})
@@ -491,17 +562,20 @@ void fst_stencil_offsets(int* out) {
 // K1 when coef is not null, else K2.  x, f (nullable), y: device pointers
 // to nx*ny*nz contiguous values, x and f 16 B aligned; coef: 15*nx*ny*nz
 // contiguous values, tap-major and aligned with the offsets; taps (K2): 15
-// host doubles aligned with the offsets; f64: nonzero for double, else
-// float; stream: a cudaStream_t.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorMisalignedAddress without launching.
-int fst_stencil_apply(int f64, const void* x, const void* f, const void* coef,
+// host doubles aligned with the offsets; dtype: the storage type of x, f,
+// coef and y, 0 float, 1 double, 2 bf16 (masked K1 only: it computes in
+// float and keeps the constrained rows as the identity); stream: a
+// cudaStream_t.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorMisalignedAddress / cudaErrorInvalidValue without
+// launching.
+int fst_stencil_apply(int dtype, const void* x, const void* f, const void* coef,
                       void* y, int64_t nx, int64_t ny, int64_t nz,
                       const double* taps, void* stream) {
   if (nx * ny * nz == 0) return 0;
   if (!aligned16(x) || !aligned16(f)) return (int)cudaErrorMisalignedAddress;
   const Call a{x, f, coef, y, (int)nx, (int)ny, (int)nz, taps,
                (cudaStream_t)stream};
-  return dispatch(f64 != 0, f != nullptr, coef != nullptr, [&](auto k) {
+  return dispatch(dtype, f != nullptr, coef != nullptr, [&](auto k) {
     using K = decltype(k);
     return launch_march<typename K::type, K::masked, K::var>(a);
   });
@@ -512,10 +586,10 @@ int fst_stencil_apply(int f64, const void* x, const void* f, const void* coef,
 // threads a block, outputs a thread, tile columns W and rows R, tiles a
 // plane, planes a block, blocks, shared-memory bytes.  Returns a CUDA
 // error, 0 on success.
-int fst_stencil_plan(int f64, int masked, int var, int64_t nx, int64_t ny,
+int fst_stencil_plan(int dtype, int masked, int var, int64_t nx, int64_t ny,
                      int64_t nz, int* out) {
   if (nx * ny * nz == 0) return (int)cudaErrorInvalidValue;
-  return dispatch(f64 != 0, masked != 0, var != 0, [&](auto k) {
+  return dispatch(dtype, masked != 0, var != 0, [&](auto k) {
     using K = decltype(k);
     Launch l;
     const cudaError_t e = launch_shape<typename K::type, K::masked, K::var>(

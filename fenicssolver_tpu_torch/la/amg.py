@@ -4,8 +4,10 @@ Port of ``fenicssolver_tpu/la/amg.py``: the replacement for PETSc's
 ``petsc_amg`` smoothed aggregation with Chebyshev smoothing and a rigid-body
 near-nullspace.  The hierarchy is built in float64: strength and aggregation
 on the host (``la/sparse_algebra``, ``native.aggregate``), the sparse
-products (smoothed prolongator, Galerkin RAP) and the power iterations on
-the hierarchy's device by PyTorch's CSR product (``sparse_algebra.dev_*``).
+products (smoothed prolongator, Galerkin RAP) on the hierarchy's device by
+PyTorch's CSR product (``sparse_algebra.dev_*``), and the power iterations
+there by ``ops/cuda_kernels.csr_spmv``, each row summed in an order fixed
+by the matrix.
 The V-cycle runs on the device: every level's operator, prolongator and
 restriction are CSR arrays in the hierarchy's dtype, each product is
 ``ops/cuda_kernels.csr_spmv`` (on the card a kernel that sums each row in
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels
-from .sparse import csr_from_scipy, sparse_csr
+from .sparse import csr_from_scipy
 
 
 def _strength_graph(A, theta):
@@ -133,18 +135,21 @@ def _power(M, device, iters, scale=None, shift=0.0, final=True):
     """The power iterations of the set-up on ``device``: x = sin(i) +
     ``shift``, ``iters`` times x = (M x) / scale, normalised.  ``final``:
     the norm of the last product (the D^-1 A estimate, 2 if it vanished
-    first); else min(1.05 * the last nonzero norm, 2) (the l1 estimate)."""
-    Md = sparse_csr(torch.as_tensor(np.asarray(M.indptr, np.int64), device=device),
-                    torch.as_tensor(np.asarray(M.indices, np.int64), device=device),
-                    torch.as_tensor(np.asarray(M.data, np.float64), device=device),
-                    tuple(M.shape))
+    first); else min(1.05 * the last nonzero norm, 2) (the l1 estimate).
+
+    Each product is ``rect_matvec`` (``cuda_kernels.csr_spmv`` on 32-bit
+    CSR arrays), each row summed in an order fixed by the matrix and this
+    package's kernel; PyTorch's CSR product on the card sums in an order of
+    the library's choosing, which differed from it on the long rows of the
+    cantilever's stalled level (F5, ROADMAP.md)."""
+    Md = csr_from_scipy_rect(M, device, torch.float64)
     inv = None if scale is None else 1.0 / torch.as_tensor(
         np.asarray(scale, np.float64), device=device)
     x = torch.sin(torch.arange(M.shape[0], dtype=torch.float64,
                                device=device)) + shift
     lam = 2.0 if final else 1.0
     for it in range(iters):
-        x = Md @ x
+        x = rect_matvec(Md, x)
         if inv is not None:
             x = x * inv
         nx = float(torch.linalg.norm(x))

@@ -20,6 +20,9 @@ Kernels (ids of the table in ``PERF.md``):
 - K1 ``stencil_apply_var`` (``csrc/stencil.cu``): the variable-coefficient
   15-tap stencil, the PCG operator of the structured-lattice Poisson path.
   Replaces ``fenicssolver_tpu/ops/pallas_kernels.py:308``.
+  ``stencil_apply_var_bf16`` is its bf16-storage instance (the same kernel
+  template, f32 arithmetic, the constrained rows the identity): the inner
+  operator of the bf16 refinement solve (``bench.py``'s ``matvec_bf``).
 - K3 ``p1_stiffness_sym`` (``csrc/p1_stiffness.cu``): packed symmetric 3-D
   P1 element stiffness, slots ``SYM10``.  Replaces
   ``fenicssolver_tpu/ops/pallas_kernels.py:144``.
@@ -63,6 +66,7 @@ BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 LAUNCHES = {
     "stencil_apply_const": 0,
     "stencil_apply_var": 0,
+    "stencil_apply_var_bf16": 0,
     "p1_stiffness_sym": 0,
     "p1_stiffness": 0,
     "element_matvec": 0,
@@ -378,6 +382,62 @@ def stencil_apply_var(x3, coef, free3=None):
     return _stencil_launch("stencil_apply_var", x3, free3, coef, None)
 
 
+#: the storage-type codes of ``csrc/stencil.cu``'s C interface
+_STENCIL_DTYPE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+def stencil_apply_var_bf16_reference(x3, coef, free3):
+    """Plain PyTorch version of ``stencil_apply_var_bf16``, written as
+    ``bench.py:651-658`` writes ``matvec_bf``: the bf16 operands widened to
+    f32, ``y = coef[centre] * (f x)`` and then each other tap in offset
+    order, ``f * y + (1 - f) * x``, rounded to bf16."""
+    f32 = torch.float32
+    fr = free3.to(f32)
+    xf = x3.to(f32)
+    x32 = fr * xf
+    nx, ny, nz = x32.shape
+    xp = F.pad(x32, (1, 1, 1, 1, 1, 1))
+    y = coef[_CENTER_IDX].to(f32) * x32
+    for oi, (di, dj, dk) in enumerate(OFFSETS):
+        if oi == _CENTER_IDX:
+            continue
+        y = y + coef[oi].to(f32) * xp[
+            1 + di : 1 + di + nx, 1 + dj : 1 + dj + ny, 1 + dk : 1 + dk + nz
+        ]
+    return (fr * y + (1 - fr) * xf).to(torch.bfloat16)
+
+
+def stencil_apply_var_bf16(x3, coef, free3):
+    """K1 with bf16 storage: ``free3 * A(free3 * x3) + (1 - free3) * x3``
+    with ``A`` the variable-coefficient 15-tap stencil of
+    ``stencil_apply_var``, every product and sum in f32, the centre tap
+    first, the result rounded to bf16 once.
+
+    ``x3``, ``free3``: (Nx, Ny, Nz) bf16 (``free3`` a 0/1 mask); ``coef``:
+    (15, Nx, Ny, Nz) bf16; one device.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the bf16 instance of the K1 kernel of
+    ``csrc/stencil.cu`` on the current stream."""
+    name = "stencil_apply_var_bf16"
+    kind = _device_kind(name, x3)
+    if x3.dim() != 3 or tuple(coef.shape) != (15,) + tuple(x3.shape) or (
+            free3.shape != x3.shape):
+        raise ValueError(
+            f"{name}: expected x3 and free3 (Nx, Ny, Nz) and coef (15, Nx, "
+            f"Ny, Nz), got {tuple(x3.shape)}, {tuple(free3.shape)}, "
+            f"{tuple(coef.shape)}")
+    for arg, t in (("x3", x3), ("coef", coef), ("free3", free3)):
+        if t.dtype != torch.bfloat16 or t.device != x3.device:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
+                             f"expected bfloat16 on {x3.device}")
+        if t.numel() >= 2**31:
+            raise ValueError(f"{name}: {arg} has 2^31 or more elements")
+        if kind == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if kind == "cpu":
+        return stencil_apply_var_bf16_reference(x3, coef, free3)
+    return _stencil_launch(name, x3, free3, coef, None)
+
+
 def _stencil_launch(name, x3, free3, coef, taps):
     """K1 (``coef`` given) or K2 (host ``taps``) on checked CUDA tensors."""
     x3, free3 = _aligned16(x3), _aligned16(free3)
@@ -386,7 +446,7 @@ def _stencil_launch(name, x3, free3, coef, taps):
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = _stencil_lib().fst_stencil_apply(
-            int(x3.dtype == torch.float64), x3.data_ptr(),
+            _STENCIL_DTYPE[x3.dtype], x3.data_ptr(),
             None if free3 is None else free3.data_ptr(),
             None if coef is None else coef.data_ptr(), y.data_ptr(),
             nx, ny, nz, None if taps is None else taps.ctypes.data, stream,
@@ -403,18 +463,18 @@ PLAN_FIELDS = ("threads", "outputs", "W", "R", "tiles", "chunk", "blocks",
 
 def stencil_plan(x3, free3=None, coef=None):
     """The launch shape that K2 (``coef`` None) or K1 takes on the lattice
-    of the CUDA tensor ``x3`` (masked when ``free3`` is given): a dict of
-    ``PLAN_FIELDS`` (threads a block, outputs a thread, tile columns W and
-    rows R, tiles a plane, planes a block, blocks, shared-memory bytes).
-    Launches nothing."""
-    if x3.device.type != "cuda" or x3.dtype not in (torch.float32,
-                                                    torch.float64):
-        raise ValueError("stencil_plan: x3 must be float32 or float64 on a "
-                         f"CUDA device, got {x3.dtype} on {x3.device}")
+    of the CUDA tensor ``x3`` (masked when ``free3`` is given; a bf16 ``x3``
+    is K1's bf16 instance): a dict of ``PLAN_FIELDS`` (threads a block,
+    outputs a thread, tile columns W and rows R, tiles a plane, planes a
+    block, blocks, shared-memory bytes).  Launches nothing."""
+    if x3.device.type != "cuda" or x3.dtype not in _STENCIL_DTYPE:
+        raise ValueError("stencil_plan: x3 must be float32, float64 or "
+                         f"bfloat16 on a CUDA device, got {x3.dtype} on "
+                         f"{x3.device}")
     out = (ctypes.c_int * len(PLAN_FIELDS))()
     with torch.cuda.device(x3.device):
         rc = _stencil_lib().fst_stencil_plan(
-            int(x3.dtype == torch.float64), int(free3 is not None),
+            _STENCIL_DTYPE[x3.dtype], int(free3 is not None),
             int(coef is not None), *x3.shape, out)
     if rc != 0:
         raise RuntimeError(f"stencil_plan: failed with CUDA error {rc}")

@@ -45,6 +45,13 @@ from ..ops import assembly, geometry
 from .navier_stokes import CoupledNavierStokesSolver, _row
 from .solver_base import SolverError
 
+#: what ``vmap(jacfwd)`` of the momentum cell kernel holds per entry of the
+#: element matrix and per quadrature point: 16.4-16.9 B on the H100 (the
+#: 3-D Couette duct, k = 34 and the 343 points of the degree-6 rule, at 6^3
+#: and 8^3), so the default chunk model (200 B an entry) held 28x its bytes
+#: in 3-D and one chunk took every cell of a mesh below 14,513 cells
+CELL_BYTES_PER_ENTRY_POINT = 17
+
 
 class NSDGSolver(CoupledNavierStokesSolver):
     def __init__(self, case_input, device=None):
@@ -159,8 +166,11 @@ class NSDGSolver(CoupledNavierStokesSolver):
             return torch.cat([r_v.reshape(-1), r_p])
 
         form = assembly.Form(space=W)
-        form.cell_terms.append(assembly.CellTerm(kernel=cell_kernel, ctx=ctx,
-                                                 aux=aux or None))
+        per_entry = max(assembly.JACFWD_BYTES_PER_ENTRY,
+                        CELL_BYTES_PER_ENTRY_POINT * qw.shape[0])
+        form.cell_terms.append(assembly.CellTerm(
+            kernel=cell_kernel, ctx=ctx, aux=aux or None,
+            chunk=assembly.chunk_cells(ctx.cell_dofs.shape[1], per_entry)))
 
         # interior facets: SIPG viscous, pressure/continuity couplings and
         # the upwind convective flux

@@ -169,7 +169,9 @@ def test_device_and_dtype_policy(monkeypatch):
 
 
 ENTRY_POINTS = ["lattice_cli", "lattice_module", "run_stencil", "run_csr",
-                "main", "module", "solver", "sharded", "box_geometry"]
+                "main", "module", "solver", "sharded", "box_geometry",
+                "run_stencil_bf16", "run_unstructured", "lattice_cli_bf16",
+                "lattice_cli_unstructured"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -203,6 +205,11 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "lattice_cli": lambda: lattice_poisson.main(["--n", "4"]),
         "run_stencil": lambda: lattice_poisson.run_stencil(4),
         "run_csr": lambda: lattice_poisson.run_csr(4),
+        "run_stencil_bf16": lambda: lattice_poisson.run_stencil(4, bf16=True),
+        "run_unstructured": lambda: lattice_poisson.run_unstructured(4),
+        "lattice_cli_bf16": lambda: lattice_poisson.main(["--n", "4", "--bf16"]),
+        "lattice_cli_unstructured": lambda: lattice_poisson.main(
+            ["--n", "4", "--format", "unstructured"]),
         "main": lambda: main(load_settings(case)),
         "solver": lambda: ScalarTransportSolver(load_settings(case)),
         "sharded": lambda: ShardedEllipticSolver(
@@ -218,6 +225,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 BYTE_MODEL = [
     ("K2", "k2_bytes", ((129, 129, 129), 8), "float64", 51_520_536),
     ("K1", "k1_bytes", ((129, 129, 129), 4), "float32", 154_561_608),
+    ("K1-bf16", "k1_bf16_bytes", ((129, 129, 129),), "float32", 77_280_804),
     ("K3", "k3_bytes", (6 * 128**3, 4), "float32", 1_006_632_960),
     ("K4", "k4_bytes", (6 * 128**3, 8), "float64", 2_617_245_696),
     ("K5", "k5_bytes", (6 * 128**3, 8), "float64", 2_415_919_104),
@@ -233,7 +241,7 @@ def test_chip_smoke_byte_model(kernel, fn, args, dtype, nbytes):
 
     assert getattr(chip_smoke, fn)(*args) == nbytes
     flops = (chip_smoke.stencil_flops(args[0]) if kernel in ("K1", "K2")
-             else getattr(chip_smoke, f"{kernel.lower()}_flops")(args[0]))
+             else getattr(chip_smoke, fn.replace("bytes", "flops"))(args[0]))
     ms, by = chip_smoke.bound(nbytes, flops, dtype)
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
