@@ -453,8 +453,8 @@ def phase_build():
     with ThreadPoolExecutor(len(cuda_kernels.SOURCES)) as ex:
         paths = list(ex.map(cuda_kernels.build, cuda_kernels.SOURCES))
     print(f"[build] {len(paths)} sources in {time.perf_counter() - t0:.2f} s")
-    for name, path in zip(cuda_kernels.SOURCES, paths):
-        info = cuda_kernels.BUILD_INFO[name]
+    for path in paths:
+        info = cuda_kernels.BUILD_INFO[path]
         print(f"[build] {os.path.relpath(path, HERE)} (nvcc {info['seconds']:.2f} s)")
         for line in _ptxas_lines(info["log"]):
             print(f"[build] {line}")
@@ -517,10 +517,12 @@ def _timed(tag, what, kernel, plain, nbytes, flops, dtype_name, library=None):
 
 
 def plan_text(plan):
+    staged = (f" ({plan['coef_smem_bytes']} B of it the staged coefficient "
+              "tiles)" if plan["coef_smem_bytes"] else "")
     return (f"{plan['threads']} threads x {plan['outputs']} outputs, tile "
             f"{plan['R']} x {plan['W']} (j x k), {plan['tiles']} tiles a plane, "
             f"{plan['chunk']} planes a block, {plan['blocks']} blocks, "
-            f"{plan['smem_bytes']} B shared")
+            f"{plan['smem_bytes']} B shared{staged}")
 
 
 def _misaligned(t):
@@ -787,10 +789,12 @@ def phase_k1_bf16(device="cuda", shapes=STENCIL_SHAPES, n=N_MAIN):
     x32, c32, f32 = x.float(), c.float(), f.float()
     f32_ms = time_ms(lambda: cuda_kernels.stencil_apply_var(x32, c32, f32),
                      flush=True)
-    print(f"[k1-bf16] {shape}: the f32 K1 on the same values {f32_ms:.4f} ms "
-          f"flushed ({k1_bytes(shape, 4):,} B); bf16 / f32 time "
-          f"{t['ms'] / f32_ms:.3f}; max {worst_ulps:.2f} bf16 ulps over the "
-          "sweep")
+    print(f"[k1-bf16] {shape}: {plan_text(cuda_kernels.stencil_plan(x, f, c))}; "
+          f"the f32 K1 on the same values {f32_ms:.4f} ms "
+          f"flushed ({k1_bytes(shape, 4):,} B; "
+          f"{plan_text(cuda_kernels.stencil_plan(x32, f32, c32))}); bf16 / f32 "
+          f"time {t['ms'] / f32_ms:.3f}; max {worst_ulps:.2f} bf16 ulps over "
+          "the sweep")
     t.update(max_abs_err=worst_err, max_ulps=worst_ulps, f32_ms=f32_ms,
              library_ms=None, library_kernel_ms=None,
              library_case="none: the taps differ at each vertex")
@@ -1117,7 +1121,8 @@ def phase_bench_unstructured(device="cuda", n=100, n_check=12):
         t = _compare(
             "bench-unstructured", f"csr_spmv {name} {M.shape}, "
             f"{data.numel()} nnz ({data.numel() / M.shape[0]:.1f} a row), "
-            f"{cuda_kernels.spmv_lanes(data.numel(), M.shape[0])} lanes, f32",
+            + spmv_group_text(cuda_kernels.spmv_plan(
+                M.shape[0], M.shape[1], data.numel())) + ", f32",
             lambda: cuda_kernels.csr_spmv(*args),
             lambda: cuda_kernels.csr_spmv_reference(*args),
             spmv_bytes(M.shape[0], M.shape[1], data.numel(), 4),
@@ -2483,6 +2488,7 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
         solver = run_main(elasticity_settings(V, bcs, rtol=1e-8), device=device)
     wall = time.perf_counter() - t0
     spmv_launches = cuda_kernels.LAUNCHES["csr_spmv"]
+    spmv_by_shape = dict(cuda_kernels.SPMV_LAUNCHES_BY_SHAPE)
     dev = solver.device
     if on_card:
         check(dev.type == "cuda", f"the elasticity case ran on {dev}")
@@ -2524,9 +2530,17 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
           f"{solver.last_relres}")
     check(abs(tip - beam) / beam < 0.08, f"tip deflection {tip} vs {beam}")
     check(np.isfinite(vm.values).all(), "von Mises is not finite")
-    print(f"[elasticity] csr_spmv launches in main(): {spmv_launches}")
+    coarse = (amg.coarse_rows, amg.coarse_rows)
+    coarse_launches = (spmv_by_shape.get(coarse, 0)
+                       if amg.coarse_dense is None else 0)
+    print(f"[elasticity] csr_spmv launches in main(): {spmv_launches}, "
+          f"{coarse_launches} of them on the stalled coarsest A {coarse} "
+          f"({coarse_launches / max(solver.last_iterations, 1):.2f} a CG "
+          "iteration)")
     if on_card:
         check(spmv_launches > 0, "csr_spmv was not launched by the AMG-CG")
+        check(amg.coarse_dense is not None or coarse_launches > 0,
+              "csr_spmv was not launched on the stalled coarsest A")
 
     # F5: the hierarchy applied twice to one vector gives the same bits; a
     # second CG solve with it takes main()'s iterations to the same bits
@@ -2548,7 +2562,8 @@ def phase_elasticity(device=None, n=N_CANTILEVER, n_thermal=256, n_p2=(20, 3, 3)
     _sync(device)
     serial = {"V": V, "bcs": bcs, "x": x10.cpu().numpy(), "iterations": it10,
               "seconds": time.perf_counter() - t0, "relres": res10,
-              "spmv": spmv, "spmv_launches": spmv_launches}
+              "spmv": spmv, "spmv_launches": spmv_launches,
+              "coarse_launches": coarse_launches}
     print(f"[elasticity] AMG-CG to 1e-10: {it10} iterations, "
           f"{serial['seconds']:.2f} s, rel res {res10:.3e}")
     del solver, amg, cap, op, rhs, kw, x10
@@ -2609,11 +2624,19 @@ def spmv_bytes(n_rows, n_cols, nnz, itemsize):
     return nnz * (itemsize + 4) + (n_rows + 1) * 4 + (n_rows + n_cols) * itemsize
 
 
+def spmv_group_text(group):
+    """A group size of ``csr_spmv`` and its variant, in words."""
+    return (f"{group} threads a row" + (" (a block)" if group > 32 else ""))
+
+
 def phase_csr_spmv(amg):
     """``csr_spmv`` against its plain version (PyTorch's CSR product, i.e.
     cuSPARSE, the library call) on the AMG hierarchy of the elasticity
     path: the level-0 operator on a vector and on a block of 6 columns (as
-    LOBPCG passes), R and P; timed on the level-0 operator and a vector."""
+    LOBPCG passes), R, P and the stalled coarsest level's operator, each at
+    every group size of ``SPMV_GROUPS`` (the plan's variants), twice
+    bit-equal; timed on the level-0 operator and on the coarsest one with a
+    vector (the latter returned under ``"coarsest"``)."""
     import torch
 
     from fenicssolver_tpu_torch.ops import cuda_kernels
@@ -2639,37 +2662,47 @@ def phase_csr_spmv(amg):
                                        C.data, C.shape)
     for name, args in cases.items():
         times = []
-        for lanes in cuda_kernels.SPMV_LANES:
-            err, _ = _agree("csr-spmv", f"{name}, {lanes} lanes",
-                            lambda: cuda_kernels.csr_spmv(*args, lanes=lanes),
+        for group in cuda_kernels.SPMV_GROUPS:
+            err, _ = _agree("csr-spmv", f"{name}, {group} threads",
+                            lambda: cuda_kernels.csr_spmv(*args, group=group),
                             lambda: cuda_kernels.csr_spmv_reference(*args),
                             TOL["float64"])
-            y1 = cuda_kernels.csr_spmv(*args, lanes=lanes)
-            y2 = cuda_kernels.csr_spmv(*args, lanes=lanes)
+            y1 = cuda_kernels.csr_spmv(*args, group=group)
+            y2 = cuda_kernels.csr_spmv(*args, group=group)
             check(torch.equal(y1, y2),
-                  f"csr_spmv {name} with {lanes} lanes twice differs")
-            ms = time_ms(lambda: cuda_kernels.csr_spmv(*args, lanes=lanes),
+                  f"csr_spmv {name} with {group} threads twice differs")
+            ms = time_ms(lambda: cuda_kernels.csr_spmv(*args, group=group),
                          flush=True)
-            times.append(f"{lanes} lanes {ms:.4f}")
+            times.append(f"{group} {ms:.4f}")
         lib = time_ms(lambda: cuda_kernels.csr_spmv_reference(*args),
                       flush=True)
-        nnz, rows = args[2].numel(), args[4][0]
+        (rows, cols), nnz = args[4], args[2].numel()
+        m = 1 if args[3].dim() == 1 else args[3].shape[1]
         print(f"[csr-spmv] {name} {tuple(args[4])}, {nnz} nnz "
               f"({nnz / rows:.1f} a row): max abs err {err:.2e} against "
-              f"cuSPARSE, each twice bit-equal; ms flushed: "
-              + ", ".join(times) + f"; cuSPARSE {lib:.4f}; default "
-              f"{cuda_kernels.spmv_lanes(nnz, rows, args[3][0].numel())} "
-              "lanes")
-    args = cases["A"]
-    n_rows, n_cols = A.shape
-    return _compare(
-        "csr-spmv", f"level 0 A: {n_rows} rows, {p.nnz} nnz, f64",
-        lambda: cuda_kernels.csr_spmv(*args),
-        lambda: cuda_kernels.csr_spmv_reference(*args),
-        spmv_bytes(n_rows, n_cols, p.nnz, 8), 2 * p.nnz, "float64",
-        TOL["float64"], library=lambda: cuda_kernels.csr_spmv_reference(*args),
-        library_case="torch.sparse_csr_tensor @ x (cuSPARSE), which is the "
-                     "plain version")
+              f"cuSPARSE, each twice bit-equal; ms flushed by threads a row: "
+              + ", ".join(times) + f"; cuSPARSE {lib:.4f}; the plan: "
+              + spmv_group_text(cuda_kernels.spmv_plan(rows, cols, nnz, m)))
+
+    def timed(name, what):
+        args = cases[name]
+        (n_rows, n_cols), nnz = args[4], args[2].numel()
+        group = cuda_kernels.spmv_plan(n_rows, n_cols, nnz)
+        return _compare(
+            "csr-spmv", f"{what}: {n_rows} rows, {nnz} nnz, f64, "
+            + spmv_group_text(group),
+            lambda: cuda_kernels.csr_spmv(*args),
+            lambda: cuda_kernels.csr_spmv_reference(*args),
+            spmv_bytes(n_rows, n_cols, nnz, 8), 2 * nnz, "float64",
+            TOL["float64"],
+            library=lambda: cuda_kernels.csr_spmv_reference(*args),
+            library_case="torch.sparse_csr_tensor @ x (cuSPARSE), which is "
+                         "the plain version")
+
+    out = timed("A", "level 0 A")
+    if "coarsest A" in cases:
+        out["coarsest"] = timed("coarsest A", "the stalled coarsest A")
+    return out
 
 
 #: the cantilever's mesh for the set-up repeat check: 139,587 dofs, a set-up
@@ -6190,6 +6223,7 @@ def main():
     elas = phase_elasticity()
     phase_lattice_elasticity(serial=elas)
     spmv, spmv_launches = elas["spmv"], elas["spmv_launches"]
+    coarse_launches = elas["coarse_launches"]
     del elas
     phase_modal()
     phase_amg_scalar()
@@ -6244,6 +6278,13 @@ def main():
         "library_case": m["library_case"],
         "library_kernel_ms": m["library_kernel_ms"],
     } for name, (m, launches) in measured.items()]}
+    coarse = spmv.get("coarsest")
+    if coarse is not None:  # csr_spmv's second case: the stalled level's A
+        next(k for k in kernels["kernels"]
+             if k["name"] == "csr_spmv")["stalled_coarsest_A"] = {
+            "launches": coarse_launches,
+            **{k: coarse[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}}
     print(f"[done] all phases passed on {card}")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The counterpart of ``fenicssolver_tpu/ops/pallas_kernels.py``.  Each kernel
 has a wrapper that takes tensors: on a CPU tensor it runs the kernel's
 plain PyTorch version (the path the CPU tests take); on a CUDA tensor it
 launches the kernel, or raises — there is no fallback from one to the
-other.  Each wrapper adds one to ``LAUNCHES[name]`` where it launches.
+other.  Each wrapper adds one to ``LAUNCHES[name]`` where it launches
+(``csr_spmv`` also to ``SPMV_LAUNCHES_BY_SHAPE``).
 
 Build: the CUDA sources under ``csrc/`` are compiled at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
@@ -34,8 +35,8 @@ Kernels (ids of the table in ``PERF.md``):
   ``fenicssolver_tpu/ops/pallas_kernels.py:28``.
 - ``csr_spmv`` (``csrc/csr_spmv.cu``): a CSR matrix times a vector or a
   block of columns, each row summed in an order fixed by the matrix (a
-  group of ``spmv_lanes`` threads a row and column, a fixed shuffle tree):
-  the products of the AMG
+  group of ``spmv_plan`` threads a row and column, 4-32 within a warp or a
+  block of 128 or 256, a fixed tree): the products of the AMG
   V-cycles (``la/amg.py``, ``parallel/amg_halo.py``).  Not a TPU kernel:
   it repairs F5 (ROADMAP.md), PyTorch's CSR product summing long rows in
   an order that changes from run to run.
@@ -50,6 +51,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -73,6 +75,10 @@ LAUNCHES = {
     "csr_spmv": 0,
 }
 
+#: ``csr_spmv``'s launches by matrix shape (rows, cols) since the last
+#: ``reset_launch_counts()``
+SPMV_LAUNCHES_BY_SHAPE = {}
+
 #: the CUDA sources under ``csrc/``, one shared library each
 SOURCES = ("stencil", "p1_stiffness", "element_matvec", "csr_spmv")
 
@@ -94,7 +100,7 @@ SYM10 = tuple(
     for a in range(4)
 )
 
-#: what the last build of each library did: {name: {"seconds", "log", "path"}}
+#: what the build of each library did: {path: {"seconds", "log"}}
 BUILD_INFO = {}
 
 _libs = {}
@@ -105,6 +111,7 @@ _CENTER_IDX = [tuple(int(v) for v in o) for o in OFFSETS].index((0, 0, 0))
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SPMV_LAUNCHES_BY_SHAPE.clear()
 
 
 def _nvcc():
@@ -120,18 +127,18 @@ def _nvcc():
     )
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` for sm_90a (if not built yet) and return
-    the path of the shared library."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def build(name, csrc=CSRC_DIR):
+    """Compile ``<csrc>/<name>.cu`` (by default the package's ``csrc/``) for
+    sm_90a, if not built yet, and return the path of the shared library."""
+    src = os.path.join(csrc, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(so):
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "(cached)", "path": so})
+        BUILD_INFO.setdefault(so, {"seconds": 0.0, "log": "(cached)"})
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -145,19 +152,20 @@ def build(name):
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, so)
-    BUILD_INFO[name] = {
+    BUILD_INFO[so] = {
         "seconds": time.perf_counter() - t0,
         "log": (proc.stdout + proc.stderr).strip(),
-        "path": so,
     }
     return so
 
 
-def _stencil_lib():
-    lib = _libs.get("stencil")
+def _stencil_lib(csrc=CSRC_DIR):
+    """The library of ``<csrc>/stencil.cu`` (by default the package's),
+    built and loaded at first use, its C interface declared."""
+    lib = _libs.get(("stencil", csrc))
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build("stencil"))
+    lib = ctypes.CDLL(build("stencil", csrc))
     vp = ctypes.c_void_p
     i64 = ctypes.c_int64
     ci = ctypes.c_int
@@ -172,12 +180,12 @@ def _stencil_lib():
     lib.fst_stencil_offsets(table)
     if not np.array_equal(np.array(table[:]).reshape(15, 3), OFFSETS):
         raise RuntimeError("csrc/stencil.cu offset table differs from OFFSETS")
-    _libs["stencil"] = lib
+    _libs[("stencil", csrc)] = lib
     return lib
 
 
 def _p1_stiffness_lib():
-    lib = _libs.get("p1_stiffness")
+    lib = _libs.get(("p1_stiffness", CSRC_DIR))
     if lib is not None:
         return lib
     lib = ctypes.CDLL(build("p1_stiffness"))
@@ -193,12 +201,12 @@ def _p1_stiffness_lib():
         f.restype = ctypes.c_int
         f.argtypes = [vp, vp, vp, i64, ci, ci, ci,
                       ctypes.POINTER(ctypes.c_double), ctypes.c_double, vp]
-    _libs["p1_stiffness"] = lib
+    _libs[("p1_stiffness", CSRC_DIR)] = lib
     return lib
 
 
 def _element_matvec_lib():
-    lib = _libs.get("element_matvec")
+    lib = _libs.get(("element_matvec", CSRC_DIR))
     if lib is not None:
         return lib
     lib = ctypes.CDLL(build("element_matvec"))
@@ -217,22 +225,24 @@ def _element_matvec_lib():
             f"csrc/element_matvec.cu is built for k in {tuple(table[:count])}, "
             f"ELEMENT_MATVEC_K says {ELEMENT_MATVEC_K}"
         )
-    _libs["element_matvec"] = lib
+    _libs[("element_matvec", CSRC_DIR)] = lib
     return lib
 
 
-def _csr_spmv_lib():
-    lib = _libs.get("csr_spmv")
+def _csr_spmv_lib(csrc=CSRC_DIR):
+    """The library of ``<csrc>/csr_spmv.cu`` (by default the package's),
+    built and loaded at first use, its C interface declared."""
+    lib = _libs.get(("csr_spmv", csrc))
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build("csr_spmv"))
+    lib = ctypes.CDLL(build("csr_spmv", csrc))
     vp = ctypes.c_void_p
     i64 = ctypes.c_int64
     for fn in ("fst_csr_spmv_f64", "fst_csr_spmv_f32"):
         f = getattr(lib, fn)
         f.restype = ctypes.c_int
         f.argtypes = [vp, vp, vp, vp, vp, i64, i64, ctypes.c_int, vp]
-    _libs["csr_spmv"] = lib
+    _libs[("csr_spmv", csrc)] = lib
     return lib
 
 
@@ -278,7 +288,8 @@ def _check_lattice(name, x3, free3, **more):
 
 def _aligned16(t):
     """``t``, or a copy of it where its data is not 16 B aligned (the
-    stencil kernels copy x and f 16 B at a time)."""
+    stencil kernels copy x and f, and the bf16 K1 its coefficients, 16 B at
+    a time)."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -441,6 +452,8 @@ def stencil_apply_var_bf16(x3, coef, free3):
 def _stencil_launch(name, x3, free3, coef, taps):
     """K1 (``coef`` given) or K2 (host ``taps``) on checked CUDA tensors."""
     x3, free3 = _aligned16(x3), _aligned16(free3)
+    if x3.dtype == torch.bfloat16:  # its coefficient tiles are copied 16 B
+        coef = _aligned16(coef)      # at a time too
     y = torch.empty_like(x3)
     nx, ny, nz = x3.shape
     with torch.cuda.device(x3.device):
@@ -458,7 +471,7 @@ def _stencil_launch(name, x3, free3, coef, taps):
 #: the fields of ``stencil_plan``, in the order ``csrc/stencil.cu`` writes
 #: them
 PLAN_FIELDS = ("threads", "outputs", "W", "R", "tiles", "chunk", "blocks",
-               "smem_bytes")
+               "smem_bytes", "coef_smem_bytes")
 
 
 def stencil_plan(x3, free3=None, coef=None):
@@ -466,7 +479,9 @@ def stencil_plan(x3, free3=None, coef=None):
     of the CUDA tensor ``x3`` (masked when ``free3`` is given; a bf16 ``x3``
     is K1's bf16 instance): a dict of ``PLAN_FIELDS`` (threads a block,
     outputs a thread, tile columns W and rows R, tiles a plane, planes a
-    block, blocks, shared-memory bytes).  Launches nothing."""
+    block, blocks, shared-memory bytes, and of those the bytes of the
+    coefficient tiles that the bf16 K1 stages, else 0).  Launches
+    nothing."""
     if x3.device.type != "cuda" or x3.dtype not in _STENCIL_DTYPE:
         raise ValueError("stencil_plan: x3 must be float32, float64 or "
                          f"bfloat16 on a CUDA device, got {x3.dtype} on "
@@ -695,34 +710,64 @@ def csr_spmv_reference(indptr, indices, data, x, shape):
     return sparse_csr(indptr, indices, data, tuple(shape)) @ x
 
 
-#: the group sizes ``csr_spmv`` is built for (threads a row)
-SPMV_LANES = (4, 8, 16, 32)
+#: the group sizes ``csr_spmv`` is built for: the threads that sum one
+#: (row, column) pair, a group within a warp (4-32) or a whole block (128,
+#: 256)
+SPMV_GROUPS = (4, 8, 16, 32, 128, 256)
+
+#: threads below which a warp a (row, column) pair leaves the H100 short of
+#: work: its 132 SMs hold 2,048 resident threads each.  A constant, not a
+#: device query, so that a matrix sums in the same order on every card.
+SPMV_FILL_THREADS = 132 * 2048
+
+#: mean row length from which a row takes a whole block: 128 threads, or
+#: 256 where the rows are few (measured on the H100, PERF.md)
+SPMV_BLOCK_MEAN = 512
 
 
-def spmv_lanes(nnz, n_rows, cols=1):
-    """The threads a row of ``csr_spmv`` for a matrix of ``nnz`` entries in
-    ``n_rows`` rows times ``cols`` columns: the smallest of ``SPMV_LANES``
-    whose threads sum at least ~8 entries each over the row's columns
-    (``8 * lanes * cols >= nnz / n_rows``), else 32.  On the H100 this was
-    the fastest group at 43.5, 82 and 183 entries a row (the cantilever's
-    AMG level 0 A, P and R), and 4 for a block of 6 columns (PERF.md)."""
+def spmv_plan(n_rows, n_cols, nnz, m=1):
+    """The group size of ``csr_spmv`` (one of ``SPMV_GROUPS``) for a matrix
+    of ``n_rows`` x ``n_cols`` with ``nnz`` entries times ``m`` columns: a
+    function of those and the constants above alone, so a matrix sums in
+    the same order on every card.
+
+    A group within a warp: the smallest of 4, 8, 16, 32 whose threads sum
+    at least ~8 entries each over the row's columns (``8 * G * m >=
+    nnz / n_rows``); on the H100 this was the fastest group at 43.5, 82
+    and 183 entries a row (the cantilever's AMG level 0 A, P and R), and 4
+    for a block of 6 columns.  Where that is 32, a whole block takes each
+    (row, column) pair if the rows are long (``SPMV_BLOCK_MEAN`` entries or
+    more: 128 threads, 256 if they are also few) or few (the pairs times 32
+    threads short of ``SPMV_FILL_THREADS``: 128 threads).  The plan takes
+    the whole shape of the product, ``n_cols`` included, but no rule uses
+    ``n_cols``: the gathered x of every operator measured fits the L2, and
+    the width of x did not change the fastest group.  The "few" rule
+    counts the rows it is given, so a shard of a matrix
+    (``parallel/amg_halo.py``) may sum a row in another group than the
+    whole matrix."""
+    del n_cols
     mean = nnz / max(n_rows, 1)
-    return next((v for v in SPMV_LANES if 8 * v * cols >= mean),
-                SPMV_LANES[-1])
+    lanes = next((g for g in SPMV_GROUPS[:4] if 8 * g * m >= mean), 32)
+    if lanes < 32:
+        return lanes
+    few = n_rows * m * 32 < SPMV_FILL_THREADS
+    if mean >= SPMV_BLOCK_MEAN:
+        return 256 if few else 128
+    return 128 if few else 32
 
 
-def csr_spmv(indptr, indices, data, x, shape, lanes=None):
+def csr_spmv(indptr, indices, data, x, shape, group=None):
     """``y = A @ x`` for the CSR matrix ``A`` (``indptr``, ``indices``,
     ``data``, ``shape`` = (rows, cols)) and ``x`` a vector (cols,) or a
     block of columns (cols, m); ``y`` is (rows,) or (rows, m).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     of ``csrc/csr_spmv.cu`` on the current stream, which sums each row in an
-    order fixed by the matrix and the column count (and ``lanes``, the
-    threads a row, by default ``spmv_lanes`` of them), so equal inputs give
-    equal bits.  On the
-    card ``indptr`` and ``indices`` must be int32 and ``data`` of ``x``'s
-    dtype (float32 or float64); ``x`` is made contiguous."""
+    order fixed by the matrix and ``group`` (the threads a row and column,
+    one of ``SPMV_GROUPS``; by default ``spmv_plan`` of the matrix and the
+    column count), so equal inputs give equal bits.  On the card
+    ``indptr`` and ``indices`` must be int32 and ``data`` of ``x``'s dtype
+    (float32 or float64); ``x`` is made contiguous."""
     n_rows, n_cols = (int(v) for v in shape)
     if x.dim() not in (1, 2) or x.shape[0] != n_cols:
         raise ValueError(
@@ -736,11 +781,11 @@ def csr_spmv(indptr, indices, data, x, shape, lanes=None):
             f"{tuple(data.shape)}"
         )
     m = 1 if x.dim() == 1 else int(x.shape[1])
-    lanes = (spmv_lanes(data.numel(), n_rows, m) if lanes is None
-             else int(lanes))
-    if lanes not in SPMV_LANES:
-        raise ValueError(f"csr_spmv: lanes must be one of {SPMV_LANES}, "
-                         f"not {lanes}")
+    group = (spmv_plan(n_rows, n_cols, data.numel(), m) if group is None
+             else int(group))
+    if group not in SPMV_GROUPS:
+        raise ValueError(f"csr_spmv: group must be one of {SPMV_GROUPS}, "
+                         f"not {group}")
     if _device_kind("csr_spmv", x) == "cpu":
         _check_like("csr_spmv", x, data=data)
         return csr_spmv_reference(indptr, indices, data, x, shape)
@@ -752,8 +797,9 @@ def csr_spmv(indptr, indices, data, x, shape, lanes=None):
                 f"csr_spmv: {arg} is {t.dtype} on {t.device}, expected "
                 f"int32 on {x.device}"
             )
-    if n_rows * m * 32 >= 2**31:
-        raise ValueError("csr_spmv: rows * columns * 32 reaches 2^31")
+    if n_rows * m * group >= 2**31:
+        raise ValueError(f"csr_spmv: rows * columns * {group} threads reach "
+                         "2^31")
     y = torch.empty((n_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
     if n_rows * m == 0:
@@ -763,6 +809,8 @@ def csr_spmv(indptr, indices, data, x, shape, lanes=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n_rows, m, lanes, stream)
+                x.data_ptr(), y.data_ptr(), n_rows, m, group, stream)
     _launch("csr_spmv", rc)
+    key = (n_rows, n_cols)
+    SPMV_LAUNCHES_BY_SHAPE[key] = SPMV_LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

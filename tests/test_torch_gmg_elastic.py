@@ -16,7 +16,10 @@ in f64, inputs from numpy seeds:
   bench's own tolerance, 1e-6 relative residual); the CLI's JSON line;
 - ``csr_spmv``: a CSR product, a block of columns and an empty row against
   the reference's ``segment_sum`` order (1e-14); on the card (``gpu``
-  marker) the kernel against its plain version and twice bit-equal."""
+  marker) the kernel at every group size of ``SPMV_GROUPS`` and the plan's
+  against its plain version and twice bit-equal, on a matrix of many rows
+  and on one of few long rows (the plan's cases are in
+  ``tests/test_torch_spmv_plan.py``)."""
 
 import json
 
@@ -264,17 +267,24 @@ def test_csr_spmv_on_the_card_is_fixed_order():
     rng = np.random.default_rng(7)
     A = sp.random(5000, 5000, density=0.02, random_state=8, format="csr")
     A = sp.vstack([A[:2500], sp.csr_matrix((1, 5000)), A[2500:]]).tocsr()
-    assert np.diff(A.indptr)[2500] == 0  # an empty row
-    for cols in (None, 4):
-        x = rng.standard_normal((5000,) if cols is None else (5000, cols))
-        args = (torch.as_tensor(A.indptr.astype(np.int32)).cuda(),
-                torch.as_tensor(A.indices.astype(np.int32)).cuda(),
-                torch.as_tensor(A.data).cuda(), torch.as_tensor(x).cuda(),
-                A.shape)
-        plain = cuda_kernels.csr_spmv_reference(*args).cpu().numpy()
-        for lanes in (None,) + cuda_kernels.SPMV_LANES:
-            y1 = cuda_kernels.csr_spmv(*args, lanes=lanes)
-            y2 = cuda_kernels.csr_spmv(*args, lanes=lanes)
-            assert torch.equal(y1, y2), lanes
-            assert _err(y1.cpu().numpy(), plain) <= 1e-13, lanes
-            assert torch.all(y1[2500] == 0), lanes
+    # few long rows (the unstructured hierarchy's coarse R and A) of random
+    # lengths, so that the rows start off any alignment
+    L = sp.random(400, 1300, density=0.6, random_state=9, format="csr")
+    L = sp.vstack([L[:200], sp.csr_matrix((1, 1300)), L[200:]]).tocsr()
+    for M, empty in ((A, 2500), (L, 200)):
+        assert np.diff(M.indptr)[empty] == 0  # an empty row
+        assert len(set(np.asarray(M.indptr) % 4)) == 4  # row starts misaligned
+        for cols in (None, 4):
+            x = rng.standard_normal((M.shape[1],) if cols is None
+                                    else (M.shape[1], cols))
+            args = (torch.as_tensor(M.indptr.astype(np.int32)).cuda(),
+                    torch.as_tensor(M.indices.astype(np.int32)).cuda(),
+                    torch.as_tensor(M.data).cuda(), torch.as_tensor(x).cuda(),
+                    M.shape)
+            plain = cuda_kernels.csr_spmv_reference(*args).cpu().numpy()
+            for group in (None,) + cuda_kernels.SPMV_GROUPS:
+                y1 = cuda_kernels.csr_spmv(*args, group=group)
+                y2 = cuda_kernels.csr_spmv(*args, group=group)
+                assert torch.equal(y1, y2), group
+                assert _err(y1.cpu().numpy(), plain) <= 1e-13, group
+                assert torch.all(y1[empty] == 0), group
