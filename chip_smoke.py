@@ -195,7 +195,17 @@ non-zero and no result line is printed):
     same discrete problem: the mesh's vertices are the lattice's in
     C-order); (b) ``elasticity3d_p1`` at ``UnitCubeMesh(32)`` (107,811
     dofs, k = 12) against the port's assembled CSR Jacobi-CG; (c)
-    ``poisson3d_p1`` at n = 32 on four shards of ``cuda:0`` against one.
+    ``poisson3d_p1`` at n = 32 on four shards of ``cuda:0`` against one;
+13. multi-device (``phase_multi_device``): with two cards or more, the
+    slab lattice GMG-CG at ``UnitCubeMesh(128)``, the sharded AMG-CG at
+    274,625 dofs, ``HaloElementSolver``, the explicit march at 1,050,625
+    nodes and K5's ``ShardedEllipticSolver``, each on 8 shards over every
+    card and on one shard a card, held bit for bit (and in iterations)
+    against the same shards stacked on ``cuda:0``, with ms an iteration,
+    the bytes copied between cards, peer access and each card's launches;
+    with one card, a check that ``config.shard_devices()`` puts every shard
+    on ``cuda:0``.  ``python3 chip_smoke.py --only multi-device`` runs the
+    build and this phase alone (on a machine with several cards).
 
 Kernel times in the kernels' record are those of the dtype and mask of
 the path that launches the kernel: K2 f64 all-Dirichlet (the transient
@@ -419,8 +429,11 @@ def phase_device():
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    cards = smi.stdout.strip().splitlines()
+    card = cards[0]
     print(card)
+    for i, other in enumerate(cards[1:], 1):
+        print(f"[device] cuda:{i}: {other}")
     cpu = "unknown"
     if os.path.exists("/proc/cpuinfo"):
         with open("/proc/cpuinfo") as f:
@@ -5829,9 +5842,9 @@ def _lattice_system(n, device):
 
 def _lattice_kernels_agree(what, ls, free):
     """K1 and K2 against their plain versions on a lattice solver's own
-    inputs, f64 at ``TOL``: its stacked haloed fields ``_coef_e`` and each
-    sharded level's haloed mask, on a seeded vector split and haloed at that
-    level's shape (K1 masked and unmasked at level 0, as the CG operator and
+    inputs (one card: one device group), f64 at ``TOL``: its stacked haloed
+    fields ``_coef_e`` and each sharded level's haloed mask, on a seeded
+    vector split and haloed at that level's shape (K1 masked and unmasked at level 0, as the CG operator and
     the Dirichlet lift call it; K2 at every sharded level with that level's
     taps).  Returns each kernel's max abs error."""
     import numpy as np
@@ -5841,14 +5854,15 @@ def _lattice_kernels_agree(what, ls, free):
 
     dtype = torch.float64
     _, free_e, _, _ = ls._level_data(free, dtype)
-    coef_e = ls._coef_e.to(dtype)
+    free_e = [f.parts[0] for f in free_e]
+    coef_e = ls._coef_e[0].to(dtype)
     errs = {"stencil_apply_var": 0.0, "stencil_apply_const": 0.0}
     shapes = []
     for l in range(ls.Ls):
         nl = tuple(((v - 1) >> l) + 1 for v in ls.shape3)
         x = torch.as_tensor(np.random.default_rng(l).standard_normal(nl),
                             dtype=dtype, device=ls.device)
-        xe = ls._halo(ls._split(x, l), l)
+        xe = ls._halo(ls._split(x, l), l).parts[0]
         flat = xe.reshape((-1,) + tuple(xe.shape[-2:]))
         shapes.append(tuple(flat.shape))
         cases = [("stencil_apply_const", f"K2 level {l}",
@@ -6016,8 +6030,9 @@ def phase_lattice_elasticity(device=None, serial=None, n_bench=N_ELAS_BENCH,
                                                < 1e-9, 1].mean()))
     tip, tip_s = tip_of(x), tip_of(serial["x"])
     it = solver.last_iterations
-    xt = torch.randn((ls.n_dev, 3, ls.mp[0]) + ls.shape3[1:],
-                     dtype=torch.float64, device=ls.device)
+    xt = ls.groups.sharded([torch.randn(
+        (ls.n_dev, 3, ls.mp[0]) + ls.shape3[1:], dtype=torch.float64,
+        device=ls.device)], 0)
     block_ms = time_ms(lambda: ls._apply(xt, 0, ls._coef), reps=5, warmup=1)
     print(f"[lattice-elasticity] cantilever {ls.shape3}, {V.ndof} dofs, "
           f"{ls.n_dev} shards, {ls.Ls} sharded levels + tail {ls._tail_n}, "
@@ -6059,6 +6074,227 @@ def phase_lattice_elasticity(device=None, serial=None, n_bench=N_ELAS_BENCH,
           f"umax {r['u_max']} at n = {n_bench} against {mg} at n = {n_check}")
     check(rel <= 1e-10 and ig == ic, f"run_elasticity({n_check}) card vs CPU: "
           f"rel-L2 {rel}, iterations {ig} vs {ic}")
+
+
+#: the multi-device phase's sizes: the slab lattice at 129^3 (2,146,689
+#: dofs), the unstructured AMG at 65^3 (274,625 dofs), the element-sharded
+#: Poisson at 48^3, the acoustic pulse at 1025^2 (1,050,625 nodes, a few
+#: steps), K5's Poisson at 64^3
+N_MD_LATTICE, N_MD_AMG, N_MD_ELEM, N_MD_PULSE, N_MD_K5 = 128, 64, 48, 1024, 64
+MD_PULSE_T = 0.005
+
+
+class _ShardList:
+    """``config.shard_devices()`` returns ``devices`` in the block (the
+    routes take their shards from it)."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def __enter__(self):
+        from fenicssolver_tpu_torch import config
+
+        self.saved = config.shard_devices
+        config.shard_devices = lambda: list(self.devices)
+
+    def __exit__(self, *exc):
+        from fenicssolver_tpu_torch import config
+
+        config.shard_devices = self.saved
+
+
+def _md_layouts(cards, shards):
+    """The two placements of ``shards`` shards held against each other:
+    spread over ``cards`` in contiguous blocks (``config.shard_devices()``'s
+    rule) and stacked on ``cards[0]``."""
+    spread = [cards[r * len(cards) // shards] for r in range(shards)]
+    return {"spread": spread, "stacked": [cards[0]] * shards}
+
+
+def _md_cases(base, n_lat, n_amg, n_elem, n_pulse, pulse_t, n_k5):
+    """The multi-device phase's solves, each ``run(devices) -> (x as numpy,
+    iterations or steps, seconds of the solve, its Groups and the bytes
+    they copied between devices in the solve, or None, None for K5)``."""
+    import numpy as np
+    import torch
+
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.core.meshgen import perturbed_tet_box
+    from fenicssolver_tpu_torch.main import main as run_main
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+    from fenicssolver_tpu_torch.parallel import ShardedEllipticSolver
+    from fenicssolver_tpu_torch.parallel.amg_halo import HaloAMGSolver
+    from fenicssolver_tpu_torch.parallel.halo import (
+        HaloElementSolver,
+        batches_from_form,
+    )
+    from fenicssolver_tpu_torch.parallel.lattice import LatticeHaloSolver
+
+    f64 = torch.float64
+
+    def timed(fn, groups):
+        """fn's result, its seconds and the bytes ``groups`` copied between
+        devices during it."""
+        c0 = 0 if groups is None else groups.copied
+        _sync(base)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(base)
+        sec = time.perf_counter() - t0
+        return out, sec, None if groups is None else groups.copied - c0
+
+    coef, b_lat, free_lat = _lattice_system(n_lat, base)
+
+    def lattice(devs):
+        ls = LatticeHaloSolver(coef, {"n": (n_lat,) * 3}, devices=devs)
+        (x, it), sec, cp = timed(lambda: ls.solve(
+            b_lat, free_lat, torch.zeros_like(b_lat), tol=1e-10, maxiter=200),
+            ls.groups)
+        return x.cpu().numpy(), it, sec, ls.groups, cp
+
+    mesh = perturbed_tet_box(n_amg)
+    Va = core.FunctionSpace(mesh, "CG", 1)
+    ctx = geometry.build_cell_context(Va, 2, device=base, dtype=f64)
+    form = assembly.Form(space=Va, cell_terms=[assembly.CellTerm(
+        kernel=poisson_kernel(base, f64), ctx=ctx)])
+    form.finalize()
+    A_amg, b_amg = assembly.assemble_linear_system(form, dtype=f64)
+    dd = assembly.DirichletData(Va.ndof)
+    dd.add(Va.facet_dofs(mesh.exterior_facets()), 0.0)
+    dd.finalize(device=base, dtype=f64)
+    free_amg, ubc_amg = dd.free_mask, dd.u_bc
+
+    def amg(devs):
+        hs = HaloAMGSolver(A_amg, Va.dof_coords, free_amg.cpu().numpy(),
+                           devices=devs)
+        (x, it, _), sec, cp = timed(lambda: hs.solve(
+            b_amg, ubc_amg, tol=1e-10, maxiter=300), hs.groups)
+        return x.cpu().numpy(), it, sec, hs.groups, cp
+
+    Ve, _, form_e, _, _ = sharded_problem(core, poisson_kernel, n_elem, False,
+                                          base, f64)
+    form_e.finalize()
+    Xe = Ve.dof_coords
+    dde = assembly.DirichletData(Ve.ndof)
+    dde.add(np.nonzero(np.any((Xe == 0.0) | (Xe == 1.0), axis=1))[0], 0.0)
+    dde.finalize(device=base, dtype=f64)
+    batches = batches_from_form(form_e, f64)
+
+    def element(devs):
+        hs = HaloElementSolver(batches, Xe, Ve.ndof, devices=devs, dtype=f64)
+        (x, it), sec, cp = timed(lambda: hs.solve(
+            dde.free_mask, dde.u_bc, tol=1e-10, maxiter=4000), hs._lay.groups)
+        return x.cpu().numpy(), it, sec, hs._lay.groups, cp
+
+    def explicit(devs):
+        with _ShardList(devs):
+            solver = run_main(_dist(_pulse_vectorised(pulse_settings(
+                core, n_pulse, t_end=pulse_t))), device=base)
+        st = solver.last_stepper
+        return (solver.state, solver.steps_taken,
+                solver.timers.totals["march"], st.groups, st.groups.copied)
+
+    Vk, kernel_k, _, bk, ddk = sharded_problem(core, poisson_kernel, n_k5,
+                                               False, base, f64)
+
+    def k5(devs):
+        solver = ShardedEllipticSolver(Vk, kernel_k, devices=devs, dtype=f64)
+        (x, it), sec, _ = timed(lambda: solver.solve(
+            bk, ddk.free_mask, ddk.u_bc, tol=1e-10, maxiter=4000), None)
+        return x.cpu().numpy(), it, sec, None, None
+
+    return {
+        f"slab lattice GMG-CG UnitCubeMesh({n_lat})": lattice,
+        f"sharded AMG-CG (perturbed tets) n = {n_amg}": amg,
+        f"HaloElementSolver Poisson UnitCubeMesh({n_elem})": element,
+        f"explicit march, acoustic pulse {n_pulse} x {n_pulse}": explicit,
+        f"K5 ShardedEllipticSolver Poisson UnitCubeMesh({n_k5})": k5,
+    }
+
+
+def phase_multi_device(cards=None, n_lat=N_MD_LATTICE, n_amg=N_MD_AMG,
+                       n_elem=N_MD_ELEM, n_pulse=N_MD_PULSE,
+                       pulse_t=MD_PULSE_T, n_k5=N_MD_K5):
+    """The distributed layer's shards on several cards in one process
+    (``parallel/groups.py``).  With two cards or more (``cards``, default
+    every card): each distributed solve (the slab lattice GMG-CG, the
+    sharded AMG-CG, ``HaloElementSolver``, the explicit march, K5's
+    ``ShardedEllipticSolver``) on SHARDS shards spread over the cards and on
+    one shard a card, each held against the same shard count stacked on
+    ``cards[0]``: the same iteration (or step) count and the solution bit
+    for bit, any difference printed and failed.  Prints ms an iteration
+    spread beside stacked, the bytes copied between cards an iteration,
+    whether peer access is on, and the launches of K1, K2, K5 and
+    ``csr_spmv`` on each card (counted in the wrappers, reset before each
+    solve).  With one card: ``config.shard_devices()`` is ``cuda:0`` for
+    every shard, and the phase says that it needs two cards."""
+    import numpy as np
+    import torch
+
+    from fenicssolver_tpu_torch import config
+    from fenicssolver_tpu_torch.ops import cuda_kernels
+    from fenicssolver_tpu_torch.parallel.groups import Groups
+
+    if cards is None:
+        n_cards = torch.cuda.device_count()
+        cards = [f"cuda:{i}" for i in range(n_cards)]
+        with _Shards(SHARDS):
+            placed = config.shard_devices()
+        want = [torch.device("cuda", r * n_cards // SHARDS)
+                for r in range(SHARDS)]
+        check(placed == want, f"shard_devices() placed {SHARDS} shards on "
+              f"{[str(d) for d in placed]}, expected {[str(d) for d in want]}")
+        if n_cards < 2:
+            print(f"[multi-device] one card: shard_devices() puts all "
+                  f"{SHARDS} shards on cuda:0 (as before); the phase needs "
+                  "two cards or more to run")
+            return None
+    t_phase = time.perf_counter()
+    base = cards[0]
+    cases = _md_cases(base, n_lat, n_amg, n_elem, n_pulse, pulse_t, n_k5)
+    watched = ("stencil_apply_var", "stencil_apply_const", "element_matvec",
+               "csr_spmv")
+    out = {}
+    for name, run in cases.items():
+        for shards in (SHARDS, len(cards)):
+            rows = {}
+            for how, devs in _md_layouts(cards, shards).items():
+                cuda_kernels.reset_launch_counts()
+                x, it, sec, groups, copied = run(devs)
+                launches = {f"{k}@{i}": v for (k, i), v in sorted(
+                    cuda_kernels.LAUNCHES_BY_DEVICE.items()) if k in watched}
+                rows[how] = dict(x=x, it=it, sec=sec, launches=launches,
+                                 groups=groups, copied=copied)
+            sp, st = rows["spread"], rows["stacked"]
+            same = sp["it"] == st["it"] and np.array_equal(sp["x"], st["x"])
+            diff = (0.0 if sp["x"].shape != st["x"].shape or same
+                    else float(np.abs(sp["x"] - st["x"]).max()))
+            gr = sp["groups"]
+            peer = Groups(_md_layouts(cards, shards)["spread"]).peer_access()
+            copied = ("not counted (K5's shards each send their partial to "
+                      "devices[0])" if gr is None
+                      else f"{sp['copied'] / max(sp['it'], 1):.0f} B an "
+                           "iteration")
+            print(f"[multi-device] {name}: {shards} shards on "
+                  f"{len(set(map(str, _md_layouts(cards, shards)['spread'])))}"
+                  f" cards: {sp['it']} iterations, {1e3 * sp['sec'] / max(sp['it'], 1):.3f}"
+                  f" ms an iteration; stacked on {base}: {st['it']} iterations, "
+                  f"{1e3 * st['sec'] / max(st['it'], 1):.3f} ms an iteration; "
+                  f"bit-equal {same} (max abs difference {diff:.3e}); copied "
+                  f"between cards {copied}; peer access {peer}; launches on "
+                  f"the cards {sp['launches']} (stacked {st['launches']})")
+            check(same, f"multi-device {name} on {shards} shards: {sp['it']} "
+                  f"against {st['it']} iterations stacked, max abs difference "
+                  f"{diff}")
+            if str(base).startswith("cuda"):
+                check(peer is not None, f"{name}: no peer-access reading")
+            out[name, shards] = dict(
+                iterations=sp["it"], ms_spread=1e3 * sp["sec"] / max(sp["it"], 1),
+                ms_stacked=1e3 * st["sec"] / max(st["it"], 1),
+                launches=sp["launches"])
+            del rows, sp, st
+    print(f"[multi-device] phase {time.perf_counter() - t_phase:.2f} s")
+    return out
 
 
 def measure_amg_setup(device=None, n=N_CANTILEVER):
@@ -6179,9 +6415,17 @@ def phase_default_device(n=16):
           f"iterations")
 
 
-def main():
+def main(argv=None):
+    """All phases on one card (no arguments), or with ``--only
+    multi-device`` the build and ``phase_multi_device`` alone (run it on a
+    machine with several cards)."""
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="GPU smoke run of the port")
+    ap.add_argument("--only", choices=["multi-device"], default=None)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -6198,6 +6442,14 @@ def main():
 
     card = phase_device()
     phase_build()
+    if args.only == "multi-device":
+        phase_multi_device()
+        print(f"[done] the multi-device phase passed on "
+              f"{torch.cuda.device_count()} x {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     k2 = phase_k2()
     k1 = phase_k1()
     k1_bf16 = phase_k1_bf16()
@@ -6254,6 +6506,7 @@ def main():
     csr = phase_csr()
     k5 = phase_k5()
     shard = phase_sharded()
+    phase_multi_device()
     measured = {
         "stencil_apply_var": (k1, lat["launches"]["stencil_apply_var"]),
         "stencil_apply_var_bf16": (

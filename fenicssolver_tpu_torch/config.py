@@ -48,19 +48,20 @@ def synchronize(device):
 
 def shard_devices():
     """The devices the distributed layer (``parallel/``) shards over: the
-    counterpart of the reference's ``jax.devices()``.
+    counterpart of the reference's ``jax.devices()``, one entry a shard.
 
     ``FST_SHARDS`` shards (default: ``torch.cuda.device_count()`` on the
-    card, 1 on the CPU), each on the default device (``resolve_device``):
-    the shards of one process are repeats of one device, ``cuda:0`` on a
-    card, as the reference's tests run 8 virtual devices on one CPU.
-    Shards on other cards would be ``torch.distributed`` ranks, which the
-    port does not have yet (ROADMAP.md)."""
+    card, 1 on the CPU).  On the card they are spread over every card in
+    contiguous blocks, shard r on ``cuda:(r * n_cards // n_shards)``, so
+    neighbouring shards share a card where they can; with one card every
+    shard is on ``cuda:0``.  On the CPU every shard is on the default
+    device.  The shards of one card are stacked there as one tensor
+    (``parallel/groups.py``)."""
     dev = resolve_device(None)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", 0)
-    default = torch.cuda.device_count() if dev.type == "cuda" else 1
-    n = int(os.environ.get("FST_SHARDS", default))
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = int(os.environ.get("FST_SHARDS", n_cards))
     if n < 1:
         raise ValueError(f"FST_SHARDS must be at least 1, not {n}")
-    return [dev] * n
+    if dev.type != "cuda":
+        return [dev] * n
+    return [torch.device("cuda", r * n_cards // n) for r in range(n)]

@@ -55,6 +55,7 @@ from ..core.expression import Constant, Expression
 from ..core.function import Function
 from ..core.spaces import MixedFunctionSpace, VectorFunctionSpace
 from ..la.sparse import CSRMatrix, build_pattern, sparse_csr
+from . import cuda_kernels
 from . import geometry
 
 #: most cells per vmapped chunk in assembly (bounds device memory at 12.6M cells)
@@ -95,7 +96,13 @@ class OrderedScatter:
     (PyTorch's sparse CSR product, the solvers' own operator product) adds
     each row front to back; the row sums go to their distinct targets.  The
     result is the same in every run.  Otherwise plain ``index_add_``
-    (ordered on the CPU; atomics, in any order, on CUDA)."""
+    (ordered on the CPU; atomics, in any order, on CUDA).
+
+    ``group`` (set by ``fixed_order_sum``): the product is
+    ``cuda_kernels.csr_spmv`` with that group in place of PyTorch's, so
+    each row sums in an order fixed by the selector and the group alone."""
+
+    group = None
 
     def __init__(self, index, ordered=None):
         index = index.reshape(-1)
@@ -127,8 +134,29 @@ class OrderedScatter:
         if not self.ordered:
             return out.index_add_(0, self.index, values)
         # the targets are distinct: no two row sums meet in one element
-        return out.index_add_(0, self.targets,
-                              self._selector(values.dtype) @ values)
+        if self.group is None:
+            sums = self._selector(values.dtype) @ values
+        else:
+            n = self.cols.numel()
+            sums = cuda_kernels.csr_spmv(
+                self.crow, self.cols, _ones(n, values.dtype, values.device),
+                values, (self.targets.numel(), n), group=self.group)
+        return out.index_add_(0, self.targets, sums)
+
+
+def fixed_order_sum(scatters):
+    """Make ordered scatters that are the device groups' parts of one
+    sharded sum (``parallel/``) sum their rows with the ``csr_spmv`` group
+    of the whole: a row then sums in the same order in every grouping.
+    Unordered scatters (CPU tensors: ``index_add_`` adds in index order
+    already) are left as they are."""
+    if not all(s.ordered for s in scatters):
+        return
+    rows = sum(int(s.targets.numel()) for s in scatters)
+    nnz = sum(int(s.cols.numel()) for s in scatters)
+    group = cuda_kernels.spmv_plan(rows, nnz, nnz)
+    for s in scatters:
+        s.group = group
 
 
 @dataclass

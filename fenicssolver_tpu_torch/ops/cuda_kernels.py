@@ -4,8 +4,9 @@ The counterpart of ``fenicssolver_tpu/ops/pallas_kernels.py``.  Each kernel
 has a wrapper that takes tensors: on a CPU tensor it runs the kernel's
 plain PyTorch version (the path the CPU tests take); on a CUDA tensor it
 launches the kernel, or raises — there is no fallback from one to the
-other.  Each wrapper adds one to ``LAUNCHES[name]`` where it launches
-(``csr_spmv`` also to ``SPMV_LAUNCHES_BY_SHAPE``).
+other.  Each wrapper adds one to ``LAUNCHES[name]`` where it launches, and
+to ``LAUNCHES_BY_DEVICE[(name, card index)]`` (``csr_spmv`` also to
+``SPMV_LAUNCHES_BY_SHAPE``).
 
 Build: the CUDA sources under ``csrc/`` are compiled at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
@@ -75,6 +76,9 @@ LAUNCHES = {
     "csr_spmv": 0,
 }
 
+#: launches per (kernel, card index) since the last ``reset_launch_counts()``
+LAUNCHES_BY_DEVICE = {}
+
 #: ``csr_spmv``'s launches by matrix shape (rows, cols) since the last
 #: ``reset_launch_counts()``
 SPMV_LAUNCHES_BY_SHAPE = {}
@@ -111,6 +115,7 @@ _CENTER_IDX = [tuple(int(v) for v in o) for o in OFFSETS].index((0, 0, 0))
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DEVICE.clear()
     SPMV_LAUNCHES_BY_SHAPE.clear()
 
 
@@ -293,10 +298,12 @@ def _aligned16(t):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(name, rc):
+def _launch(name, rc, device):
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+    key = (name, device.index)
+    LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + 1
 
 
 def _taps(coefs):
@@ -464,7 +471,7 @@ def _stencil_launch(name, x3, free3, coef, taps):
             None if coef is None else coef.data_ptr(), y.data_ptr(),
             nx, ny, nz, None if taps is None else taps.ctypes.data, stream,
         )
-    _launch(name, rc)
+    _launch(name, rc, x3.device)
     return y
 
 
@@ -562,7 +569,7 @@ def p1_stiffness_sym(JinvT, detJ):
     with torch.cuda.device(JinvT.device):
         stream = torch.cuda.current_stream(JinvT.device).cuda_stream
         rc = fn(JinvT.data_ptr(), detJ.data_ptr(), out.data_ptr(), nc, stream)
-    _launch("p1_stiffness_sym", rc)
+    _launch("p1_stiffness_sym", rc, JinvT.device)
     return out
 
 
@@ -643,7 +650,7 @@ def p1_stiffness(JinvT, detJ, gref):
             gdim, g_ref.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             1.0 / _VOL_FACT[tdim], stream,
         )
-    _launch("p1_stiffness", rc)
+    _launch("p1_stiffness", rc, JinvT.device)
     return out
 
 
@@ -694,7 +701,7 @@ def element_matvec(Ae_T, xe_T):
     with torch.cuda.device(Ae_T.device):
         stream = torch.cuda.current_stream(Ae_T.device).cuda_stream
         rc = fn(Ae_T.data_ptr(), xe_T.data_ptr(), y.data_ptr(), nc, k, stream)
-    _launch("element_matvec", rc)
+    _launch("element_matvec", rc, Ae_T.device)
     return y
 
 
@@ -810,7 +817,7 @@ def csr_spmv(indptr, indices, data, x, shape, group=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
                 x.data_ptr(), y.data_ptr(), n_rows, m, group, stream)
-    _launch("csr_spmv", rc)
+    _launch("csr_spmv", rc, x.device)
     key = (n_rows, n_cols)
     SPMV_LAUNCHES_BY_SHAPE[key] = SPMV_LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

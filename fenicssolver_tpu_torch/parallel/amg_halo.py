@@ -23,12 +23,15 @@ The Krylov solve (CG for SPD, BiCGStab / GMRES / FGMRES otherwise) is
 ``la/krylov``'s with the layout's inner product; vectors follow the
 owned-only convention.  The reference's ``build_vcycle`` (the closure a
 ``shard_map`` program embeds) is the method ``HaloAMGSolver.vcycle`` here,
-which the NS fieldsplit calls directly.  As in ``parallel/halo.py``, the shards of one
-process are stacked on one device and each level's local operators are
-block-diagonal CSR arrays (``la/amg.RectCSR``), multiplied by
-``la/amg.rect_matvec``: each row summed in an order fixed by the matrix,
-as the reference's padded COO ``segment_sum``, so the sharded V-cycle
-repeats bit for bit.
+which the NS fieldsplit calls directly.  As in ``parallel/halo.py``, the
+shards that share a device are stacked there (one device group), and each
+level's local operators are one block-diagonal CSR array a group
+(``groups.BlockCSR``): on the card ``cuda_kernels.csr_spmv``, each row
+summed in an order fixed by the matrix and the ``csr_spmv`` group of the
+whole stacked level (the reference sums padded COO segments), so the
+sharded V-cycle repeats bit for bit, and gives the same bits in every
+grouping of one shard count.  The coarsest level is gathered onto ``devices[0]``,
+solved there, and scattered back to every group.
 """
 
 from __future__ import annotations
@@ -38,12 +41,12 @@ import torch
 
 from .. import config
 from ..la import krylov
-from ..la.amg import RectCSR, rect_matvec
 from ..la.sparse import sparse_csr
+from .groups import BlockCSR, Groups
 from .halo import (
-    _Layout,
     _group_by_rank,
-    _one_device,
+    _group_csr,
+    _Layout,
     _partition,
     _row_take,
     host_csr,
@@ -93,31 +96,31 @@ def build_sa_hierarchy(A, B, theta=0.08, max_levels=10, coarse_size=600,
     return levels, dict(A=A, l1=l1c, lam1=_estimate_l1_lam(A, l1c, device))
 
 
-def _local_csr(M, rows_lay, row_ids, cols_lay, device, dtype):
+def _local_csr(M, rows_lay, row_ids, cols_lay, dtype):
     """The shards' row blocks of the host matrix ``M`` (rows ``row_ids[r]``
     of rank r, in order, at ``rows_lay``'s owned slots; columns at
-    ``cols_lay``'s local slots) as one block-diagonal ``RectCSR``.
-    Returns (the matrix, the nnz gather of M's values)."""
-    nd = rows_lay.n_dev
-    counts_flat = np.zeros(nd * rows_lay.Lp, dtype=np.int64)
-    takes, cols = [], []
-    for r in range(nd):
-        take, counts = _row_take(M.indptr, row_ids[r])
+    ``cols_lay``'s local slots) as one ``BlockCSR`` per device group, each
+    with the ``csr_spmv`` group of the whole stacked operator.
+    Returns (the matrices, per group the nnz gather of M's values)."""
+    blocks, plan = _group_csr(M.indptr, M.indices, row_ids, rows_lay,
+                              cols_lay)
+    vals = np.asarray(M.data, np.float64)
+    mats, takes = [], []
+    groups = rows_lay.groups
+    for (crow, col, take), dev, n in zip(blocks, groups.devices,
+                                          groups.sizes):
+        mats.append(BlockCSR(
+            torch.as_tensor(crow.astype(np.int32), device=dev),
+            torch.as_tensor(col.astype(np.int32), device=dev),
+            torch.as_tensor(vals[take], device=dev).to(dtype),
+            (n * rows_lay.Lp, n * cols_lay.Lp), plan, n))
         takes.append(take)
-        counts_flat[r * rows_lay.Lp:r * rows_lay.Lp + len(row_ids[r])] = counts
-        cols.append(cols_lay.local_slots(r, M.indices[take]))
-    take = np.concatenate(takes)
-    crow = np.zeros(len(counts_flat) + 1, dtype=np.int64)
-    np.cumsum(counts_flat, out=crow[1:])
-    if len(take) >= 2**31:
-        raise ValueError("a level's row blocks hold 2^31 or more entries")
-    vals = torch.as_tensor(np.asarray(M.data, np.float64)[take],
-                           device=device).to(dtype)
-    shape = (nd * rows_lay.Lp, nd * cols_lay.Lp)
-    return RectCSR(torch.as_tensor(crow.astype(np.int32), device=device),
-                   torch.as_tensor(np.concatenate(cols).astype(np.int32),
-                                   device=device),
-                   vals, shape), take
+    return mats, takes
+
+
+def _mv(mats, x):
+    """The groups' block-diagonal matrices times a local vector."""
+    return x.groups.sharded([M @ xg for M, xg in zip(mats, x.parts)])
 
 
 class HaloAMGSolver:
@@ -137,10 +140,10 @@ class HaloAMGSolver:
                  coarse_dense_limit=6000, owner=None, dtype=None):
         from ..la.sparse_algebra import HostCSR, coo_to_csr, csr_rows
 
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.devices = devs
-        device = self.device = devs[0]
+        groups = self.groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.devices = groups.entries
+        device = self.device = groups.device
         if dtype is None:
             dtype = (A.data.dtype if torch.is_tensor(getattr(A, "data", None))
                      else config.default_float())
@@ -205,7 +208,7 @@ class HaloAMGSolver:
                     need.append(Rl.indices[_row_take(Rl.indptr, oc[r])[0]])
                 ghosts.append(np.setdiff1d(np.unique(np.concatenate(need)),
                                            owned[r]))
-            lay.append(_Layout(owners[li], owned, ghosts, gc, device, dtype))
+            lay.append(_Layout(owners[li], owned, ghosts, gc, groups, dtype))
             if li < L:
                 Pl = levels[li]["P"]
                 pending = [Pl.indices[_row_take(Pl.indptr, owned[r])[0]]
@@ -215,21 +218,23 @@ class HaloAMGSolver:
         self._ops = []
         for li in range(L + 1):
             ly = lay[li]
-            A_loc, take = _local_csr(mats[li], ly, ly._owned, ly, device, dtype)
+            A_loc, take = _local_csr(mats[li], ly, ly._owned, ly, dtype)
             l1 = levels[li]["l1"] if li < L else coarse["l1"]
-            inv_l1 = torch.ones(ly.n_dev * ly.Lp, dtype=dtype, device=device)
-            inv_l1[ly._own_slots] = torch.as_tensor(
-                1.0 / l1[ly._glob[ly._own_slots.cpu().numpy()]],
-                device=device).to(dtype)
-            d = dict(A=A_loc, inv_l1=inv_l1,
+            inv_l1 = []
+            for gl, own, d in zip(ly._glob, ly._own_np, groups.devices):
+                v = np.ones(len(gl))
+                v[own] = 1.0 / l1[gl[own]]
+                inv_l1.append(torch.as_tensor(v, device=d).to(dtype))
+            d = dict(A=A_loc, inv_l1=groups.sharded(inv_l1),
                      lam1=float(levels[li]["lam1"] if li < L else coarse["lam1"]))
             if li == 0:
-                self._take0 = torch.as_tensor(keep_idx[take], device=device)
+                self._take0 = [torch.as_tensor(keep_idx[t], device=device)
+                               for t in take]
             if li < L:
                 d["R"] = _local_csr(levels[li]["R"], lay[li + 1],
-                                    lay[li + 1]._owned, ly, device, dtype)[0]
+                                    lay[li + 1]._owned, ly, dtype)[0]
                 d["P"] = _local_csr(levels[li]["P"], ly, ly._owned,
-                                    lay[li + 1], device, dtype)[0]
+                                    lay[li + 1], dtype)[0]
             self._ops.append(d)
         nc = self.n_coarse = coarse["A"].shape[0]
         self._coarse_pinv = None
@@ -244,7 +249,7 @@ class HaloAMGSolver:
 
     # -- the V-cycle ------------------------------------------------------
     def _matvec(self, li, x):
-        return rect_matvec(self._ops[li]["A"], self._lay[li].exchange(x))
+        return _mv(self._ops[li]["A"], self._lay[li].exchange(x))
 
     def _smooth(self, li, b, degree):
         """l1-Chebyshev, x0 = 0, interval [lam/4, lam] (owned-only in and
@@ -282,15 +287,15 @@ class HaloAMGSolver:
         ops = self._ops[li]
         x = self._smooth(li, b, self.presmooth + 1)
         r = b - self._matvec(li, x)
-        rc = rect_matvec(ops["R"], self._lay[li].exchange(r))
+        rc = _mv(ops["R"], self._lay[li].exchange(r))
         ec = self._vcycle_at(li + 1, rc)
-        x = x + rect_matvec(ops["P"], self._lay[li + 1].exchange(ec))
+        x = x + _mv(ops["P"], self._lay[li + 1].exchange(ec))
         return x + self._smooth(li, b - self._matvec(li, x),
                                 self.postsmooth + 1)
 
     def vcycle(self, b_loc):
-        """One V-cycle on an owned-only level-0 local vector (stacked,
-        ``n_dev * Lp0`` slots over the free dofs)."""
+        """One V-cycle on an owned-only level-0 local vector (``Lp0`` slots
+        a shard over the free dofs)."""
         return self._vcycle_at(0, b_loc)
 
     # -- refresh and solve ----------------------------------------------------
@@ -305,15 +310,14 @@ class HaloAMGSolver:
         full = self._A_full
         self._A_full = sparse_csr(full.crow_indices(), full.col_indices(),
                                   data, full.shape)
-        A0 = self._ops[0]["A"]
-        self._ops[0]["A"] = RectCSR(A0.indptr, A0.indices, data[self._take0],
-                                    A0.shape)
+        for A0, t in zip(self._ops[0]["A"], self._take0):
+            A0.set_data(self.groups.move(data[t], A0.data.device))
 
     def solve(self, b, u_bc=None, method="cg", tol=1e-10, maxiter=500,
               restart=80):
         """Solve A x = b with the Dirichlet values ``u_bc`` on the
         constrained dofs.  Returns (x, iterations, rel_residual), x a tensor
-        on the shards' device."""
+        on ``devices[0]``."""
         lay0 = self._lay[0]
         b = lay0.tensor(b)
         ubc = (torch.zeros_like(b) if u_bc is None else lay0.tensor(u_bc))

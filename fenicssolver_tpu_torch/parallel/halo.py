@@ -11,15 +11,22 @@ multiplies the shard's row block; Krylov inner products are sums of the
 shards' owned-slot partials, taken in rank order on ``devices[0]`` (the
 reference's ``psum``).
 
-How the shards are held: the shards of one process live on one device
-(``config.shard_devices()``: repeats of ``cuda:0`` on a card, of ``cpu`` in
-the tests), so the shards' local vectors are stacked into one flat tensor of
-``n_dev * Lp`` slots, shard r at ``[r * Lp, (r + 1) * Lp)``.  The row blocks
-of all shards form one block-diagonal ``torch.sparse_csr_tensor`` whose
-block r reads only shard r's slots; the exchange is one index gather from
-owner slots into ghost slots (``index_copy``, each ghost slot written once),
-the only data that crosses between shards.  Shards on different devices
-would be ``torch.distributed`` ranks, which are not ported yet.
+How the shards are held: ``config.shard_devices()`` gives each shard a
+device, and the shards that share a device form a group
+(``parallel/groups.py``): on one card all of them, on four cards two a
+card, in the tests ``cpu`` or ``cpu:k`` entries.  A group's local vectors
+are stacked into one flat tensor on its device, its ranks in ascending
+order, each ``Lp`` slots; a local vector is a ``Sharded`` of those tensors.
+The row blocks of a group's shards form one block-diagonal CSR, multiplied
+by ``cuda_kernels.csr_spmv`` with the whole stacked operator's group, so a
+row sums in the same order in every grouping.  The exchange is the only
+data that crosses between shards: within a group one index gather from
+owner slots into ghost slots (``index_copy``, each ghost slot written
+once), across groups the owner group's gather copied once to the
+receiver's device (a peer copy between cards) and written there.  The
+inner products reduce each shard's slots alone and add the partials in
+rank order on ``devices[0]``, so 8 shards give the same bits on 1, 2, 4
+or 8 devices.
 
 Deviations from the reference:
 
@@ -41,12 +48,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 from .. import config
 from ..la import krylov
-from ..la.sparse import sparse_csr
-from ..ops import assembly
+from ..ops import assembly, cuda_kernels
+from .groups import BlockCSR, Groups, kernel_on
 
 
 def _factor_grid(n_dev, gdim):
@@ -165,20 +172,6 @@ def _row_take(indptr, ids):
     return take, counts
 
 
-def _one_device(devices):
-    """The device of the shards (every entry of ``devices`` must be it)."""
-    devs = [config.resolve_device(d) for d in (devices or config.shard_devices())]
-    if not devs:
-        raise ValueError("devices is empty")
-    devs = [torch.device("cuda", 0) if d.type == "cuda" and d.index is None
-            else d for d in devs]
-    if any(d != devs[0] for d in devs):
-        raise NotImplementedError(
-            "the shards of one process must share one device; shards on "
-            "several devices need torch.distributed ranks (ROADMAP.md)")
-    return devs
-
-
 def host_csr(A):
     """(indptr, indices, data) numpy arrays of a ``CSRMatrix``, a
     ``HostCSR`` or a scipy matrix."""
@@ -192,13 +185,22 @@ def host_csr(A):
 
 class _Layout:
     """One halo layout: the ranks' owned and ghost dofs, the local slots,
-    the exchange as flat gather / scatter slots, the masks, and the
-    redistribution between global vectors and the stacked local ones."""
+    the exchange, the masks, and the redistribution between global vectors
+    and the sharded local ones.
 
-    def __init__(self, owner, owned, ghosts, gc, device, dtype):
+    Slots are numbered ``r * Lp + i`` (slot i of rank r) wherever a caller
+    names them (``local_slots``).  Each device group stacks its ranks'
+    local vectors in ascending rank order, rank r at
+    ``[pos[r] * Lp, (pos[r] + 1) * Lp)`` of the group's tensor
+    (``group_slots``); a local vector is a ``Sharded`` of those tensors."""
+
+    def __init__(self, owner, owned, ghosts, gc, groups, dtype):
         nd = len(owned)
+        if nd != groups.n_dev:
+            raise ValueError(f"{nd} ranks for {groups.n_dev} shard devices")
         self.n_dev = nd
-        self.device = device
+        self.groups = groups
+        self.device = groups.device
         self.dtype = dtype
         self.ndof = int(len(owner))
         self._owner = owner
@@ -207,84 +209,171 @@ class _Layout:
         n_ghost_max = max((len(g) for g in ghosts), default=0)
         self.L = L = self.n_own_max + n_ghost_max
         self.Lp = Lp = L + 1
+        self._base = groups.pos * Lp
         self._l2l = [_LocalIndex(owned[r], ghosts[r], self.n_own_max, L)
                      for r in range(nd)]
         self.perms, sends, recvs = _build_exchange_rounds(
             owner, ghosts, self._l2l, gc, nd, L)
-        # the rounds as one gather: (owner's slot -> ghost slot) pairs in
-        # round order; padding (the dummy L) is dropped, so the dummy keeps
-        # its value
-        fs, fr = [], []
+        # the rounds as gathers: per (owner's group, ghost's group), the
+        # owner slots and the ghost slots they refresh, in round order;
+        # padding (the dummy L) is dropped, so the dummy keeps its value
+        pairs = {}
+        gof = groups.group_of
         for perm, send, recv in zip(self.perms, sends, recvs):
             for s, r in perm:
                 ok = recv[r] != L
-                fs.append(s * Lp + send[s][ok])
-                fr.append(r * Lp + recv[r][ok])
-        cat = (lambda a: np.concatenate(a) if a else np.zeros(0, np.int64))
-        self._send = torch.as_tensor(cat(fs), device=device)
-        self._recv = torch.as_tensor(cat(fr), device=device)
-        # slot -> global dof (-1 for padding) and the owned slots
-        glob = np.full(nd * Lp, -1, dtype=np.int64)
-        own_slots = []
-        for r in range(nd):
-            glob[r * Lp:r * Lp + len(owned[r])] = owned[r]
-            glob[r * Lp + self.n_own_max:
-                 r * Lp + self.n_own_max + len(ghosts[r])] = ghosts[r]
-            own_slots.append(r * Lp + np.arange(len(owned[r])))
-        self._glob = glob
-        self._valid = torch.as_tensor(glob >= 0, device=device)
-        self._glob_t = torch.as_tensor(np.maximum(glob, 0), device=device)
-        own_slots = cat(own_slots)
-        self._own_slots = torch.as_tensor(own_slots, device=device)
-        self._own_glob = torch.as_tensor(glob[own_slots], device=device)
-        own = np.zeros(nd * Lp)
-        own[own_slots] = 1.0
-        self.own = torch.as_tensor(own, dtype=dtype, device=device)
+                ss, rr = pairs.setdefault((gof[s], gof[r]), ([], []))
+                ss.append(self._base[s] + send[s][ok])
+                rr.append(self._base[r] + recv[r][ok])
+        devs = groups.devices
+        self._xch = [
+            (gs, gd, torch.as_tensor(np.concatenate(ss), device=devs[gs]),
+             torch.as_tensor(np.concatenate(rr), device=devs[gd]))
+            for (gs, gd), (ss, rr) in sorted(pairs.items())]
+        # per group: slot -> global dof (-1 for padding) and the owned slots
+        self._glob, self._own_np = [], []
+        for g, ranks in enumerate(groups.ranks):
+            glob = np.full(len(ranks) * Lp, -1, dtype=np.int64)
+            own_slots = []
+            for k, r in enumerate(ranks):
+                glob[k * Lp:k * Lp + len(owned[r])] = owned[r]
+                glob[k * Lp + self.n_own_max:
+                     k * Lp + self.n_own_max + len(ghosts[r])] = ghosts[r]
+                own_slots.append(k * Lp + np.arange(len(owned[r])))
+            self._glob.append(glob)
+            self._own_np.append(np.concatenate(own_slots))
+        dev0 = self.device
+        self._valid = [torch.as_tensor(gl >= 0, device=d)
+                       for gl, d in zip(self._glob, devs)]
+        self._glob_t = [torch.as_tensor(np.maximum(gl, 0), device=dev0)
+                        for gl in self._glob]
+        self._own_slots = [torch.as_tensor(o, device=d)
+                           for o, d in zip(self._own_np, devs)]
+        self._own_glob = [torch.as_tensor(gl[o], device=dev0)
+                          for gl, o in zip(self._glob, self._own_np)]
+        owns = []
+        for gl, o, d in zip(self._glob, self._own_np, devs):
+            own = np.zeros(len(gl))
+            own[o] = 1.0
+            owns.append(torch.as_tensor(own, dtype=dtype, device=d))
+        self.own = groups.sharded(owns)
 
     def local_slots(self, r, g):
-        """Flat slots of the global dofs ``g`` on rank ``r``."""
+        """Slots (``r * Lp + i``) of the global dofs ``g`` on rank ``r``."""
         return r * self.Lp + self._l2l[r](g)
 
+    def group_slots(self, r, g):
+        """Positions of the global dofs ``g`` of rank ``r`` in its group's
+        tensor."""
+        return self._base[r] + self._l2l[r](g)
+
+    def by_group(self, slots):
+        """Slots ``r * Lp + i`` -> per group (the positions in ``slots`` of
+        that group's slots, in order; their places in the group's
+        tensor)."""
+        slots = np.asarray(slots, dtype=np.int64)
+        rank = slots // self.Lp
+        local = self._base[rank] + slots % self.Lp
+        gof = self.groups.group_of[rank]
+        out = []
+        for g in range(self.groups.n):
+            sel = np.nonzero(gof == g)[0]
+            out.append((sel, local[sel]))
+        return out
+
+    def zeros(self, dtype=None):
+        """A local vector of zeros."""
+        return self.groups.sharded([
+            torch.zeros(len(gl), dtype=dtype or self.dtype, device=d)
+            for gl, d in zip(self._glob, self.groups.devices)])
+
     def tensor(self, a, dtype=None):
+        """A global array as a tensor on ``devices[0]``."""
         if torch.is_tensor(a):
             return a.to(dtype=dtype or self.dtype, device=self.device)
         return torch.tensor(np.asarray(a, dtype=np.float64),
                             device=self.device).to(dtype or self.dtype)
 
     def scatter_local(self, v_global, pad=0.0):
-        """Global (..., ndof) -> stacked local (..., n_dev * Lp): owned and
-        ghost slots from the global vector, padding and dummies ``pad``."""
+        """Global (..., ndof) -> local (..., slots): owned and ghost slots
+        from the global vector, padding and dummies ``pad``."""
         v = self.tensor(v_global)
-        out = v[..., self._glob_t]
-        return torch.where(self._valid, out, torch.as_tensor(
-            pad, dtype=out.dtype, device=out.device))
+        parts = []
+        for g, d in enumerate(self.groups.devices):
+            out = self.groups.move(v[..., self._glob_t[g]], d)
+            parts.append(torch.where(self._valid[g], out, torch.as_tensor(
+                pad, dtype=out.dtype, device=d)))
+        return self.groups.sharded(parts)
 
     def gather_global(self, x_local):
-        """Stacked local (..., n_dev * Lp) -> global (..., ndof) from the
-        owned slots."""
-        out = torch.zeros(x_local.shape[:-1] + (self.ndof,),
-                          dtype=x_local.dtype, device=x_local.device)
-        out[..., self._own_glob] = x_local[..., self._own_slots]
+        """Local (..., slots) -> global (..., ndof) on ``devices[0]``, from
+        the owned slots."""
+        p0 = x_local.parts[0]
+        out = torch.zeros(p0.shape[:-1] + (self.ndof,), dtype=p0.dtype,
+                          device=self.device)
+        for g, part in enumerate(x_local.parts):
+            out[..., self._own_glob[g]] = self.groups.move(
+                part[..., self._own_slots[g]], self.device)
         return out
 
     def exchange(self, x):
-        """Ghost slots refreshed from their owners (out of place)."""
-        if not self._send.numel():
+        """Ghost slots refreshed from their owners (out of place): within a
+        group one gather, across groups the owner group's gather copied to
+        the receiver's device once, then written into its ghost slots."""
+        if not self._xch:
             return x
-        return x.index_copy(-1, self._recv, x.index_select(-1, self._send))
+        parts = list(x.parts)
+        fresh = [False] * len(parts)
+        for gs, gd, send, recv in self._xch:
+            vals = self.groups.move(x.parts[gs].index_select(-1, send),
+                                    self.groups.devices[gd])
+            if fresh[gd]:
+                parts[gd].index_copy_(-1, recv, vals)
+            else:
+                parts[gd] = parts[gd].index_copy(-1, recv, vals)
+                fresh[gd] = True
+        return self.groups.sharded(parts, x.axis)
 
     def dot(self, a, c):
         """sum over ranks, in rank order, of the rank's slot sum of a * c
         (owned-only vectors: the owned-slot partials)."""
-        p = (a * c).reshape(self.n_dev, self.Lp).sum(1)
-        s = p[0]
-        for i in range(1, self.n_dev):
-            s = s + p[i]
-        return s
+        return self.groups.rank_dot(a, c, self.Lp)
 
     def free_local(self, free_mask):
         """The 0/1 free mask in the local layout, padding slots fixed."""
-        return self.scatter_local(free_mask) * self._valid.to(self.dtype)
+        valid = self.groups.sharded([v.to(self.dtype) for v in self._valid])
+        return self.scatter_local(free_mask) * valid
+
+
+def _group_csr(indptr, indices, row_ids, rows_lay, cols_lay):
+    """The row blocks of a host CSR matrix (``indptr``, ``indices``): rank
+    r's rows ``row_ids[r]``, in order, at ``rows_lay``'s owned slots, the
+    columns at ``cols_lay``'s local slots; one block-diagonal CSR per
+    device group.  Returns per group the numpy (crow, col, take) (``take``:
+    the nnz gather of the matrix's values) and the ``csr_spmv`` group of
+    the whole stacked operator, which every group's product takes, so each
+    row sums in the same order in every grouping."""
+    from ..ops.cuda_kernels import spmv_plan
+
+    Lp = rows_lay.Lp
+    out, nnz = [], 0
+    for ranks in rows_lay.groups.ranks:
+        counts = np.zeros(len(ranks) * Lp, dtype=np.int64)
+        takes, cols = [], []
+        for k, r in enumerate(ranks):
+            take, cnt = _row_take(indptr, row_ids[r])
+            counts[k * Lp:k * Lp + len(row_ids[r])] = cnt
+            takes.append(take)
+            cols.append(cols_lay.group_slots(r, indices[take]))
+        crow = np.zeros(len(counts) + 1, dtype=np.int64)
+        np.cumsum(counts, out=crow[1:])
+        take = np.concatenate(takes)
+        if len(take) >= 2**31:
+            raise ValueError("a group's row blocks hold 2^31 or more entries")
+        out.append((crow, np.concatenate(cols), take))
+        nnz += len(take)
+    plan = spmv_plan(rows_lay.n_dev * Lp, cols_lay.n_dev * cols_lay.Lp, nnz)
+    return out, plan
 
 
 def _partition(coords, nd, grid):
@@ -298,9 +387,19 @@ def _partition(coords, nd, grid):
 
 class _HaloSolve:
     """The Krylov solves shared by the assembled and the element-sharded
-    solvers; subclasses provide ``_lay``, ``_spmv`` (the shards' row blocks
-    times current local vectors: owned slots, zero elsewhere) and
-    ``_diag_owned``."""
+    solvers; subclasses provide ``_lay``, ``_A`` (a ``_GroupCSR``) and
+    ``_diag`` (per group the rows and nnz positions of the diagonal)."""
+
+    def _spmv(self, x):
+        """The shards' row blocks times current local vectors (owned slots,
+        zero elsewhere)."""
+        return self._A @ x
+
+    def _diag_owned(self):
+        d = self._lay.zeros()
+        for part, data, (rows, pos) in zip(d.parts, self._A.data, self._diag):
+            part[rows] = data[pos]
+        return d
 
     def scatter_local(self, v_global):
         return self._lay.scatter_local(v_global)
@@ -332,6 +431,43 @@ class _HaloSolve:
         return self.gather_global(x), int(it)
 
 
+class _GroupCSR:
+    """The shards' row blocks as one block-diagonal ``BlockCSR`` per device
+    group, multiplied with the whole stacked operator's ``csr_spmv`` group
+    (``_group_csr``), values refreshed by ``fill``."""
+
+    def __init__(self, blocks, plan, lay):
+        self.lay = lay
+        groups = lay.groups
+        self._take = [torch.as_tensor(t, device=lay.device)
+                      for _, _, t in blocks]
+        self._mats = [
+            BlockCSR(torch.as_tensor(crow, device=d).to(torch.int32),
+                     torch.as_tensor(col, device=d).to(torch.int32),
+                     torch.zeros(len(col), dtype=lay.dtype, device=d),
+                     (len(crow) - 1,) * 2, plan, n)
+            for (crow, col, _), d, n in zip(blocks, groups.devices,
+                                            groups.sizes)]
+
+    @property
+    def data(self):
+        return [M.data for M in self._mats]
+
+    def set_data(self, datas):
+        for M, d in zip(self._mats, datas):
+            M.set_data(d)
+
+    def fill(self, data):
+        """The values from the matrix's values ``data`` (on ``devices[0]``):
+        a gather there, each group's part copied to its device."""
+        self.set_data([self.lay.groups.move(data[t], M.data.device)
+                       for t, M in zip(self._take, self._mats)])
+
+    def __matmul__(self, x):
+        return self.lay.groups.sharded([M @ xg for M, xg in
+                                        zip(self._mats, x.parts)])
+
+
 class HaloShardedSolver(_HaloSolve):
     """Distributed Krylov solves of an assembled system with Dirichlet
     masking: ``solve`` (Jacobi-PCG) and ``solve_krylov`` (BiCGStab, GMRES,
@@ -341,11 +477,11 @@ class HaloShardedSolver(_HaloSolve):
         """``A``: a ``CSRMatrix`` (or a ``HostCSR`` / scipy CSR matrix);
         ``dof_coords``: (ndof, gdim) coordinates for the partition;
         ``devices``: one entry per shard (default
-        ``config.shard_devices()``), all the same device."""
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.devices = devs
-        device = devs[0]
+        ``config.shard_devices()``; shards with one entry share its
+        device)."""
+        groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.devices = groups.entries
         if dtype is None:
             dtype = (A.data.dtype if torch.is_tensor(getattr(A, "data", None))
                      else config.default_float())
@@ -359,39 +495,23 @@ class HaloShardedSolver(_HaloSolve):
         takes0 = _group_by_rank(owner[rows_of_nnz], nd)
         ghosts = [np.setdiff1d(np.unique(indices[takes0[r]]), owned[r])
                   for r in range(nd)]
-        lay = self._lay = _Layout(owner, owned, ghosts, gc, device, dtype)
+        lay = self._lay = _Layout(owner, owned, ghosts, gc, groups, dtype)
         self.Lp, self.n_own_max = lay.Lp, lay.n_own_max
         self.perms = lay.perms
         self._owned, self._ghosts, self._l2l = owned, ghosts, lay._l2l
-        # the block-diagonal CSR of the shards' row blocks
-        Lp = lay.Lp
-        counts_flat = np.zeros(nd * Lp, dtype=np.int64)
-        takes, cols, diag_pos = [], [], []
-        off = 0
-        for r in range(nd):
-            take, counts = _row_take(indptr, owned[r])
-            takes.append(take)
-            counts_flat[r * Lp:r * Lp + len(owned[r])] = counts
-            cols.append(lay.local_slots(r, indices[take]))
-            rows_g = np.repeat(owned[r], counts)
-            diag_pos.append(off + np.nonzero(indices[take] == rows_g)[0])
-            off += len(take)
-        take = np.concatenate(takes)
-        self._take = torch.as_tensor(take, device=device)
-        crow = np.zeros(nd * Lp + 1, dtype=np.int64)
-        np.cumsum(counts_flat, out=crow[1:])
-        itype = torch.int32 if len(take) < 2**31 else torch.int64
-        self._crow = torch.as_tensor(crow, device=device).to(itype)
-        self._col = torch.as_tensor(np.concatenate(cols),
-                                    device=device).to(itype)
+        blocks, plan = _group_csr(indptr, indices, owned, lay, lay)
+        self._A = _GroupCSR(blocks, plan, lay)
         # every owned row has its diagonal slot (the patterns carry it)
-        diag_rows = np.concatenate([
-            r * Lp + np.arange(len(owned[r]))
-            for r in range(nd)]) if nd else np.zeros(0, np.int64)
-        dpos = np.concatenate(diag_pos)
-        assert len(dpos) == len(diag_rows), "a row without a diagonal entry"
-        self._diag_rows = torch.as_tensor(diag_rows, device=device)
-        self._diag_pos = torch.as_tensor(dpos, device=device)
+        self._diag = []
+        for (crow, col, take), ranks, d in zip(blocks, groups.ranks,
+                                                groups.devices):
+            rows = np.repeat(np.arange(len(crow) - 1), np.diff(crow))
+            own_rows = np.concatenate([lay._base[r] + np.arange(len(owned[r]))
+                                       for r in ranks])
+            pos = np.nonzero(col == rows)[0]
+            assert len(pos) == len(own_rows), "a row without a diagonal entry"
+            self._diag.append((torch.as_tensor(rows[pos], device=d),
+                               torch.as_tensor(pos, device=d)))
         self.update_values(A)
 
     def update_values(self, A):
@@ -399,24 +519,11 @@ class HaloShardedSolver(_HaloSolve):
         and transient refreshes): a gather of its values on the device."""
         data = (A.data if torch.is_tensor(getattr(A, "data", None))
                 else host_csr(A)[2])
-        data = self._lay.tensor(data)
-        self._data = data[self._take]
-        lay = self._lay
-        self._A = sparse_csr(self._crow, self._col, self._data,
-                             (lay.n_dev * lay.Lp, lay.n_dev * lay.Lp))
-
-    def _spmv(self, x):
-        return self._A @ x
-
-    def _diag_owned(self):
-        lay = self._lay
-        d = torch.zeros(lay.n_dev * lay.Lp, dtype=lay.dtype, device=lay.device)
-        d[self._diag_rows] = self._data[self._diag_pos]
-        return d
+        self._A.fill(self._lay.tensor(data))
 
     def solve(self, b, free_mask, u_bc, tol=1e-10, maxiter=2000):
         """Jacobi-PCG of the masked system.  Returns (x, iterations), x a
-        tensor on the shards' device."""
+        tensor on ``devices[0]``."""
         b_loc = self._lay.own * self._lay.scatter_local(b)
         return self._pcg(b_loc, free_mask, u_bc, tol, maxiter)
 
@@ -467,11 +574,12 @@ class HaloElementSolver(_HaloSolve):
     Each shard receives every element (cell or facet batch entry) touching
     one of its owned dofs (ghost-cell replication: interface elements are
     evaluated by every neighbouring shard, so assembly needs no exchange),
-    evaluates the element matrices and vectors on the device
+    evaluates the element matrices and vectors on its group's device
     (``vmap`` of the batch's kernels, in chunks of
-    ``assembly.chunk_cells(k)`` elements), and sums the rows it owns into
-    its row block with ``assembly.OrderedScatter`` (a fixed order, so the
-    solve repeats bit for bit on the card).
+    ``assembly.chunk_cells(k)`` elements; ``groups.kernel_on`` copies the
+    tables a kernel captured there), and sums the rows it owns into its
+    row block with ``assembly.OrderedScatter`` (a fixed order, so the solve
+    repeats bit for bit on the card, in every grouping).
 
     ``batches``: list of ``(dofmap, Ae_fn, be_fn, elem_data)``: ``dofmap``
     (ne, k) global dofs, ``Ae_fn(data_e) -> (k, k)`` and ``be_fn(data_e) ->
@@ -480,10 +588,9 @@ class HaloElementSolver(_HaloSolve):
 
     def __init__(self, batches, dof_coords, ndof, devices=None, grid=None,
                  dtype=None):
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.devices = devs
-        device = devs[0]
+        groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.devices = groups.entries
         dtype = dtype or config.default_float()
         self.ndof = ndof
         self.grid, owner, gc = _partition(dof_coords, nd, grid)
@@ -505,55 +612,65 @@ class HaloElementSolver(_HaloSolve):
             ref = np.unique(np.concatenate(
                 [dm[s[r]].ravel() for dm, s in zip(dofmaps, sel)] + [owned[r]]))
             ghosts.append(np.setdiff1d(ref, owned[r]))
-        lay = self._lay = _Layout(owner, owned, ghosts, gc, device, dtype)
+        lay = self._lay = _Layout(owner, owned, ghosts, gc, groups, dtype)
         self.Lp, self.n_own_max = lay.Lp, lay.n_own_max
         self.perms = lay.perms
         self._owned, self._ghosts = owned, ghosts
         Lp = lay.Lp
         # the local sparsity of each rank (owned rows x local columns, the
-        # diagonal always present), from the element maps
-        counts_flat = np.zeros(nd * Lp, dtype=np.int64)
-        cols, per_rank = [], []
-        off = 0
-        for r in range(nd):
-            keys = []
-            for dm, s in zip(dofmaps, sel):
-                e = dm[s[r]]
-                k = e.shape[1]
-                lr = lay._l2l[r](np.repeat(e, k, axis=1).ravel())
-                lc = lay._l2l[r](np.tile(e, (1, k)).ravel())
-                ok = lr < len(owned[r])
-                keys.append((np.where(ok, lr * Lp + lc, 0), ok))
-            n_o = len(owned[r])
-            diag = np.arange(n_o, dtype=np.int64) * Lp + np.arange(n_o)
-            uniq, inv = np.unique(np.concatenate([kk for kk, _ in keys] + [diag]),
-                                  return_inverse=True)
-            lr_u, lc_u = uniq // Lp, uniq % Lp
-            np.add.at(counts_flat, r * Lp + lr_u, 1)
-            cols.append(r * Lp + lc_u)
-            # each batch's entry -> its flat nnz slot (scratch when the row
-            # is not owned)
-            pos, start = [], 0
-            for kk, ok in keys:
-                seg = inv[start:start + len(kk)]
-                pos.append(np.where(ok, off + seg, -1))
-                start += len(kk)
-            per_rank.append(pos)
-            off += len(uniq)
-        self._nnz = off
-        crow = np.zeros(nd * Lp + 1, dtype=np.int64)
-        np.cumsum(counts_flat, out=crow[1:])
-        itype = torch.int32 if off < 2**31 else torch.int64
-        self._crow = torch.as_tensor(crow, device=device).to(itype)
-        self._col = torch.as_tensor(np.concatenate(cols), device=device).to(itype)
-        col_np = np.concatenate(cols)
-        row_np = np.repeat(np.arange(nd * Lp), counts_flat)
-        dpos = np.nonzero(col_np == row_np)[0]
-        self._diag_rows = torch.as_tensor(row_np[dpos], device=device)
-        self._diag_pos = torch.as_tensor(dpos, device=device)
-        # per shard, per batch: the elements' data, nnz slots and local dofs
+        # diagonal always present), from the element maps; one
+        # block-diagonal CSR a group, its ranks' blocks in rank order
+        blocks, per_rank, self._nnz = [], [None] * nd, []
+        for ranks in groups.ranks:
+            counts = np.zeros(len(ranks) * Lp, dtype=np.int64)
+            cols, off = [], 0
+            for kr, r in enumerate(ranks):
+                keys = []
+                for dm, sl in zip(dofmaps, sel):
+                    e = dm[sl[r]]
+                    k = e.shape[1]
+                    lr = lay._l2l[r](np.repeat(e, k, axis=1).ravel())
+                    lc = lay._l2l[r](np.tile(e, (1, k)).ravel())
+                    ok = lr < len(owned[r])
+                    keys.append((np.where(ok, lr * Lp + lc, 0), ok))
+                n_o = len(owned[r])
+                diag = np.arange(n_o, dtype=np.int64) * Lp + np.arange(n_o)
+                uniq, inv = np.unique(
+                    np.concatenate([kk for kk, _ in keys] + [diag]),
+                    return_inverse=True)
+                lr_u, lc_u = uniq // Lp, uniq % Lp
+                np.add.at(counts, kr * Lp + lr_u, 1)
+                cols.append(kr * Lp + lc_u)
+                # each batch's entry -> its nnz slot in the group (-1 when
+                # the row is not owned: the scratch slot)
+                pos, start = [], 0
+                for kk, ok in keys:
+                    seg = inv[start:start + len(kk)]
+                    pos.append(np.where(ok, off + seg, -1))
+                    start += len(kk)
+                per_rank[r] = pos
+                off += len(uniq)
+            crow = np.zeros(len(counts) + 1, dtype=np.int64)
+            np.cumsum(counts, out=crow[1:])
+            if off >= 2**31:
+                raise ValueError("a group's row blocks hold 2^31 or more "
+                                 "entries")
+            blocks.append((crow, np.concatenate(cols), np.arange(off)))
+            self._nnz.append(off)
+        plan = cuda_kernels.spmv_plan(nd * Lp, nd * Lp, sum(self._nnz))
+        self._A = _GroupCSR(blocks, plan, lay)
+        self._diag = []
+        for (crow, col, _), d in zip(blocks, groups.devices):
+            rows = np.repeat(np.arange(len(crow) - 1), np.diff(crow))
+            pos = np.nonzero(col == rows)[0]
+            self._diag.append((torch.as_tensor(rows[pos], device=d),
+                               torch.as_tensor(pos, device=d)))
+        # per shard, per batch: the elements' data, nnz slots and the slots
+        # of its dofs in the group's tensor, on the group's device
         self._shards = []
         for r in range(nd):
+            g = groups.group_of[r]
+            dev = groups.devices[g]
             items = []
             for bi, (dm, Ae_fn, be_fn, elem_data) in enumerate(batches):
                 ids = sel[bi][r]
@@ -561,12 +678,14 @@ class HaloElementSolver(_HaloSolve):
                     continue
                 k = dm.shape[1]
                 pos = per_rank[r][bi]
-                pos = np.where(pos >= 0, pos, off)  # the scratch slot
-                ldofs = lay.local_slots(r, dm[ids])
-                ids_t = torch.as_tensor(ids, device=device)
-                data_r = tree_map(
-                    lambda a: torch.as_tensor(a, device=device)[ids_t],
-                    elem_data)
+                pos = np.where(pos >= 0, pos, self._nnz[g])  # the scratch
+                ldofs = lay.group_slots(r, dm[ids])
+
+                def take(a, ids=ids, dev=dev):
+                    a = torch.as_tensor(a)
+                    return a[torch.as_tensor(ids, device=a.device)].to(dev)
+
+                data_r = tree_map(take, elem_data)
                 step = assembly.chunk_cells(k)
                 chunks = []
                 for s in range(0, len(ids), step):
@@ -574,39 +693,36 @@ class HaloElementSolver(_HaloSolve):
                     chunks.append((
                         s, e,
                         assembly.OrderedScatter(torch.as_tensor(
-                            pos[s * k * k:e * k * k], device=device)),
+                            pos[s * k * k:e * k * k], device=dev)),
                         assembly.OrderedScatter(torch.as_tensor(
-                            ldofs[s:e].reshape(-1), device=device)),
+                            ldofs[s:e].reshape(-1), device=dev)),
                     ))
                 items.append((Ae_fn, be_fn, data_r, chunks))
             self._shards.append(items)
 
     def _assemble(self):
-        """Every shard's row block and right-hand side, on the device."""
-        lay = self._lay
-        data = torch.zeros(self._nnz + 1, dtype=lay.dtype, device=lay.device)
-        b = torch.zeros(lay.n_dev * lay.Lp, dtype=lay.dtype, device=lay.device)
-        for items in self._shards:
-            for Ae_fn, be_fn, data_r, chunks in items:
-                fA, fb = torch.func.vmap(Ae_fn), torch.func.vmap(be_fn)
-                for s, e, into_pos, into_dofs in chunks:
-                    d = tree_map(lambda a: a[s:e], data_r)
-                    into_pos.add_(data, fA(d).to(lay.dtype))
-                    into_dofs.add_(b, fb(d).to(lay.dtype))
-        self._data = data[:self._nnz]
-        n = lay.n_dev * lay.Lp
-        self._A = sparse_csr(self._crow, self._col, self._data, (n, n))
+        """Every shard's row block and right-hand side, each shard's
+        elements on its group's device."""
+        lay, groups = self._lay, self._lay.groups
+        datas, bs = [], []
+        for g, dev in enumerate(groups.devices):
+            data = torch.zeros(self._nnz[g] + 1, dtype=lay.dtype, device=dev)
+            b = torch.zeros(groups.sizes[g] * lay.Lp, dtype=lay.dtype,
+                            device=dev)
+            with kernel_on(dev):
+                for r in groups.ranks[g]:
+                    for Ae_fn, be_fn, data_r, chunks in self._shards[r]:
+                        fA = torch.func.vmap(Ae_fn)
+                        fb = torch.func.vmap(be_fn)
+                        for s, e, into_pos, into_dofs in chunks:
+                            d = tree_map(lambda a: a[s:e], data_r)
+                            into_pos.add_(data, fA(d).to(lay.dtype))
+                            into_dofs.add_(b, fb(d).to(lay.dtype))
+            datas.append(data[:self._nnz[g]])
+            bs.append(b)
+        self._A.set_data(datas)
         # the owners hold the complete rows; ghost slots of b are partial
-        return lay.own * b
-
-    def _spmv(self, x):
-        return self._A @ x
-
-    def _diag_owned(self):
-        lay = self._lay
-        d = torch.zeros(lay.n_dev * lay.Lp, dtype=lay.dtype, device=lay.device)
-        d[self._diag_rows] = self._data[self._diag_pos]
-        return d
+        return lay.own * groups.sharded(bs)
 
     def solve(self, free_mask, u_bc, tol=1e-10, maxiter=2000):
         """Assemble on the shards and solve by Jacobi-PCG.  Returns (x,
@@ -625,19 +741,20 @@ def batches_from_form(form, dtype=None):
     for term in form.cell_terms + form.facet_terms:
         k = int(term.ctx.cell_dofs.shape[1])
         kern = term.kernel
-        device = term.ctx.cell_dofs.device
         data = (term.ctx,) if term.aux is None else (term.ctx, term.aux)
 
-        def zero(k=k, device=device):
-            return torch.zeros(k, dtype=dtype, device=device)
+        def zero(d, k=k):
+            # on the device of the element's data (the shard's group)
+            return torch.zeros(k, dtype=dtype,
+                               device=tree_leaves(d)[0].device)
 
         def Ae_fn(d, kern=kern, zero=zero):
             aux = d[1] if len(d) > 1 else None
-            return torch.func.jacfwd(lambda u: kern(u, d[0], aux))(zero())
+            return torch.func.jacfwd(lambda u: kern(u, d[0], aux))(zero(d))
 
         def be_fn(d, kern=kern, zero=zero):
             aux = d[1] if len(d) > 1 else None
-            return -kern(zero(), d[0], aux)
+            return -kern(zero(d), d[0], aux)
 
         batches.append((term.ctx.cell_dofs.cpu().numpy(), Ae_fn, be_fn, data))
     return batches

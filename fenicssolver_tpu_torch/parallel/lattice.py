@@ -6,38 +6,42 @@ stay those of the serial GMG-PCG (``la/gmg.py``, ``la/gmg_elastic.py``)
 where the halo Jacobi CG's grow with refinement.
 
 - The (Nx, Ny, Nz) vertex lattice is cut into x-plane SLABS, one a shard
-  (``LatticeHaloSolver``), or into x-y PENCILS (``LatticePencilSolver``);
-  every vector is one ``(nd, mp, Ny, Nz)`` tensor (pencils
-  ``(ndx, ndy, mpx, mpy, Nz)``), owned planes first, padding planes zero.
+  (``LatticeHaloSolver``), or into x-y PENCILS (``LatticePencilSolver``,
+  rank ``ix * ndy + iy``).  The shards that share a device form a device
+  group (``parallel/groups.py``); every vector is a ``Sharded`` of one
+  ``(ranks, mp, Ny, Nz)`` tensor a group (pencils ``(ranks, mpx, mpy,
+  Nz)``), the group's ranks in ascending order, owned planes first,
+  padding planes zero.
 - The 15-offset P1 stencil needs one halo plane a side.  The reference's
-  ``ppermute`` plane exchange is slicing along the shard axis here
-  (``_with_halo``): plane ``m_r - 1`` of shard r goes into the left halo of
-  shard r + 1, plane 0 of shard r + 1 into the right halo of shard r; the
-  edge shards receive zeros.  Pencils take the x pass, then the y pass on
-  the x-haloed pencil, so the diagonal corners arrive as in the reference.
-- The stencil is applied to the stacked haloed slabs, one
-  ``(nd * (mp + 2), Ny, Nz)`` lattice, by one launch of
+  ``ppermute`` plane exchange is ``_PlaneHalo``: plane ``m_r - 1`` of shard
+  r goes into the left halo of shard r + 1, plane 0 of shard r + 1 into the
+  right halo of shard r; the edge shards receive zeros.  Within a group the
+  planes are indexed, between groups each pair's planes are copied once to
+  the receiver's device.  Pencils take the x pass, then the y pass on the
+  x-haloed pencil, so the diagonal corners arrive as in the reference.
+- The stencil is applied to a group's stacked haloed slabs, one
+  ``(ranks * (mp + 2), Ny, Nz)`` lattice, by one launch a device of
   ``ops/cuda_kernels.stencil_apply_var`` (K1, the CG operator on the
   assembled fields) or ``stencil_apply_const`` (K2, the levels' constant
   taps).  The kernels read zeros outside the lattice and sum the centre tap
   first, as the reference's ``apply_stencil``; an interior plane reads only
-  its own slab's planes, so its output is exact, and the halo planes'
-  outputs are dropped.  The coefficient fields are zero on halo and
-  padding planes.
+  its own slab's planes, so its output is exact and the same whatever else
+  the launch holds, and the halo planes' outputs are dropped.  The
+  coefficient fields are zero on halo and padding planes.
 - The V-cycle levels stay sharded with aligned plane cuts (level-l cuts
   are level-0 cuts / 2^l), so restriction and prolongation along the cut
   axis are strided slices of the haloed slab.  Below ``gather_max`` the
-  coarse residual is gathered (the reference's ``psum``: every plane has
-  one owner) and the rest of the cycle runs once, on the shards' device:
-  ``la/gmg.vcycle`` for the scalar solvers, ``la/gmg_elastic.vcycle`` for
-  the vector one.
-- Inner products sum the shards' partials in rank order, so a solve
-  repeats bit for bit.
+  coarse residual is gathered onto ``devices[0]`` (the reference's
+  ``psum``: every plane has one owner) and the rest of the cycle runs once
+  there: ``la/gmg.vcycle`` for the scalar solvers, ``la/gmg_elastic.vcycle``
+  for the vector one.
+- Inner products reduce each shard's planes alone and add the partials in
+  rank order on ``devices[0]`` (``Groups.rank_dot``), so a solve repeats
+  bit for bit and gives the same bits in every grouping of its shards.
 
-The shards of one process are repeats of one device
-(``config.shard_devices()``), as in ``parallel/halo.py``; over stacked
-shards a ``mesh_axes`` tuple only names and orders the ranks, so the
-two-axis solver is the one-axis solver over the product of the axes.
+Over stacked shards a ``mesh_axes`` tuple only names and orders the ranks,
+so the two-axis solver is the one-axis solver over the product of the
+axes.
 
 The vector solver's block operator (3x3 blocks a tap) is plain PyTorch
 (the reference's is XLA too, with no TPU kernel).
@@ -45,7 +49,7 @@ The vector solver's block operator (3x3 blocks a tap) is plain PyTorch
 Deviations from the reference: ``A`` may also be given as its stencil
 fields (a ``(15, Nx, Ny, Nz)`` tensor, e.g. from
 ``ops/stencil_assembly.assemble_stencil``); ``solve`` takes and returns
-tensors on the shards' device (numpy in, too), in the dtype of ``b``; the
+tensors on ``devices[0]`` (numpy in, too), in the dtype of ``b``; the
 solve is ``la/krylov.cg`` with the sharded inner product, whose stopping
 test ``|r| <= tol |rhs|`` is the reference's loop condition; there is no
 program cache, only a cache of each free mask's level masks and replicated
@@ -62,7 +66,8 @@ from .. import config
 from ..la import gmg, gmg_elastic, krylov
 from ..la.gmg import CENTER_IDX, OFFSETS_T, _prolong_axis, _restrict_axis
 from ..ops import cuda_kernels
-from .halo import _one_device, host_csr
+from .groups import Groups
+from .halo import host_csr
 
 AXIS = "lat_x"
 
@@ -197,17 +202,15 @@ class _Cut:
         nr = len(cuts) - 1
         self.n_ranks, self.mp = nr, int(mp)
         self.size = int(cuts[-1])
-        m = np.diff(cuts)
+        m = self.m = np.diff(cuts)
         own = np.concatenate([r * mp + np.arange(m[r]) for r in range(nr)])
         gidx = np.full(nr * mp, self.size, dtype=np.int64)
         gidx[own] = np.arange(self.size)
         pm = np.zeros((nr, mp))
         for r in range(nr):
             pm[r, :m[r]] = 1.0
-        self.m = torch.as_tensor(m, device=device)
         self.own = torch.as_tensor(own, device=device)
         self.gidx = torch.as_tensor(gidx, device=device)
-        self.ranks = torch.arange(nr, device=device)
         self._pm = torch.as_tensor(pm, device=device)
 
     def pm(self, dtype):
@@ -221,20 +224,57 @@ def _pad_plane(a, dim):
     return torch.cat([a, a.new_zeros(shape)], dim)
 
 
-def _with_halo(x, cut, sa, ax):
-    """Haloed copy of ``x`` along its cut axis ``ax`` (ranks along ``sa``):
-    ``(..., mp, ...)`` -> ``(..., mp + 2, ...)``, slot 0 the left
-    neighbour's last owned plane, slot ``m + 1`` the right neighbour's first;
-    the edge ranks receive zeros (out-of-domain taps are zero)."""
-    xs = x.movedim((sa, ax), (0, 1))
-    r, m = cut.ranks, cut.m
-    last = xs[r, m - 1]
-    first = xs[:, 0]
-    zero = torch.zeros_like(first[:1])
-    xe = torch.cat([torch.cat([zero, last[:-1]]).unsqueeze(1), xs,
-                    torch.zeros_like(xs[:, :1])], 1)
-    xe[r, m + 1] = torch.cat([first[1:], zero])
-    return xe.movedim((0, 1), (sa, ax))
+class _PlaneHalo:
+    """One 1-plane exchange along a cut axis (the reference's ``ppermute``
+    pair): rank r's low halo plane is the last owned plane of rank
+    ``lo[r]``, its high halo plane (slot ``m[r] + 1``) the first plane of
+    rank ``hi[r]`` (-1: none, the plane stays zero: out-of-domain taps are
+    zero).  Within a device group the planes are gathered and written by
+    index; between groups each (source, receiver) pair's planes are
+    gathered on the source and copied to the receiver's device once."""
+
+    def __init__(self, groups, lo, hi, m):
+        self.groups = groups
+        gof, pos, devs = groups.group_of, groups.pos, groups.devices
+        moves = {}
+        for r in range(groups.n_dev):
+            for side, s in (("lo", lo[r]), ("hi", hi[r])):
+                if s < 0:
+                    continue
+                # (source rank's slot, its plane), (receiver's slot, plane)
+                src = (pos[s], m[s] - 1 if side == "lo" else 0)
+                dst = (pos[r], 0 if side == "lo" else m[r] + 1)
+                moves.setdefault((gof[s], gof[r]), []).append(src + dst)
+        self._moves = []
+        for (gs, gd), rows in sorted(moves.items()):
+            a = np.array(rows, dtype=np.int64).T
+            self._moves.append((gs, gd, [torch.as_tensor(v, device=devs[gs])
+                                         for v in a[:2]],
+                                [torch.as_tensor(v, device=devs[gd])
+                                 for v in a[2:]]))
+
+    def __call__(self, x, ax):
+        """Haloed copy of ``x`` (parts (ranks, ...) with the cut axis at
+        ``ax``): ``(..., mp, ...)`` -> ``(..., mp + 2, ...)``."""
+        xs = [p.movedim(ax, 1) for p in x.parts]
+        xe = [F.pad(p, (0, 0) * (p.dim() - 2) + (1, 1)) for p in xs]
+        for gs, gd, (spos, splane), dst in self._moves:
+            xe[gd][dst[0], dst[1]] = self.groups.move(
+                xs[gs][spos, splane], self.groups.devices[gd])
+        return self.groups.sharded([p.movedim(1, ax) for p in xe], x.axis)
+
+
+def _slab_halos(groups, cuts, axis_ranks, stride):
+    """The plane exchanges of every level along one cut axis: ``axis_ranks``
+    ranks along the axis, a rank's neighbour ``stride`` ranks away."""
+    out = []
+    for cut in cuts:
+        nd = groups.n_dev
+        idx = (np.arange(nd) // stride) % axis_ranks
+        lo = np.where(idx > 0, np.arange(nd) - stride, -1)
+        hi = np.where(idx < axis_ranks - 1, np.arange(nd) + stride, -1)
+        out.append(_PlaneHalo(groups, lo, hi, cut.m[idx]))
+    return out
 
 
 def _split(arr, cut):
@@ -278,14 +318,6 @@ def _mesh_axes(mesh_axes, nd):
     return mesh_axes
 
 
-def _rank_sum(p):
-    """Sum of the ranks' partials ``p`` (ranks,) in rank order."""
-    s = p[0]
-    for i in range(1, p.shape[0]):
-        s = s + p[i]
-    return s
-
-
 def _aligned_cuts(n, nd, Ls):
     """Every sharded level's cuts along one axis (level-l cuts are level-0
     cuts / 2^l, the last rank owning the final plane) and their padded
@@ -303,12 +335,13 @@ def _aligned_cuts(n, nd, Ls):
 
 class _ScalarLattice:
     """The scalar GMG-CG of the slab and pencil solvers over a layout that
-    a subclass defines: ``_split``/``_join`` (global <-> sharded),
-    ``_halo``, ``_pm`` (the owned-plane mask, broadcastable over a
-    vector), ``_restrict``/``_prolong``, and the class constants
-    ``_HALO_PAD`` (``F.pad`` of the haloed axes) and ``_INTERIOR`` (the
-    owned slice of a haloed vector) and ``_RANKS`` (the leading rank axes
-    of a vector)."""
+    a subclass defines: ``_split_ranks``/``_join_ranks`` (global <-> one
+    tensor with a leading rank axis), ``_halo``, ``_pm_ranks`` (the
+    owned-plane mask, broadcastable over a vector), ``_restrict`` /
+    ``_prolong``, and the class constants ``_HALO_PAD`` (``F.pad`` of the
+    haloed axes) and ``_INTERIOR`` (the owned slice of a haloed vector).
+    Vectors are ``Sharded`` over the device groups, the ranks of a group
+    stacked along axis 0."""
 
     def _setup(self, A, n, extent, Ls, nu, omega):
         self.Ls = Ls
@@ -321,6 +354,12 @@ class _ScalarLattice:
         self._masks = {}
         self.update_operator(A)
 
+    def _split(self, arr, l):
+        return self.groups.from_ranks(self._split_ranks(arr, l))
+
+    def _join(self, x, l):
+        return self._join_ranks(self.groups.to_ranks(x), l)
+
     def update_operator(self, A):
         """Swap in a re-assembled operator (transient steps): re-extracts
         the stencil fields; the level masks and the tail hierarchy are
@@ -330,22 +369,29 @@ class _ScalarLattice:
         if tuple(coef.shape) != (len(OFFSETS_T),) + self.shape3:
             raise ValueError(f"stencil fields of shape {tuple(coef.shape)}, "
                              f"expected (15,) + {self.shape3}")
-        # (15, ranks..., haloed planes..., Z), zero on halo and padding
-        p = self._split(coef, 0).movedim(self._RANKS, 0)
-        p = F.pad(p, self._HALO_PAD)
-        self._coef_e = p.reshape((len(OFFSETS_T), -1) + tuple(p.shape[-2:]))
+        # per group (15, haloed planes of its ranks..., Z), zero on halo and
+        # padding planes
+        p = F.pad(self._split_ranks(coef, 0), self._HALO_PAD)
+        self._coef_e = [
+            q.movedim(1, 0).reshape((len(OFFSETS_T), -1) + tuple(p.shape[-2:]))
+            for q in self.groups.from_ranks(p).parts]
 
     def _apply(self, x, l, free_e, coef_e=None, taps=None):
-        """``free * A(free * x)`` on level ``l``: one launch over the stacked
-        haloed slabs or pencils (K1 with ``coef_e``, else K2 with ``taps``);
-        ``free_e``: the haloed mask (None: unmasked K1)."""
+        """``free * A(free * x)`` on level ``l``: one launch a device group
+        over its stacked haloed slabs or pencils (K1 with ``coef_e``, else
+        K2 with ``taps``); ``free_e``: the haloed mask (None: unmasked
+        K1)."""
         xe = self._halo(x, l)
-        flat = xe.reshape((-1,) + tuple(xe.shape[-2:]))
-        if coef_e is not None:
-            y = cuda_kernels.stencil_apply_var(flat, coef_e, free_e)
-        else:
-            y = cuda_kernels.stencil_apply_const(flat, taps, free_e)
-        return y.view(xe.shape)[self._INTERIOR]
+        out = []
+        for g, xg in enumerate(xe.parts):
+            flat = xg.reshape((-1,) + tuple(xg.shape[-2:]))
+            fg = None if free_e is None else free_e.parts[g]
+            if coef_e is not None:
+                y = cuda_kernels.stencil_apply_var(flat, coef_e[g], fg)
+            else:
+                y = cuda_kernels.stencil_apply_const(flat, taps, fg)
+            out.append(y.view(xg.shape)[self._INTERIOR])
+        return self.groups.sharded(out, 0)
 
     def _level_data(self, free3, dtype):
         """Per free mask and dtype: the level masks (sharded and haloed),
@@ -360,7 +406,7 @@ class _ScalarLattice:
                 frees.append(fl)
                 fe = self._halo(fl, l)
                 free_e.append(fe.reshape((-1,) + tuple(fe.shape[-2:])))
-                pms.append(self._pm(l, dtype))
+                pms.append(self.groups.from_ranks(self._pm_ranks(l, dtype)))
             s = 1 << self.Ls
             G_tail = gmg.build_gmg(
                 *self._tail_n, extent=self._extent,
@@ -375,13 +421,14 @@ class _ScalarLattice:
     def solve(self, b, free_mask, u_bc, tol=1e-10, maxiter=2000):
         """Solve A x = b with symmetric Dirichlet elimination (``free_mask``
         0/1, ``u_bc`` the values on constrained dofs).  Returns (x, iters),
-        x a flat tensor on the shards' device in ``b``'s dtype."""
+        x a flat tensor on ``devices[0]`` in ``b``'s dtype."""
         dtype = _dtype_of(b)
         frees, free_e, pms, G_tail = self._level_data(free_mask, dtype)
-        coef_e = self._coef_e.to(dtype)
+        coef_e = [c.to(dtype) for c in self._coef_e]
         Ls, nu, om = self.Ls, self.nu, self.omega
         inv_diag = [1.0 / t[CENTER_IDX] for t in self.taps]
         free, pm0 = frees[0], pms[0]
+        seg = free.parts[0][0].numel()
 
         def sharded(v):
             return self._split(_as_tensor(v, dtype, self.device).reshape(
@@ -405,8 +452,8 @@ class _ScalarLattice:
                 r = frees[l] * (b_l - a_free(l, x))
                 xs.append(x)
                 bs.append(self._restrict(r, l, pms[l + 1]))
-            # gathered (every plane has one owner: the reference's psum),
-            # the replicated tail, scattered back
+            # gathered onto devices[0] (every plane has one owner: the
+            # reference's psum), the replicated tail, scattered back
             g = self._join(pms[Ls] * bs[Ls], Ls)
             e = gmg.vcycle(G_tail, g.reshape(-1)).reshape(g.shape)
             ec = pms[Ls] * self._split(e, Ls)
@@ -422,7 +469,7 @@ class _ScalarLattice:
             return mcycle(r) + (1 - free) * pm0 * r
 
         def dot(a, c):
-            return _rank_sum((pm0 * a * c).reshape(self.n_dev, -1).sum(1))
+            return self.groups.rank_dot(pm0 * a, c, seg)
 
         bs, ubc = sharded(b), sharded(u_bc)
         raw = self._apply(ubc, 0, None, coef_e=coef_e)
@@ -435,7 +482,7 @@ class _ScalarLattice:
 
 class LatticeHaloSolver(_ScalarLattice):
     """Distributed GMG-preconditioned CG on a BoxMesh vertex lattice, cut
-    into x-plane slabs: vectors ``(nd, mp, Ny, Nz)``.
+    into x-plane slabs: vectors ``(ranks, mp, Ny, Nz)`` a device group.
 
     ``A``: the assembled fine operator with lattice sparsity (``CSRMatrix``,
     ``HostCSR``, scipy), or its stencil fields (15, Nx, Ny, Nz); ``info``:
@@ -444,15 +491,14 @@ class LatticeHaloSolver(_ScalarLattice):
     ((name, size), ...) whose sizes multiply to the shard count (e.g.
     (("dcn", 2), ("ici", 4))): the slabs shard over the product."""
 
-    _RANKS = 1
     _HALO_PAD = (0, 0, 0, 0, 1, 1)
     _INTERIOR = (slice(None), slice(1, -1))
 
     def __init__(self, A, info, devices=None, gather_max=20000, nu=2,
                  omega=0.8, mesh_axes=None):
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.device = devs[0]
+        groups = self.groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.device = groups.device
         self.mesh_axes = _mesh_axes(mesh_axes, nd)
         self._axes = tuple(nm for nm, _ in self.mesh_axes)
         n = tuple(int(v) for v in info["n"])
@@ -471,18 +517,19 @@ class LatticeHaloSolver(_ScalarLattice):
         self.cuts, self.mp = _aligned_cuts(n[0], nd, Ls)
         self._cut = [_Cut(self.cuts[l], self.mp[l], self.device)
                      for l in range(Ls + 1)]
+        self._hx = _slab_halos(groups, self._cut, nd, 1)
         self._setup(A, n, extent, Ls, nu, omega)
 
-    def _split(self, arr, l):
+    def _split_ranks(self, arr, l):
         return _split(arr, self._cut[l])
 
-    def _join(self, x, l):
+    def _join_ranks(self, x, l):
         return _join(x, self._cut[l])
 
     def _halo(self, x, l):
-        return _with_halo(x, self._cut[l], 0, 1)
+        return self._hx[l](x, 1)
 
-    def _pm(self, l, dtype):
+    def _pm_ranks(self, l, dtype):
         return self._cut[l].pm(dtype)[:, :, None, None]
 
     def _restrict(self, r, l, pm_c):
@@ -492,7 +539,7 @@ class LatticeHaloSolver(_ScalarLattice):
         xe = self._halo(r, l)
         rc = (0.5 * xe[:, 0:2 * mpc:2] + xe[:, 1:2 * mpc + 1:2]
               + 0.5 * xe[:, 2:2 * mpc + 2:2])
-        return pm_c * _restrict_axis(_restrict_axis(rc, 2), 3)
+        return pm_c * rc.map(lambda t: _restrict_axis(_restrict_axis(t, 2), 3))
 
     def _prolong(self, ec, l, pm_f):
         """Level l+1 -> l: even planes copied, odd planes averaged from the
@@ -501,9 +548,8 @@ class LatticeHaloSolver(_ScalarLattice):
         ece = self._halo(ec, l + 1)
         even = ece[:, 1:1 + mpc]
         odd = 0.5 * (ece[:, 1:1 + mpc] + ece[:, 2:2 + mpc])
-        ef = torch.stack([even, odd], 2).reshape(
-            (even.shape[0], 2 * mpc) + tuple(even.shape[2:]))
-        return pm_f * _prolong_axis(_prolong_axis(ef, 2), 3)
+        ef = torch.stack([even, odd], 2).flatten(1, 2)
+        return pm_f * ef.map(lambda t: _prolong_axis(_prolong_axis(t, 2), 3))
 
 
 def _pencil_mesh_shape(nd):
@@ -534,23 +580,23 @@ def _join2(p, cx, cy):
 
 class LatticePencilSolver(_ScalarLattice):
     """2-D pencil-sharded GMG-CG on a BoxMesh lattice: x and y cut over a
-    (ndx, ndy) grid of shards (default ``_pencil_mesh_shape``), vectors
-    ``(ndx, ndy, mpx, mpy, Nz)``, interface strips in place of full planes.
-    Halos are two sequential 1-plane exchanges (x, then y on the x-haloed
-    pencil, so the corner strips arrive transitively); the levels stay
-    pencil-sharded with cuts aligned to 2^Ls in both axes; the coarse tail
-    is gathered and runs once.  Numerics (taps, smoother, masks) are those
-    of :class:`LatticeHaloSolver`."""
+    (ndx, ndy) grid of shards (default ``_pencil_mesh_shape``; rank
+    ``ix * ndy + iy``), vectors ``(ranks, mpx, mpy, Nz)`` a device group,
+    interface strips in place of full planes.  Halos are two sequential
+    1-plane exchanges (x, then y on the x-haloed pencil, so the corner
+    strips arrive transitively); the levels stay pencil-sharded with cuts
+    aligned to 2^Ls in both axes; the coarse tail is gathered and runs
+    once.  Numerics (taps, smoother, masks) are those of
+    :class:`LatticeHaloSolver`."""
 
-    _RANKS = 2
     _HALO_PAD = (0, 0, 1, 1, 1, 1)
-    _INTERIOR = (slice(None), slice(None), slice(1, -1), slice(1, -1))
+    _INTERIOR = (slice(None), slice(1, -1), slice(1, -1))
 
     def __init__(self, A, info, devices=None, gather_max=20000, nu=2,
                  omega=0.8, mesh_shape=None):
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.device = devs[0]
+        groups = self.groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.device = groups.device
         ndx, ndy = (_pencil_mesh_shape(nd) if mesh_shape is None
                     else (int(mesh_shape[0]), int(mesh_shape[1])))
         if ndx * ndy != nd:
@@ -574,53 +620,52 @@ class LatticePencilSolver(_ScalarLattice):
                     for l in range(Ls + 1)]
         self._cy = [_Cut(self.cuts_y[l], self.mpy[l], self.device)
                     for l in range(Ls + 1)]
+        self._hx = _slab_halos(groups, self._cx, ndx, ndy)
+        self._hy = _slab_halos(groups, self._cy, ndy, 1)
         self._setup(A, n, extent, Ls, nu, omega)
 
-    def _split(self, arr, l):
-        return _split2(arr, self._cx[l], self._cy[l])
+    def _split_ranks(self, arr, l):
+        return _split2(arr, self._cx[l], self._cy[l]).flatten(0, 1)
 
-    def _join(self, x, l):
-        return _join2(x, self._cx[l], self._cy[l])
+    def _join_ranks(self, x, l):
+        return _join2(x.unflatten(0, (self.ndx, self.ndy)), self._cx[l],
+                      self._cy[l])
 
     def _halo(self, x, l):
-        xe = _with_halo(x, self._cx[l], 0, 2)
-        return _with_halo(xe, self._cy[l], 1, 3)
+        return self._hy[l](self._hx[l](x, 1), 2)
 
-    def _pm(self, l, dtype):
+    def _pm_ranks(self, l, dtype):
         return (self._cx[l].pm(dtype)[:, None, :, None, None]
-                * self._cy[l].pm(dtype)[None, :, None, :, None])
+                * self._cy[l].pm(dtype)[None, :, None, :, None]).flatten(0, 1)
 
     def _restrict(self, r, l, pm_c):
         """Level l -> l+1: strided full weighting along both cut axes of the
         doubly haloed pencil, local along z."""
         mcx, mcy = self.mpx[l + 1], self.mpy[l + 1]
         xe = self._halo(r, l)
-        rc = (0.5 * xe[:, :, 0:2 * mcx:2] + xe[:, :, 1:2 * mcx + 1:2]
-              + 0.5 * xe[:, :, 2:2 * mcx + 2:2])
-        rc = (0.5 * rc[:, :, :, 0:2 * mcy:2] + rc[:, :, :, 1:2 * mcy + 1:2]
-              + 0.5 * rc[:, :, :, 2:2 * mcy + 2:2])
-        return pm_c * _restrict_axis(rc, 4)
+        rc = (0.5 * xe[:, 0:2 * mcx:2] + xe[:, 1:2 * mcx + 1:2]
+              + 0.5 * xe[:, 2:2 * mcx + 2:2])
+        rc = (0.5 * rc[:, :, 0:2 * mcy:2] + rc[:, :, 1:2 * mcy + 1:2]
+              + 0.5 * rc[:, :, 2:2 * mcy + 2:2])
+        return pm_c * rc.map(lambda t: _restrict_axis(t, 3))
 
     def _prolong(self, ec, l, pm_f):
         """Level l+1 -> l: even-copy / odd-average interleave along both cut
         axes of the doubly haloed coarse pencil, interpolation along z."""
         mcx, mcy = self.mpx[l + 1], self.mpy[l + 1]
         ece = self._halo(ec, l + 1)
-        nx_, ny_ = ece.shape[:2]
-        even = ece[:, :, 1:1 + mcx]
-        odd = 0.5 * (ece[:, :, 1:1 + mcx] + ece[:, :, 2:2 + mcx])
-        ef = torch.stack([even, odd], 3).reshape(
-            (nx_, ny_, 2 * mcx) + tuple(even.shape[3:]))
-        even_y = ef[:, :, :, 1:1 + mcy]
-        odd_y = 0.5 * (ef[:, :, :, 1:1 + mcy] + ef[:, :, :, 2:2 + mcy])
-        ef = torch.stack([even_y, odd_y], 4).reshape(
-            (nx_, ny_, 2 * mcx, 2 * mcy) + tuple(even_y.shape[4:]))
-        return pm_f * _prolong_axis(ef, 4)
+        even = ece[:, 1:1 + mcx]
+        odd = 0.5 * (ece[:, 1:1 + mcx] + ece[:, 2:2 + mcx])
+        ef = torch.stack([even, odd], 2).flatten(1, 2)
+        even_y = ef[:, :, 1:1 + mcy]
+        odd_y = 0.5 * (ef[:, :, 1:1 + mcy] + ef[:, :, 2:2 + mcy])
+        ef = torch.stack([even_y, odd_y], 3).flatten(2, 3)
+        return pm_f * ef.map(lambda t: _prolong_axis(t, 3))
 
 
 def _vcol(C, j):
     """Column j of 3x3 blocks: constant (3, 3) -> (1, 3, 1, 1, 1); slab
-    fields (nd, 3, 3, mp, Ny, Nz) -> (nd, 3, mp, Ny, Nz)."""
+    fields (ranks, 3, 3, mp, Ny, Nz) -> (ranks, 3, mp, Ny, Nz)."""
     return C[:, j].view(1, 3, 1, 1, 1) if C.dim() == 2 else C[:, :, j]
 
 
@@ -637,13 +682,14 @@ class LatticeHaloVectorSolver:
     free surfaces exist.  The V-cycle's vertex mask is the minimum over the
     components (a component-wise Dirichlet split is honoured exactly by the
     CG operator and approximately by the preconditioner).  Vectors are
-    ``(nd, d, mp, Ny, Nz)``; the block operator is plain PyTorch."""
+    ``(ranks, d, mp, Ny, Nz)`` a device group; the block operator is plain
+    PyTorch."""
 
     def __init__(self, A, info, mu, lam, devices=None, gather_max=20000,
                  nu=2, omega=0.6):
-        devs = _one_device(devices)
-        nd = self.n_dev = len(devs)
-        self.device = devs[0]
+        groups = self.groups = Groups(devices)
+        nd = self.n_dev = groups.n_dev
+        self.device = groups.device
         n = tuple(int(v) for v in info["n"])
         extent = tuple(float(v) for v in info.get("extent", (1.0, 1.0, 1.0)))
         self.shape3 = tuple(nn + 1 for nn in n)
@@ -662,6 +708,7 @@ class LatticeHaloVectorSolver:
         self.cuts, self.mp = _aligned_cuts(n[0], nd, Ls)
         self._cut = [_Cut(self.cuts[l], self.mp[l], self.device)
                      for l in range(Ls + 1)]
+        self._hx = _slab_halos(groups, self._cut, nd, 1)
         self.taps = [gmg_elastic.elastic_box_stencil(*(h * (1 << l)), mu, lam)
                      for l in range(Ls)]
         self.nu, self.omega = nu, omega
@@ -671,20 +718,34 @@ class LatticeHaloVectorSolver:
         self._masks = {}
         self.update_operator(A)
 
+    def _split(self, arr, l, fields=False):
+        """Global -> ``Sharded`` slabs (ranks, *batch, mp, Ny, Nz); with
+        ``fields``, a (15, ...) batch moved behind the rank axis."""
+        x = self.groups.from_ranks(_split(arr, self._cut[l]))
+        return x.movedim(0, 1) if fields else x
+
+    def _join(self, x, l):
+        return _join(self.groups.to_ranks(x), self._cut[l])
+
+    def _replicated(self, a, dtype):
+        """A constant on every group's device (the level taps)."""
+        a = _as_tensor(a, dtype, self.device)
+        return self.groups.sharded([a.to(d) for d in self.groups.devices])
+
     def update_operator(self, A):
         """Swap in a re-assembled operator: re-extracts the block fields;
         the level masks, level taps and the tail hierarchy are kept."""
         coef = vector_stencil_fields_from_csr(A, self.shape3, 3, self.device)
-        # (15, nd, 3, 3, mp, Ny, Nz)
-        self._coef = _split(coef, self._cut[0]).movedim(0, 1)
+        # (15, ranks, 3, 3, mp, Ny, Nz) a group
+        self._coef = self._split(coef, 0, fields=True)
 
     def _halo(self, x, l):
-        return _with_halo(x, self._cut[l], 0, 2)
+        return self._hx[l](x, 2)
 
     def _apply(self, x, l, C):
         """Block stencil on the slabs of level ``l``: ``C`` (15, 3, 3)
-        constant blocks or (15, nd, 3, 3, mp, Ny, Nz) fields; offsets in
-        order, each block product summed over j = 0, 1, 2."""
+        constant blocks or (15, ranks, 3, 3, mp, Ny, Nz) fields a group;
+        offsets in order, each block product summed over j = 0, 1, 2."""
         xe = F.pad(self._halo(x, l), (1, 1, 1, 1))
         mp = self.mp[l]
         ny, nz = x.shape[-2:]
@@ -703,7 +764,7 @@ class LatticeHaloVectorSolver:
         xe = self._halo(r, l)
         rc = (0.5 * xe[:, :, 0:2 * mpc:2] + xe[:, :, 1:2 * mpc + 1:2]
               + 0.5 * xe[:, :, 2:2 * mpc + 2:2])
-        rc = _restrict_axis(_restrict_axis(rc, 3), 4)
+        rc = rc.map(lambda t: _restrict_axis(_restrict_axis(t, 3), 4))
         return pm_c[:, None, :, None, None] * rc
 
     def _prolong(self, ec, l, pm_f):
@@ -711,15 +772,14 @@ class LatticeHaloVectorSolver:
         ece = self._halo(ec, l + 1)
         even = ece[:, :, 1:1 + mpc]
         odd = 0.5 * (ece[:, :, 1:1 + mpc] + ece[:, :, 2:2 + mpc])
-        ef = torch.stack([even, odd], 3).reshape(
-            tuple(even.shape[:2]) + (2 * mpc,) + tuple(even.shape[3:]))
-        ef = _prolong_axis(_prolong_axis(ef, 3), 4)
+        ef = torch.stack([even, odd], 3).flatten(2, 3)
+        ef = ef.map(lambda t: _prolong_axis(_prolong_axis(t, 3), 4))
         return pm_f[:, None, :, None, None] * ef
 
     def _trunc_level_fields(self, dtype):
-        """Per level, the truncated tap fields (15, nd, 3, 3, mp, Ny, Nz)
-        and inverse centre-block fields (nd, 3, 3, mp, Ny, Nz) of a
-        free-surface lattice."""
+        """Per level, the truncated tap fields (15, ranks, 3, 3, mp, Ny, Nz)
+        and inverse centre-block fields (ranks, 3, 3, mp, Ny, Nz) of a
+        free-surface lattice, a device group each."""
         h = np.array(self._extent) / np.array(self._n)
         tapsf, invcf = [], []
         for l in range(self.Ls):
@@ -732,9 +792,8 @@ class LatticeHaloVectorSolver:
             inv = np.moveaxis(np.linalg.inv(
                 gmg_elastic._groups_center_field(groups, shape_l)),
                 (-2, -1), (0, 1))
-            tapsf.append(_split(tf, self._cut[l]).movedim(0, 1))
-            invcf.append(_split(_as_tensor(inv, dtype, self.device),
-                                self._cut[l]))
+            tapsf.append(self._split(tf, l, fields=True))
+            invcf.append(self._split(_as_tensor(inv, dtype, self.device), l))
         return tapsf, invcf
 
     def _level_data(self, free4, dtype):
@@ -744,10 +803,10 @@ class LatticeHaloVectorSolver:
             frees, vfrees, pms = [], [], []
             for l in range(self.Ls + 1):
                 s = 1 << l
-                fl = _split(f[:, ::s, ::s, ::s], self._cut[l])
+                fl = self._split(f[:, ::s, ::s, ::s], l)
                 frees.append(fl)
-                vfrees.append(fl.min(dim=1, keepdim=True).values)
-                pms.append(self._cut[l].pm(dtype))
+                vfrees.append(torch.amin(fl, dim=1, keepdim=True))
+                pms.append(self.groups.from_ranks(self._cut[l].pm(dtype)))
             vfree = f.min(dim=0).values.cpu().numpy() > 0.5
             # free-surface lattices need the truncated-tap hierarchy (the
             # constant interior taps are wrong at unconstrained boundary
@@ -767,16 +826,16 @@ class LatticeHaloVectorSolver:
             if truncated:
                 taps_l, inv_l = self._trunc_level_fields(dtype)
             else:
-                taps_l = [_as_tensor(t, dtype, self.device) for t in self.taps]
-                inv_l = [_as_tensor(np.linalg.inv(t[CENTER_IDX]), dtype,
-                                    self.device) for t in self.taps]
+                taps_l = [self._replicated(t, dtype) for t in self.taps]
+                inv_l = [self._replicated(np.linalg.inv(t[CENTER_IDX]), dtype)
+                         for t in self.taps]
             self._masks[key] = (frees, vfrees, pms, G_tail, taps_l, inv_l,
                                 truncated)
         return self._masks[key]
 
     def solve(self, b, free_mask, u_bc, tol=1e-10, maxiter=2000):
         """Node-major (ndof = 3 * nvert) vectors in; (x, iters) out, x a
-        flat node-major tensor on the shards' device in ``b``'s dtype."""
+        flat node-major tensor on ``devices[0]`` in ``b``'s dtype."""
         d = 3
         dtype = _dtype_of(b)
 
@@ -791,7 +850,7 @@ class LatticeHaloVectorSolver:
         Ls, nu, om = self.Ls, self.nu, self.omega
         free = frees[0]
         pm0 = pms[0][:, None, :, None, None]
-        c0, cL = self._cut[0], self._cut[Ls]
+        seg = free.parts[0][0].numel()
         tail_shape = tuple(v + 1 for v in self._tail_n)
 
         def matvec(x):
@@ -808,10 +867,10 @@ class LatticeHaloVectorSolver:
 
         def tail_solve(r_loc):
             pm = pms[Ls][:, None, :, None, None]
-            g = _join(pm * r_loc, cL)  # (d, X, Y, Z)
+            g = self._join(pm * r_loc, Ls)  # (d, X, Y, Z) on devices[0]
             e = gmg_elastic.vcycle(G_tail, torch.movedim(g, 0, -1).reshape(-1))
             e4 = torch.movedim(e.reshape(tail_shape + (d,)), -1, 0)
-            return pm * _split(e4, cL)
+            return pm * self._split(e4, Ls)
 
         def mcycle(r0):
             bs = [vfrees[0] * r0]
@@ -836,11 +895,11 @@ class LatticeHaloVectorSolver:
             return mcycle(r) + (1 - free) * pm0 * r
 
         def dot(a, c):
-            return _rank_sum((pm0 * a * c).reshape(self.n_dev, -1).sum(1))
+            return self.groups.rank_dot(pm0 * a, c, seg)
 
-        bs, ubc = _split(to4(b), c0), _split(to4(u_bc), c0)
+        bs, ubc = self._split(to4(b), 0), self._split(to4(u_bc), 0)
         rhs = pm0 * (free * (bs - self._apply(ubc, 0, coef)) + (1 - free) * ubc)
         x, it, res = krylov.cg(matvec, rhs, M=M, tol=tol, maxiter=maxiter,
                                dot=dot)
         self.last_relres = res
-        return torch.movedim(_join(x, c0), 0, -1).reshape(-1), int(it)
+        return torch.movedim(self._join(x, 0), 0, -1).reshape(-1), int(it)

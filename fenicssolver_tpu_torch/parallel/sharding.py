@@ -28,8 +28,11 @@ Deviations from the reference:
   returns it as converged.
 
 The same device may appear more than once in ``devices`` (the counterpart
-of the reference tests' virtual CPU devices).  ``torch.distributed`` ranks
-are not ported yet (ROADMAP.md, the distributed layer).
+of the reference tests' virtual CPU devices), and the shards may be on
+several cards: each shard's element matrices are evaluated on its own card
+(``groups.kernel_on``: the kernel's captured tables are copied there).
+``torch.distributed`` ranks are not ported yet (ROADMAP.md, the
+distributed layer).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from torch.utils._pytree import tree_map
 from .. import config
 from ..la.krylov import cg, jacobi_preconditioner
 from ..ops import assembly, cuda_kernels, geometry
+from .groups import kernel_on
 from .partition import partition_cells
 
 
@@ -111,7 +115,8 @@ class ShardedEllipticSolver:
                 aux_p = tree_map(
                     lambda a: torch.as_tensor(a, device=dev)[rows], aux
                 )
-            Ae_T = _element_matrices(kernel, ctx, aux_p, self.dtype)
+            with kernel_on(dev):  # the kernel's tables may be on another card
+                Ae_T = _element_matrices(kernel, ctx, aux_p, self.dtype)
             dofs_T = ctx.cell_dofs.T.contiguous()
             self._shards.append(
                 _Shard(dev, dofs_T, assembly.OrderedScatter(dofs_T), Ae_T)

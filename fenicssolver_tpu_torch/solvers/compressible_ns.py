@@ -51,7 +51,7 @@ import torch
 from .. import config
 from ..core.function import Function
 from ..core.spaces import VectorFunctionSpace
-from ..ops.assembly import OrderedScatter
+from ..ops.assembly import OrderedScatter, fixed_order_sum
 from .solver_base import SolverBase, SolverError
 
 
@@ -226,27 +226,33 @@ class CompressibleNSSolver(SolverBase):
         self._bplan = {key: self._t(v) for key, v in self._bplan_host.items()}
         self._prepared = True
 
-    def _t(self, a):
+    def _t(self, a, device=None):
         return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                               device=self.device).to(self.dtype)
+                               device=device or self.device).to(self.dtype)
 
-    def _device_tables(self, ndof, cd, vol, dphig, h_e, bfv, bfa, bfn, mlump):
-        """The device tables of ``_rhs`` over ``ndof`` nodes: the cells
-        last (vertex a's node of every cell, dphig as (k, d, nc)) and the
-        ordered scatters of the element -> node and boundary-flux sums."""
+    def _device_tables(self, ndof, cd, vol, dphig, h_e, bfv, bfa, bfn, mlump,
+                       device=None):
+        """The device tables of ``_rhs`` over ``ndof`` nodes, on ``device``
+        (default the solver's): the cells last (vertex a's node of every
+        cell, dphig as (k, d, nc)) and the ordered scatters of the element ->
+        node and boundary-flux sums."""
         d = self.dimension
+        device = device or self.device
 
         def _i(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                   device=self.device)
+                                   device=device)
+
+        def _t(a):
+            return self._t(a, device)
 
         nvar = d + 2
         rows = _i(np.arange(nvar)[:, None] * ndof)
         cdT = _i(np.ascontiguousarray(cd.T))
-        t = dict(cols=list(cdT), vol=self._t(vol),
-                 dphig=self._t(np.ascontiguousarray(dphig.transpose(1, 2, 0))),
-                 h_e=self._t(h_e), bfv=_i(bfv), bfa=self._t(bfa),
-                 bfn=self._t(bfn), mlump=self._t(mlump), eye=self._t(np.eye(d)))
+        t = dict(cols=list(cdT), vol=_t(vol),
+                 dphig=_t(np.ascontiguousarray(dphig.transpose(1, 2, 0))),
+                 h_e=_t(h_e), bfv=_i(bfv), bfa=_t(bfa), bfn=_t(bfn),
+                 mlump=_t(mlump), eye=_t(np.eye(d)))
         # the two sums over all variables at once, into the flattened
         # (nvar * ndof) state: rows v * ndof + node, the element values in
         # (v, a, c) order
@@ -401,8 +407,11 @@ class CompressibleNSSolver(SolverBase):
     def _march_distributed(self, U0, dt, nsteps):
         """The sharded march (``parallel/explicit.py``): per stage one ghost
         refresh of the state, the residual of each shard's replicated
-        elements (rows it does not own dropped), the BCs.  Returns the
-        gathered final state (numpy)."""
+        elements (rows it does not own dropped), the BCs; each device group
+        on its device.  The element -> node sums of the groups take the
+        ``csr_spmv`` group of the whole stacked sum, so every grouping of the
+        shards gives the same bits.  Returns the gathered final state
+        (numpy)."""
         from ..parallel.explicit import HaloExplicitStepper
 
         h = self._host
@@ -410,28 +419,38 @@ class CompressibleNSSolver(SolverBase):
         st = HaloExplicitStepper(np.asarray(self.mesh.coords),
                                  [h["cd"], h["bfv"]], dtype=self.dtype)
         self.last_stepper = st
-        n = st.n_dev * st.Lp
-        tabs = self._device_tables(
-            n, cd=st.ldofs[0], vol=st.localize(0, h["vol"]),
-            dphig=st.localize(0, h["dphig"]), h_e=st.localize(0, h["h_e"]),
-            bfv=st.ldofs[1], bfa=st.localize(1, h["bfa"]),
-            bfn=st.localize(1, h["bfn"]),
-            mlump=st.scatter_nodal(h["mlump"], pad=1.0))
-        bp = {k: self._t(st.scatter_nodal(v)) for k, v in self._bplan_host.items()}
+        groups = st.groups
+        vol, dphig, h_e = (st.localize(0, h[k]) for k in ("vol", "dphig", "h_e"))
+        bfa, bfn = st.localize(1, h["bfa"]), st.localize(1, h["bfn"])
+        mlump = st.scatter_nodal(h["mlump"], pad=1.0)
+        tabs = [self._device_tables(
+            n, cd=st.ldofs[g][0], vol=vol[g], dphig=dphig[g], h_e=h_e[g],
+            bfv=st.ldofs[g][1], bfa=bfa[g], bfn=bfn[g], mlump=mlump[g],
+            device=dev) for g, (n, dev) in enumerate(zip(st.lengths,
+                                                          groups.devices))]
+        for key in ("node_sum", "facet_sum"):
+            fixed_order_sum([t[key] for t in tabs])
+        bplan = {k: st.scatter_nodal(v) for k, v in self._bplan_host.items()}
+        bps = [{k: self._t(v[g], dev) for k, v in bplan.items()}
+               for g, dev in enumerate(groups.devices)]
         # padding and dummy slots hold a safe state (rho = 1, E = 1)
         safe = np.zeros(d + 2)
         safe[0] = safe[-1] = 1.0
-        U = self._t(st.scatter_nodal(np.asarray(U0), pad=safe))
-        own = self._t(st.own_mask)
+        U = groups.sharded([self._t(u, dev) for u, dev in zip(
+            st.scatter_nodal(np.asarray(U0), pad=safe), groups.devices)])
+        owns = [self._t(m, dev) for m, dev in zip(st.own_masks, groups.devices)]
         exchange = st.make_exchange()
 
         def stage(U):
             Ux = exchange(U)  # ghosts from their owners
-            return self._apply_bcs(Ux + dt * (own * self._rhs(Ux, tabs)), bp)
+            return groups.sharded([
+                self._apply_bcs(u + dt * (own * self._rhs(u, t)), bp)
+                for u, own, t, bp in zip(Ux.parts, owns, tabs, bps)])
 
         for _ in range(nsteps):
             U = 0.5 * U + 0.5 * stage(stage(U))
-        return st.gather_nodal(U.cpu().numpy().astype(np.float64))
+        return st.gather_nodal([u.cpu().numpy().astype(np.float64)
+                                for u in U.parts])
 
     def solve(self):
         """March ``transient_settings`` [starting_time, ending_time] with the

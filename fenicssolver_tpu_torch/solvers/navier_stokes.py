@@ -1408,7 +1408,7 @@ class CoupledNavierStokesSolver(SolverBase):
         if sp.get("monitor_convergence"):
             self.logger.info("distributed fieldsplit-FGMRES: %d iters, rel res "
                              "%.2e", it, res)
-        return x, route, int(it), float(res)
+        return x.to(self.device), route, int(it), float(res)
 
     def _momentum_proxy_singular(self):
         """Whether the SPD viscous proxy of the momentum block is singular
@@ -1455,15 +1455,21 @@ class CoupledNavierStokesSolver(SolverBase):
                                    dtype=self.dtype)
             hm._mixed_key = mkey
             # the owners agree, so every momentum level-0 owned slot maps to
-            # an owned slot of the mixed layout on the same shard
+            # an owned slot of the mixed layout on the same shard (and so in
+            # the same device group)
             lay_m = hm._lay[0]
             mix, mom = [], []
-            for r in range(lay.n_dev):
-                ids = lay_m._owned[r]  # indices into MF
-                mix.append(lay.local_slots(r, MF[ids]))
-                mom.append(r * lay_m.Lp + np.arange(len(ids)))
-            hm._u_mix = torch.as_tensor(np.concatenate(mix), device=self.device)
-            hm._u_mom = torch.as_tensor(np.concatenate(mom), device=self.device)
+            for g, ranks in enumerate(lay.groups.ranks):
+                mix_g, mom_g = [], []
+                for r in ranks:
+                    ids = lay_m._owned[r]  # indices into MF
+                    mix_g.append(lay.group_slots(r, MF[ids]))
+                    mom_g.append(lay_m._base[r] + np.arange(len(ids)))
+                dev = lay.groups.devices[g]
+                mix.append(torch.as_tensor(np.concatenate(mix_g), device=dev))
+                mom.append(torch.as_tensor(np.concatenate(mom_g), device=dev))
+            hm._u_mix = lay.groups.sharded(mix)
+            hm._u_mom = lay.groups.sharded(mom)
             is_p = np.zeros(W.ndof)
             pr = np.arange(W.slice_of(1).start, W.slice_of(1).stop)
             is_p[pr] = free_np[pr] > 0.5
@@ -1472,18 +1478,34 @@ class CoupledNavierStokesSolver(SolverBase):
             hm._p_sel = lay.own * lay.scatter_local(is_p)
             hm._u_sel = lay.own * lay.scatter_local(is_u)
             self._ns_mom_amg = hm
-        n_m = hm._lay[0].n_dev * hm._lay[0].Lp
         u_mix, u_mom, p_sel, u_sel = hm._u_mix, hm._u_mom, hm._p_sel, hm._u_sel
         bcorr = self._momentum_bcorr(J, free, su)
         if bcorr is not None:
             bdofs_u, A_bb_inv = bcorr
             g_b = (su.start or 0) + bdofs_u.cpu().numpy()
             owner_b = hs._owner[g_b]
-            loc_b = np.zeros(len(g_b), dtype=np.int64)
+            slot_b = np.zeros(len(g_b), dtype=np.int64)
             for r in np.unique(owner_b):
                 mine = owner_b == r
-                loc_b[mine] = lay.local_slots(int(r), g_b[mine])
-            loc_b = torch.as_tensor(loc_b, device=self.device)
+                slot_b[mine] = lay.local_slots(int(r), g_b[mine])
+            # per group: the boundary dofs it owns (their places in the
+            # boundary block, on devices[0]; their slots, on its device)
+            loc_b = [(torch.as_tensor(sel, device=self.device),
+                      torch.as_tensor(loc, device=dev))
+                     for (sel, loc), dev in zip(lay.by_group(slot_b),
+                                                lay.groups.devices)]
+
+            def boundary_block(r2):
+                # the touched dofs gathered onto devices[0], a dense solve,
+                # the result added at the owners
+                rb = torch.zeros(len(g_b), dtype=r2.dtype, device=self.device)
+                for (sel, loc), part in zip(loc_b, r2.parts):
+                    rb[sel] = part[loc].to(self.device)
+                xb = A_bb_inv @ rb
+                return lay.groups.sharded([
+                    torch.zeros_like(part).index_add(0, loc, xb[sel].to(
+                        part.device))
+                    for (sel, loc), part in zip(loc_b, r2.parts)])
 
         def M_build(h):
             own, fr, inv_pd = h["own"], h["free"], h["inv_pd"]
@@ -1492,7 +1514,7 @@ class CoupledNavierStokesSolver(SolverBase):
             def vcyc_mixed(rm):
                 # the V-cycle on the free momentum part of a mixed-layout
                 # vector, scattered back into the mixed layout
-                rum = torch.zeros(n_m, dtype=rm.dtype, device=rm.device)
+                rum = hm._lay[0].zeros(rm.dtype)
                 rum[u_mom] = rm[u_mix]
                 out = torch.zeros_like(rm)
                 out[u_mix] = hm.vcycle(rum)[u_mom]
@@ -1512,9 +1534,7 @@ class CoupledNavierStokesSolver(SolverBase):
                 if bcorr is not None:
                     # the exact boundary block on the true residual: the
                     # touched dofs gathered, a dense solve, added at owners
-                    r2 = ru - A_uu_m(xm)
-                    xm = xm + u_sel * torch.zeros_like(xm).index_add(
-                        0, loc_b, A_bb_inv @ r2[loc_b])
+                    xm = xm + u_sel * boundary_block(ru - A_uu_m(xm))
                 xm = xm + vcyc_mixed(ru - A_uu_m(xm))
                 z = z * (1.0 - u_sel) + xm
                 return own * (fr * z + (1.0 - fr) * r)

@@ -622,7 +622,7 @@ class SolverBase:
         self.last_relres = ls.last_relres
         if sp.get("monitor_convergence"):
             self.logger.info("lattice halo GMG-CG: %d iters", it)
-        return x, it
+        return x.to(self.device), it
 
     def _halo_amg_solve(self, A, b, free, ubc, tol, maxiter, spd=True):
         """Distributed solve of an assembled system (reference ``:762-830``):
@@ -671,7 +671,7 @@ class SolverBase:
                 if sp.get("monitor_convergence"):
                     self.logger.info("halo-sharded AMG-%s: %d iters, rel res "
                                      "%.2e", self.last_krylov, it, res)
-                return x, int(it)
+                return x.to(self.device), int(it)
             self.logger.warning(
                 "sharded AMG solve stalled (res %.2e after %d iters); "
                 "falling back to the Jacobi halo Krylov", res, it)
@@ -694,7 +694,7 @@ class SolverBase:
         self.last_relres = res
         if sp.get("monitor_convergence"):
             self.logger.info("halo-sharded Jacobi Krylov: %d iters", it)
-        return x, int(it)
+        return x.to(self.device), int(it)
 
     def _halo_krylov(self, A, b, free, ubc, sp):
         """The non-SPD distributed solve (reference ``:955-985``): Jacobi
@@ -717,7 +717,7 @@ class SolverBase:
                 x, it, res = hs.solve_krylov(b, free, ubc, method="gmres",
                                              prec_diag=diag, tol=tol,
                                              maxiter=maxiter, restart=80)
-        return x, it, res
+        return x.to(self.device), it, res
 
     def _periodic_slaves(self):
         """(slave dofs, master of every dof) of a periodic space, or None."""

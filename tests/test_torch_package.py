@@ -47,6 +47,7 @@ SLICE_MODULES = [
     "fenicssolver_tpu_torch.ops.stencil_assembly",
     "fenicssolver_tpu_torch.lattice_poisson",
     "fenicssolver_tpu_torch.parallel",
+    "fenicssolver_tpu_torch.parallel.groups",
     "fenicssolver_tpu_torch.parallel.partition",
     "fenicssolver_tpu_torch.parallel.sharding",
     "fenicssolver_tpu_torch.parallel.halo",
