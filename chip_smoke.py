@@ -125,11 +125,21 @@ non-zero and no result line is printed):
    examples/test_adjoint_inverse.py by ``torch.optim.Adam`` with the
    example's assertions, and at 66,049 dofs a gradient against central
    differences (1e-6) that two calls give bit-equal;
+8e'. the elbow of examples/test_cfd_solver.py through ``main(settings)``
+   on the default device: the 2-D elbow at res 8 and the 3-D elbow of
+   ``setup_case_3d`` at res 5 (11,829 Taylor-Hood dofs), each finite with
+   |u| < 3 and the outflow within 2% of the inflow (``assemble_functional``
+   over boundaries 2 and 3, two calls bit-equal), with its dofs, seconds,
+   Newton steps and their routes; the coupled temperature at res 7.
+   ``python3 chip_smoke.py --only elbow-3d`` runs the build and the 3-D
+   elbow at res 12 (143,128 dofs, the iterative saddle-point route) alone;
 8f. the last three solvers, through ``main(settings)`` on the default
    device: ``NSDGSolver`` on the DG2/DG1 channel of
    examples/test_dg_flow.py at 64 x 64 (122,880 dofs) by ``fieldsplit``
    with the DG p-multigrid present (``check_dg_fieldsplit``), exact to
-   1e-8, two solves of one system bit-equal, the 3-D Couette duct at 6^3
+   1e-8, its net boundary flux (``assemble_functional`` over every
+   exterior facet, two calls bit-equal) below 1e-8 of the inflow, two
+   solves of one system bit-equal, the 3-D Couette duct at 6^3
    and 8^3 (104,448 dofs) with its peak device memory by part (each
    Jacobian term, the residual, ``_build_pmg``, FGMRES), the transient
    start-up against the CPU (1e-9);
@@ -4425,9 +4435,10 @@ def phase_ns_ipcs(device=None, drag_ref=None, dfg=N_DFG, dt=0.004, steps=500,
     check(np.isfinite(n).all(), "non-finite IPCS norms at the large mesh")
 
 
-def elbow_settings(core, res, solving_temperature=False):
+def elbow_settings(core, res, solving_temperature=False, mesh=None):
     """examples/test_cfd_solver.py's elbow (``setup_case``): rho = 1000, nu
-    = 0.5, walls at 320 K and the inlet at 300 K with the temperature."""
+    = 0.5, walls at 320 K and the inlet at 300 K with the temperature; on
+    ``mesh``, by default the port's ``elbow_mesh(res)``."""
     from fenicssolver_tpu_torch.core.meshgen import elbow_mesh
 
     near = core.near
@@ -4442,7 +4453,7 @@ def elbow_settings(core, res, solving_temperature=False):
                               max_vel=1.0, degree=2)
     return {
         "solver_name": "CoupledNavierStokesSolver",
-        "mesh": elbow_mesh(res), "fe_degree": 1,
+        "mesh": elbow_mesh(res) if mesh is None else mesh, "fe_degree": 1,
         "boundary_conditions": {
             "walls": {"boundary": core.AutoSubDomain(lambda x: x[0] == x[0]),
                       "boundary_id": 1, "values": values((0.0, 0.0), 320.0)},
@@ -4471,31 +4482,166 @@ def elbow_settings(core, res, solving_temperature=False):
     }
 
 
-def phase_ns_coupled(device=None, res=7, res_flow=8):
+def elbow_3d_settings(core, res, mesh=None):
+    """examples/test_cfd_solver.py's ``setup_case_3d``: the L-duct
+    Box(0,0,0)-(1,2,1) + Box(1,1,0)-(2,2,1), the bi-parabolic inlet at y =
+    0, p = 0 at the outlet x = 2, no-slip elsewhere; the 2-D case's material
+    and tolerance; on ``mesh``, by default the port's ``elbow_mesh(res,
+    three_d=True)``."""
+    from fenicssolver_tpu_torch.core.meshgen import elbow_mesh
+
+    near = core.near
+    profile = core.Expression(
+        ("0", "max_vel*(1.0-pow((x[0]-0.5)/0.5, 2))*(1.0-pow((x[2]-0.5)/0.5, 2))",
+         "0"), max_vel=1.0, degree=2)
+
+    def velocity(value):
+        return [{"variable": "velocity", "type": "Dirichlet", "value": value}]
+
+    s = elbow_settings(core, res, mesh=(elbow_mesh(res, three_d=True)
+                                        if mesh is None else mesh))
+    s["boundary_conditions"] = {
+        "walls": {"boundary": core.AutoSubDomain(lambda x: x[0] == x[0]),
+                  "boundary_id": 1, "values": velocity((0.0, 0.0, 0.0))},
+        "inlet": {"boundary": core.AutoSubDomain(lambda x: near(x[1], 0.0)),
+                  "boundary_id": 2, "values": velocity(profile)},
+        "outlet": {"boundary": core.AutoSubDomain(lambda x: near(x[0], 2.0)),
+                   "boundary_id": 3, "values": [{
+                       "variable": "pressure", "type": "Dirichlet",
+                       "value": 0.0}]},
+    }
+    s["initial_values"] = {"velocity": (0.0, 0.0, 0.0), "pressure": 0.0}
+    return s
+
+
+def velocity_flux(solver, facet_ids, w, qdeg=4):
+    """The integral of u.n over the given exterior facets of ``solver``'s
+    mesh (n outward) for the mixed field's values ``w`` (a tensor on the
+    solver's device), by ``assembly.assemble_functional``: the kernel of
+    tests/test_ns_dg.py and examples/test_cfd_solver.py.  A 0-d tensor on
+    the solver's device."""
+    import torch
+
+    from fenicssolver_tpu_torch.ops import assembly, geometry
+
+    W = solver.function_space
+    d = solver.mesh.gdim
+    Vv = W.subspaces[0]
+    kv = Vv.scalar_space.ndof_el
+    fctx = geometry.build_facet_context(W, facet_ids, qdeg, device=w.device,
+                                        dtype=w.dtype)
+    fphi, _, fw, _ = geometry.facet_basis_tables(solver.mesh.tdim, Vv.degree,
+                                                 qdeg)
+    fphi = torch.as_tensor(fphi, dtype=w.dtype, device=w.device)
+    fw = torch.as_tensor(fw, dtype=w.dtype, device=w.device)
+
+    def kern(we, geom, aux):
+        U = we[: kv * d].reshape(kv, d)
+        uq = torch.index_select(fphi, 0, geom.local_id.reshape(1))[0] @ U
+        return torch.sum(fw * geom.detF * (uq @ geom.normal))
+
+    return assembly.assemble_functional(kern, fctx, u=w)
+
+
+def fixed_flux(solver, facet_ids):
+    """``velocity_flux`` of the solver's result over ``facet_ids`` as a
+    float; fails unless two calls give the same bits."""
+    import torch
+
+    w = torch.as_tensor(solver.result.values, dtype=solver.dtype,
+                        device=solver.device)
+    a, b = velocity_flux(solver, facet_ids, w), velocity_flux(solver, facet_ids, w)
+    check(torch.equal(a, b), "two calls of assemble_functional differ")
+    return float(a)
+
+
+def elbow_balance(solver):
+    """(q_in, q_out): the flux u.n through the elbow's inlet (boundary 2)
+    and outlet (3)."""
+    return tuple(fixed_flux(solver, solver.boundary_facet_ids(b)) for b in (2, 3))
+
+
+def _check_elbow(name, solver, q_in, q_out):
+    """examples/test_cfd_solver.py's checks: finite, |u| < 3 max_vel, the
+    inflow in, the outflow out and within 2% of it."""
+    import numpy as np
+
+    u = solver.split_solution()[0].values
+    umax = float(np.abs(u).max())
+    check(np.isfinite(solver.result.values).all() and umax < 3.0,
+          f"{name}: |u|max {umax}")
+    check(q_in < 0.0 < q_out and abs(q_out + q_in) / abs(q_in) < 0.02,
+          f"{name}: q_in {q_in}, q_out {q_out}")
+    return umax
+
+
+def _newton_routes(solver):
+    return [st["route"] for st in solver.last_newton]
+
+
+def run_elbow(name, res, settings, device):
+    """One elbow through ``main(settings)`` with the example's checks; one
+    line: cells, dofs, seconds, Newton steps and their routes, the fluxes."""
+    from fenicssolver_tpu_torch.main import main as run_main
+
+    t0 = time.perf_counter()
+    flow = run_main(settings, device=device)
+    wall = time.perf_counter() - t0
+    q_in, q_out = elbow_balance(flow)
+    umax = _check_elbow(name, flow, q_in, q_out)
+    print(f"[ns-coupled] {name} res {res}: {flow.mesh.num_cells()} cells, "
+          f"{flow.function_space.ndof} dofs on {flow.device}, main() "
+          f"{wall:.2f} s, {flow.last_iterations} Newton steps, routes "
+          f"{_newton_routes(flow)}, outer iterations "
+          f"{[st['iterations'] for st in flow.last_newton]}; |u|max "
+          f"{umax:.4f}; q_in {q_in:.6f}, q_out {q_out:.6f}, |q_out + q_in| / "
+          f"|q_in| {abs(q_out + q_in) / abs(q_in):.2e} (tol 0.02)")
+    return flow
+
+
+def phase_ns_coupled(device=None, res=7, res_flow=8, res_3d=5):
     """The elbow of examples/test_cfd_solver.py through ``main(settings)``:
-    the flow (|u| < 3) and the coupled temperature (295 < T < 321.5)."""
+    the 2-D flow at ``res_flow`` and the 3-D elbow of ``setup_case_3d`` at
+    ``res_3d`` (5: 2,250 cells, 11,829 Taylor-Hood dofs, the example's
+    size), each with the example's checks (finite, |u| < 3, the outflow
+    within 2% of the inflow, by ``assemble_functional`` twice bit-equal);
+    the coupled temperature (295 < T < 321.5) at ``res``."""
     import numpy as np
 
     import fenicssolver_tpu_torch.core as core
     from fenicssolver_tpu_torch.main import main as run_main
 
+    run_elbow("elbow", res_flow, elbow_settings(core, res_flow), device)
     t0 = time.perf_counter()
-    flow = run_main(elbow_settings(core, res_flow), device=device)
-    u, p = flow.split_solution()
+    run_elbow("3-D elbow", res_3d, elbow_3d_settings(core, res_3d), device)
+    print(f"[ns-coupled] the 3-D elbow from its settings to its checks: "
+          f"{time.perf_counter() - t0:.3f} s")
     t1 = time.perf_counter()
     coupled = run_main(elbow_settings(core, res, True), device=device)
     t2 = time.perf_counter()
     T = coupled.result.values[coupled.function_space.slice_of(2)]
-    umax = float(np.abs(u.values).max())
-    print(f"[ns-coupled] elbow res {res_flow}: {flow.function_space.ndof} dofs, "
-          f"{t1 - t0:.2f} s, {flow.last_iterations} Newton steps, |u|max "
-          f"{umax:.4f}; with temperature res {res}: "
+    print(f"[ns-coupled] elbow with temperature res {res}: "
           f"{coupled.function_space.ndof} dofs on {coupled.device}, "
           f"{t2 - t1:.2f} s, {coupled.last_iterations} Newton steps, T in "
           f"[{T.min():.3f}, {T.max():.3f}]")
-    check(np.isfinite(flow.result.values).all() and umax < 3.0, "elbow flow")
     check(np.isfinite(T).all() and 295.0 < T.min() and T.max() < 321.5,
           f"elbow T range [{T.min()}, {T.max()}]")
+
+
+def phase_elbow_3d_large(device=None, res=12):
+    """The 3-D elbow at ``res`` (12: 31,104 cells, 143,128 dofs) through
+    ``main(settings)``, past ``la.direct.DENSE_LIMIT``, so every Newton
+    update takes the iterative saddle-point route (``fieldsplit`` FGMRES
+    with the momentum AMG); the example's checks.  Only under ``--only
+    elbow-3d``, so that the default run keeps inside its time limit."""
+    import fenicssolver_tpu_torch.core as core
+    from fenicssolver_tpu_torch.la import direct
+
+    flow = run_elbow("3-D elbow", res, elbow_3d_settings(core, res), device)
+    check(flow.function_space.ndof > direct.DENSE_LIMIT
+          and all(r != "dense" for r in _newton_routes(flow)),
+          f"the 3-D elbow at res {res} took {_newton_routes(flow)}")
+    print(f"[elbow-3d] {_ns_timers(flow)}")
 
 
 def fsi_channel(core):
@@ -4903,6 +5049,14 @@ def phase_ns_dg(device=None, n=64, n_couette=8, startup=(6, 5),
     _ns_newton_lines("ns-dg", solver)
     check_dg_fieldsplit(solver)
     check(err <= 1e-8, f"DG channel velocity error {err}")
+    t0 = time.perf_counter()
+    flux = fixed_flux(solver, solver.mesh.exterior_facets())
+    t_flux = time.perf_counter() - t0
+    inflow = 4 * 0.3 / 6  # the integral of the parabola, U = 0.3
+    print(f"[ns-dg] net boundary flux of the channel by assemble_functional: "
+          f"{flux:.3e}, {abs(flux) / inflow:.2e} of the inflow {inflow:.4f} "
+          f"(tol 1e-8), two calls bit-equal in {t_flux:.3f} s")
+    check(abs(flux) < 1e-8 * inflow, f"DG channel net boundary flux {flux}")
     wall_it, dev, (it1, it2, same, r1) = profile_fgmres_iteration(solver)
     print(f"[ns-dg] one FGMRES outer iteration at the solution: {wall_it:.3f} "
           f"ms wall, {dev}; two solves from zero: {it1} and {it2} outer "
@@ -6416,15 +6570,16 @@ def phase_default_device(n=16):
 
 
 def main(argv=None):
-    """All phases on one card (no arguments), or with ``--only
-    multi-device`` the build and ``phase_multi_device`` alone (run it on a
-    machine with several cards)."""
+    """All phases on one card (no arguments); with ``--only multi-device``
+    the build and ``phase_multi_device`` alone (run it on a machine with
+    several cards), with ``--only elbow-3d`` the build and
+    ``phase_elbow_3d_large`` alone."""
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="GPU smoke run of the port")
-    ap.add_argument("--only", choices=["multi-device"], default=None)
+    ap.add_argument("--only", choices=["multi-device", "elbow-3d"], default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6442,9 +6597,10 @@ def main(argv=None):
 
     card = phase_device()
     phase_build()
-    if args.only == "multi-device":
-        phase_multi_device()
-        print(f"[done] the multi-device phase passed on "
+    if args.only is not None:
+        {"multi-device": phase_multi_device,
+         "elbow-3d": phase_elbow_3d_large}[args.only]()
+        print(f"[done] the {args.only} phase passed on "
               f"{torch.cuda.device_count()} x {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -192,6 +192,9 @@ class FunctionSpace:
     def dim(self):
         return self.ndof
 
+    def mesh_(self):  # dolfin API parity
+        return self.mesh
+
     def ufl_element(self):
         return self.element
 
@@ -350,6 +353,9 @@ class VectorFunctionSpace:
     def dim(self):
         return self.ndof
 
+    def mesh_(self):  # dolfin API parity
+        return self.mesh
+
     def ufl_element(self):
         return self.element
 
@@ -405,6 +411,9 @@ class MixedFunctionSpace:
 
     def dim(self):
         return self.ndof
+
+    def mesh_(self):  # dolfin API parity
+        return self.mesh
 
     def ufl_element(self):
         return self.element

@@ -10,6 +10,8 @@ residual kernels over cell/facet batches:
 * Jacobian  J(u): ``torch.func.jacfwd`` of the kernel per element, vmapped,
   summed into a static CSR pattern
 * linear problems: A = J(0), b = -R(0)  (forms are affine in u)
+* functionals: ``assemble_functional``, the sum of a scalar kernel over
+  a cell or facet batch (a drag, a flux, an energy)
 
 Both assemblers read ``term.aux`` when called and keep no copy of it, so a
 caller may swap an aux tensor in place between calls (the cached transient
@@ -212,9 +214,11 @@ class Form:
         return self
 
 
-def _vmap_dims(term):
-    ctx_axes = type(term.ctx)(*([0] * len(term.ctx._fields)))
-    return (0, ctx_axes, 0 if term.aux is not None else None)
+def _vmap_dims(ctx, aux):
+    """``vmap``'s ``in_dims`` for a kernel ``(u_e, ctx, aux)``: the batch is
+    axis 0 of every field; ``aux`` is batched when there is one."""
+    ctx_axes = type(ctx)(*([0] * len(ctx._fields)))
+    return (0, ctx_axes, 0 if aux is not None else None)
 
 
 def _chunk_size(term):
@@ -272,7 +276,7 @@ def assemble_residual(form, u, aux_update=None):
     docstring)."""
     R = torch.zeros(form.space.ndof, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
-        fn = torch.func.vmap(term.kernel, in_dims=_vmap_dims(term))
+        fn = torch.func.vmap(term.kernel, in_dims=_vmap_dims(term.ctx, term.aux))
         for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term, aux_update),
                                                     _scatters(term)):
             into_dofs.add_(R, fn(u[ctx.cell_dofs], ctx, aux))
@@ -285,9 +289,8 @@ def assemble_jacobian(form, u, aux_update=None):
     element Hessian (forward over reverse)."""
     data = torch.zeros(form.pattern.nnz, dtype=u.dtype, device=u.device)
     for term in form.cell_terms + form.facet_terms:
-        fn = torch.func.vmap(
-            torch.func.jacfwd(term.kernel, argnums=0), in_dims=_vmap_dims(term)
-        )
+        fn = torch.func.vmap(torch.func.jacfwd(term.kernel, argnums=0),
+                             in_dims=_vmap_dims(term.ctx, term.aux))
         for (_, _, ctx, aux), (_, into_pos) in zip(_chunks(term, aux_update),
                                                    _scatters(term)):
             into_pos.add_(data, fn(u[ctx.cell_dofs], ctx, aux))
@@ -317,7 +320,7 @@ def residual_vjp(form, u, lam, aux_update=None, wrt_aux=()):
             _, back = torch.func.vjp(f, ue, *(aux_e[k] for k in keys))
             return back(lam_e)
 
-        fn = torch.func.vmap(elem, in_dims=_vmap_dims(term) + (0,))
+        fn = torch.func.vmap(elem, in_dims=_vmap_dims(term.ctx, term.aux) + (0,))
         parts = {k: [] for k in keys}
         for (_, _, ctx, aux), (into_dofs, _) in zip(_chunks(term, aux_update),
                                                     _scatters(term)):
@@ -341,6 +344,32 @@ def assemble_linear_system(form, dtype=None):
     A = assemble_jacobian(form, u0)
     b = -assemble_residual(form, u0)
     return A, b
+
+
+def assemble_functional(kernel, ctx, aux=None, u=None):
+    """Sum of a scalar kernel over a cell/facet batch (a drag, a flux, an
+    energy), as a 0-d tensor: ``kernel(u_e, geom_e, aux_e)`` mapped over
+    the batch, at ``u[ctx.cell_dofs]`` or, without ``u``, at zeros on the
+    ctx's device in its dtype.
+
+    The batch goes in chunks of ``chunk_cells(k)`` cells, so that what the
+    kernel holds follows the element size, and is summed in a fixed order:
+    each chunk's values by one reduction (PyTorch's reductions add no
+    atomics, so a chunk of one length sums in one order), then the chunks'
+    partials one after another in chunk order.  Two calls on the card give
+    the same bits (F3)."""
+    n, k = ctx.cell_dofs.shape
+    like = u if u is not None else next(a for a in ctx if torch.is_floating_point(a))
+    fn = torch.func.vmap(kernel, in_dims=_vmap_dims(ctx, aux))
+    step = chunk_cells(k)
+    total = torch.zeros((), dtype=like.dtype, device=like.device)
+    for s in range(0, n, step):
+        c = type(ctx)(*(a[s : s + step] for a in ctx))
+        ue = (u[c.cell_dofs] if u is not None else
+              torch.zeros(c.cell_dofs.shape, dtype=like.dtype, device=like.device))
+        a = None if aux is None else tree_map(lambda t: t[s : s + step], aux)
+        total = total + torch.sum(fn(ue, c, a))
+    return total
 
 
 # ---------------------------------------------------------------------------

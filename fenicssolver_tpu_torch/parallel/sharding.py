@@ -63,7 +63,7 @@ def _element_matrices(kernel, ctx, aux, dtype):
     nc, k = ctx.cell_dofs.shape
     term = assembly.CellTerm(kernel=kernel, ctx=ctx, aux=aux)
     fn = torch.func.vmap(torch.func.jacfwd(kernel, argnums=0),
-                         in_dims=assembly._vmap_dims(term))
+                         in_dims=assembly._vmap_dims(term.ctx, term.aux))
     Ae_T = torch.empty((k, k, nc), dtype=dtype, device=ctx.cell_dofs.device)
     for s, e, c, a in assembly._chunks(term):
         u0 = torch.zeros((e - s, k), dtype=dtype, device=Ae_T.device)

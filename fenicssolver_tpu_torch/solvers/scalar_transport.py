@@ -31,6 +31,7 @@ from ..la.newton import newton_solve
 from ..ops import assembly, geometry
 from .solver_base import SolverBase, SolverError
 
+supported_scalars = {"temperature", "electric_potential", "species_concentration"}
 electric_permittivity_in_vacumm = 8.854187817e-12
 Stefan_constant = 5.670367e-8  # W m^-2 K^-4
 
@@ -563,6 +564,9 @@ class ScalarTransportSolver(SolverBase):
         """eps * sigma * (Ta^4 - T^4) for temperatures ``T`` (host)."""
         m_, Ta = self._radiation_constants()
         return m_ * (Ta**4 - np.asarray(T) ** 4)
+
+    def get_convective_velocity_function(self, convective_velocity):
+        return self.translate_value(convective_velocity)
 
     def export(self):
         return (

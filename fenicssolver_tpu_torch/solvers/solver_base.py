@@ -86,6 +86,35 @@ default_solver_parameters = {
     "monitor_convergence": True,
 }
 
+# the schema's defaults (reference ``solver_base.py:60-87``); no solver reads it
+default_case_settings = {
+    "solver_name": None,
+    "case_name": "test",
+    "case_folder": "./",
+    "case_file": None,
+    "mesh": None,
+    "fe_degree": 1,
+    "fe_family": "CG",
+    "function_space": None,
+    "periodic_boundary": None,
+    "boundary_conditions": None,
+    "body_source": None,
+    "surface_source": None,
+    "initial_values": {},
+    "material": {},
+    "solver_settings": {
+        "transient_settings": {
+            "transient": False,
+            "starting_time": 0,
+            "time_step": 0.01,
+            "ending_time": 0.03,
+        },
+        "reference_values": {},
+        "solver_parameters": default_solver_parameters,
+    },
+    "report_settings": default_report_settings,
+}
+
 
 class SolverBase:
     """Base class for the physics solvers.
@@ -107,6 +136,11 @@ class SolverBase:
         self.last_relres = None
         # which preconditioner the most recent Krylov solve ran with
         self.last_preconditioner = None
+
+    def print(self):
+        import pprint
+
+        pprint.PrettyPrinter(indent=4).pprint(self.settings)
 
     def _tensor(self, a):
         """A copy of ``a`` as a tensor on the solver's device, in its dtype."""
@@ -312,6 +346,11 @@ class SolverBase:
                     if vbc.get("variable") == variable:
                         bvariable = vbc
         return bvariable
+
+    def get_boundary_value(self, bc, variable=None):
+        """Boundary value lookup (the FEniCS original called a bare
+        ``translate_value`` here, a NameError)."""
+        return self.translate_value(self.get_boundary_variable(bc, variable)["value"])
 
     def get_body_source(self):
         if isinstance(self.body_source, dict):

@@ -12,6 +12,7 @@ import torch
 
 torch.set_num_threads(2)
 
+import chip_smoke  # noqa: E402
 import fenicssolver_tpu.core as jcore  # noqa: E402
 import fenicssolver_tpu.la.newton as jnewton  # noqa: E402
 import fenicssolver_tpu_torch.core as tcore  # noqa: E402
@@ -176,6 +177,11 @@ def test_poiseuille_pressure_and_wall_force():
     drag, lift = ts.calc_drag_and_lift(up, 0, 1, [3, 4])
     tau = RHO * NU * 4 * U_MAX
     assert abs(abs(drag) - 2 * tau) / (2 * tau) < 1e-8 and abs(lift) < 1e-8 * tau
+    # global mass balance: the integral of u.n over the whole boundary
+    flux = float(chip_smoke.velocity_flux(
+        ts, ts.mesh.exterior_facets(), torch.as_tensor(up.values)))
+    inflow = 4 * U_MAX / 6.0  # the integral of the parabola over [0, 1]
+    assert abs(flux) < 1e-10 * inflow, flux
 
 
 def test_main_dispatches_and_distributed_raises(monkeypatch):

@@ -134,6 +134,92 @@ def test_no_source_file_imports_jax_or_the_reference():
     assert not offenders, offenders
 
 
+REFERENCE = os.path.join(REPO, "fenicssolver_tpu")
+
+#: public names of the reference that the port leaves out on purpose
+LEFT_OUT = {
+    # a TPU gather layout: ``spmv: "bell"`` maps to CSR in the port
+    "la.block_ell": "*",
+    "native": {"build_ell"},
+    # the Pallas kernels: their CUDA counterparts are in csrc/
+    "ops.pallas_kernels": "*",
+    # returns jnp.int32 and has no caller
+    "config": {"default_int"},
+    # the arrays of the shard_map program (solvers/compressible_ns.py:442);
+    # the port's stepper keeps them per device group
+    "parallel.explicit": {"HaloExplicitStepper.comm_arrays"},
+    # the shard_map V-cycle program (solvers/navier_stokes.py:1573-1617);
+    # the port's HaloAMGSolver.vcycle takes its place
+    "parallel.amg_halo": {"HaloAMGSolver.vcycle_static",
+                          "HaloAMGSolver.level_args", "build_vcycle"},
+    # a shard_map axis name
+    "parallel.halo": {"AXIS"},
+    "parallel.sharding": {"AXIS"},
+}
+
+
+def _public_names(pkg, with_imports):
+    """{module: its public names} of a package, read by ``ast``: functions,
+    classes, module-level assignments (and, ``with_imports``, names bound by
+    an import), each class's public methods with those inherited from
+    classes of the package, as ``Class.method``."""
+    import ast
+
+    trees = {}
+    for root, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                mod = os.path.relpath(path, pkg)[:-3].replace(os.sep, ".")
+                with open(path, encoding="utf-8") as f:
+                    trees[mod.removesuffix("__init__").rstrip(".")] = ast.parse(f.read())
+    classes = {n.name: n for t in trees.values() for n in t.body
+               if isinstance(n, ast.ClassDef)}
+
+    def methods(cls, seen):
+        out = {n.name for n in cls.body
+               if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        for b in cls.bases:
+            base = getattr(b, "id", getattr(b, "attr", None))
+            if base in classes and base not in seen:
+                out |= methods(classes[base], seen | {base})
+        return out
+
+    names = {}
+    for mod, tree in trees.items():
+        found = set()
+        for n in tree.body:
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                found.add(n.name)
+            elif isinstance(n, ast.ClassDef):
+                found |= {n.name} | {f"{n.name}.{m}" for m in methods(n, {n.name})}
+            elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+                targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+                found |= {t.id for t in targets if isinstance(t, ast.Name)}
+            elif with_imports and isinstance(n, (ast.Import, ast.ImportFrom)):
+                found |= {(a.asname or a.name).split(".")[0] for a in n.names}
+        names[mod] = {x for x in found
+                      if not any(p.startswith("_") for p in x.split("."))}
+    return names
+
+
+def test_the_port_has_every_public_name_of_the_reference():
+    ref = _public_names(REFERENCE, with_imports=False)
+    port = _public_names(PKG, with_imports=True)
+    missing = {}
+    for mod, names in ref.items():
+        left_out = LEFT_OUT.get(mod, set())
+        if left_out == "*":
+            continue
+        lacks = sorted(names - port.get(mod, set()) - left_out)
+        if lacks:
+            missing[mod] = lacks
+    assert not missing, missing
+    # every exception still names something the reference has
+    for mod, left_out in LEFT_OUT.items():
+        assert mod in ref and (left_out == "*" or left_out <= ref[mod]), mod
+
+
 def test_cuda_device_raises_without_a_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card rule does not apply")
