@@ -1480,7 +1480,10 @@ def _profiled(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # not the program spans' annotations on the device's timeline
+    # (``utils/timers``): they cover kernels already counted
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     if not dev:
         return None
     busy = sum(e.time_range.elapsed_us() for e in dev)
@@ -5280,7 +5283,8 @@ def profile_step(solver, steps=20, top=5):
                              ProfilerActivity.CUDA]) as prof:
         step(U)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     by_name = {}
     for e in dev:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops import cuda_kernels
 from ..ops.structured import OFFSETS, LatticePattern
+from ..utils.timers import span
 
 #: static tuple form for slicing; index of the (0,0,0) center tap
 OFFSETS_T = tuple(tuple(int(v) for v in o) for o in OFFSETS)
@@ -67,6 +68,10 @@ class GMGLevel(NamedTuple):
     coefs: np.ndarray  # (15,) host taps (kernel parameters, no device sync)
     free3: torch.Tensor  # (Nx, Ny, Nz) 0/1 mask
     inv_diag: float  # 1 / center tap
+
+
+#: the span name of each level (0 = finest), built once
+_LEVEL_SPANS = tuple(f"vcycle.L{i}" for i in range(32))
 
 
 class GMGData(NamedTuple):
@@ -202,20 +207,25 @@ def _a_free(lv, x3):
 
 
 def _cycle(gmg, li, b3):
+    """The V-cycle from level ``li`` down; each level is the span
+    ``vcycle.L<li>`` with the coarser levels nested in it, the dense coarse
+    solve ``vcycle.coarse``."""
     if li == len(gmg.levels):
-        z = gmg.coarse_inv @ b3.reshape(-1)
+        with span("vcycle.coarse"):
+            z = gmg.coarse_inv @ b3.reshape(-1)
         return z.reshape(b3.shape)
     lv = gmg.levels[li]
     om = gmg.omega
-    # pre-smooth from x=0 (first sweep is just scaled b)
-    x = om * lv.inv_diag * (lv.free3 * b3)
-    for _ in range(gmg.nu - 1):
-        x = x + om * lv.inv_diag * lv.free3 * (b3 - _a_free(lv, x))
-    r = lv.free3 * (b3 - _a_free(lv, x))
-    ec = _cycle(gmg, li + 1, restrict3(r))
-    x = x + lv.free3 * prolong3(ec)
-    for _ in range(gmg.nu):
-        x = x + om * lv.inv_diag * lv.free3 * (b3 - _a_free(lv, x))
+    with span(_LEVEL_SPANS[li]):
+        # pre-smooth from x=0 (first sweep is just scaled b)
+        x = om * lv.inv_diag * (lv.free3 * b3)
+        for _ in range(gmg.nu - 1):
+            x = x + om * lv.inv_diag * lv.free3 * (b3 - _a_free(lv, x))
+        r = lv.free3 * (b3 - _a_free(lv, x))
+        ec = _cycle(gmg, li + 1, restrict3(r))
+        x = x + lv.free3 * prolong3(ec)
+        for _ in range(gmg.nu):
+            x = x + om * lv.inv_diag * lv.free3 * (b3 - _a_free(lv, x))
     return x
 
 
@@ -226,13 +236,15 @@ def vcycle(gmg, r_flat):
     coarse inverse + free-masked smoothing); the fine-level identity on
     constrained dofs is added at the end when the hierarchy carries
     ``fine_free`` (``build_gmg`` always sets it)."""
-    b3 = r_flat.reshape(gmg.shape3)
-    if not gmg.levels:  # whole problem under coarse_max: direct dense solve
-        z = gmg.coarse_inv @ r_flat
-    else:
-        z = _cycle(gmg, 0, gmg.levels[0].free3 * b3).reshape(-1)
-    if gmg.fine_free is not None:
-        z = z + (1.0 - gmg.fine_free) * r_flat
+    with span("vcycle"):
+        b3 = r_flat.reshape(gmg.shape3)
+        if not gmg.levels:  # whole problem under coarse_max: direct dense solve
+            with span("vcycle.coarse"):
+                z = gmg.coarse_inv @ r_flat
+        else:
+            z = _cycle(gmg, 0, gmg.levels[0].free3 * b3).reshape(-1)
+        if gmg.fine_free is not None:
+            z = z + (1.0 - gmg.fine_free) * r_flat
     return z
 
 

@@ -13,6 +13,9 @@ FGMRES) — to decide convergence.  The Hessenberg matrix, its Givens
 rotations and the small least-squares solve live on the host in float64;
 everything else stays queued on the device.
 
+Tracing (``utils/timers``): each solve is the span ``krylov.<method>``;
+every host read counts one ``host_sync``.
+
 Deviation from the reference (R1 in ROADMAP.md): the reference's
 ``lax.while_loop`` stops on a NaN residual (the comparison is false) and
 returns NaN as if converged.  Here ``cg``, ``gmres`` and ``fgmres`` raise
@@ -24,10 +27,13 @@ GMRES, which raises if it fails too).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from ..utils.timers import count, span
 
 
 class SolverError(Exception):
@@ -82,6 +88,7 @@ def chebyshev_preconditioner(op, diag, degree=4, lmin_ratio=0.06, lmax=None):
         for _ in range(10):
             x = scaled_op(x)
             x = x / torch.linalg.norm(x)
+        count("host_sync")
         lmax = torch.dot(x, scaled_op(x)).item() * 1.1
     lmax = float(lmax)
     lmin = lmax * lmin_ratio
@@ -107,7 +114,22 @@ def chebyshev_preconditioner(op, diag, degree=4, lmin_ratio=0.06, lmax=None):
 
 
 def _norm(x, dot=torch.dot):
+    count("host_sync")
     return math.sqrt(dot(x, x).item())
+
+
+def _traced(name):
+    """The solver as the span ``name``."""
+
+    def wrap(solve):
+        @functools.wraps(solve)
+        def traced(*args, **kwargs):
+            with span(name):
+                return solve(*args, **kwargs)
+
+        return traced
+
+    return wrap
 
 
 def _nonfinite(method, value, k):
@@ -116,6 +138,7 @@ def _nonfinite(method, value, k):
     )
 
 
+@_traced("krylov.cg")
 def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000, dot=None):
     """Preconditioned conjugate gradients.  Returns (x, iters, relres) with
     ``iters`` an int and ``relres`` a float.  Stops at a residual norm of
@@ -154,6 +177,7 @@ def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000, dot=None):
     return x, k, rnorm / max(bnorm, 1e-300)
 
 
+@_traced("krylov.bicgstab")
 def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000,
              dot=None):
     """Preconditioned BiCGStab (PETSc ``bicgstab`` parity).  Returns
@@ -261,6 +285,7 @@ def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot, dot):
             w = w - hij * V[i]
             h.append(hij)
         hj1 = torch.sqrt(dot(w, w))
+        count("host_sync")
         col = torch.stack(h + [hj1]).cpu().numpy()  # the one sync per iteration
         if not np.isfinite(col).all():
             raise _nonfinite(method, col[-1], it_tot + j)
@@ -273,6 +298,7 @@ def _arnoldi(op, M, b, x, m, target, flexible, method, it_tot, dot):
     return x, abs(g[j]), j
 
 
+@_traced("krylov.gmres")
 def gmres(A, b, x0=None, M=None, tol=1e-8, restart=50, maxiter=20, dot=None):
     """Restarted GMRES(m) with left preconditioning and modified
     Gram-Schmidt.  ``maxiter`` counts restart cycles: the loop stops after
@@ -284,6 +310,7 @@ def gmres(A, b, x0=None, M=None, tol=1e-8, restart=50, maxiter=20, dot=None):
     return _gmres(A, b, x0, M, tol, restart, maxiter, False, dot)
 
 
+@_traced("krylov.fgmres")
 def fgmres(A, b, x0=None, M=None, tol=1e-8, restart=40, maxiter=30,
            dot=None):
     """Flexible GMRES (right preconditioning, per-vector M): the

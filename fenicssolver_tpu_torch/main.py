@@ -4,7 +4,11 @@
 and runs the solve; ``load_settings`` accepts a dict or a JSON file path.
 ``python -m fenicssolver_tpu_torch case.json`` works via ``__main__.py``;
 the device is ``device=`` or ``FST_DEVICE`` (default ``cuda``;
-``FST_DEVICE=cpu`` for the CPU).  A run prints one summary line (for a
+``FST_DEVICE=cpu`` for the CPU).  With ``FST_PROFILE_DIR`` set, the solve
+runs under ``torch.profiler`` and ``<FST_PROFILE_DIR>/<case_name>.json``
+(the solver's name where the case has none) is its Chrome trace: the
+program's spans (``utils/timers``) over the host's operators and kernels.
+A run prints one summary line (for a
 transient run: the steps taken and the last step's iterations); with
 ``report_settings.saving_freq > 0`` the final result is saved to
 ``report_settings.result_filename`` (default ``result_file.pvd``) unless
@@ -94,9 +98,16 @@ def main(case_input, device=None):
         raise NotImplementedError(f"solver {solver_name} is not supported")
     import time as _time
 
-    t0 = _time.perf_counter()
-    solver.solve()
-    wall = _time.perf_counter() - t0
+    from .utils import timers
+
+    # with FST_PROFILE_DIR set: <dir>/<case>.json, the program's spans over
+    # the host's operators and the kernels
+    with timers.maybe_profile(settings.get("case_name") or solver_name) as prof:
+        if prof is not None:
+            timers.clear_records()
+        t0 = _time.perf_counter()
+        solver.solve()
+        wall = _time.perf_counter() - t0
     # (an FSISolver has no report settings of its own)
     sf = getattr(solver, "report_settings", {}).get("saving_freq")
     last_step = solver.steps_taken - 1

@@ -512,9 +512,8 @@ class ScalarTransportSolver(SolverBase):
         with self.timers.phase("assembly"):
             A, b = self._linear_system(F)
             b = b - extra
-        x0 = torch.as_tensor(u.values, dtype=self.dtype, device=self.device)
-        x = self.solve_static(A, b, dirichlet, x0=x0, spd=spd)
-        u.values = x.cpu().numpy().astype(np.float64)
+        x = self.solve_static(A, b, dirichlet, x0=self._upload(u), spd=spd)
+        self._download(x, u)
         return u
 
     def _solve_nonlinear(self, F, extra, u_current, dirichlet, spd=True):

@@ -66,7 +66,7 @@ from ..la.direct import DENSE_LIMIT, dense_solve
 from ..la.krylov import SolverError
 from ..la.newton import newton_solve
 from ..ops import assembly
-from ..utils.timers import PhaseTimers
+from ..utils.timers import PhaseTimers, count, span
 
 __all__ = ["SolverBase", "SolverError"]
 
@@ -458,8 +458,10 @@ class SolverBase:
         last computed solution, in place, and bump ``form.aux_version``.
         Nothing else of the form changes, which ``_history_refreshes``
         records for ``_linear_system``."""
-        lag = torch.as_tensor(self.w_current.values, dtype=self.dtype,
-                              device=self.device)
+        with span("step.to_device"):
+            count("host_sync")  # a pageable upload waits for the stream
+            lag = torch.as_tensor(self.w_current.values, dtype=self.dtype,
+                                  device=self.device)
         for term in form.cell_terms + form.facet_terms:
             if term.aux is None:
                 continue
@@ -475,36 +477,41 @@ class SolverBase:
         # solving and relies on deferred UFL evaluation, SolverBase.py:484-490).
         # History rotates after the solve, so get_acceleration sees
         # T_k, T_{k-1}, T_{k-2}.
-        prev_snapshot = self.w_current.values.copy()
-        cache = getattr(self, "_transient_form_cache", None)
-        if self._cached_form_eligible() and cache is not None:
-            with self.timers.phase("form_cache_refresh"):
-                F, Dirichlet_bcs = cache
-                self._refresh_cached_form(F[0] if isinstance(F, tuple) else F)
-        else:
-            with self.timers.phase("form"):
-                F, Dirichlet_bcs = self.generate_form(
-                    self.current_step,
-                    self.trial_function,
-                    self.test_function,
-                    self.w_current,
-                    self.w_current,
+        with span("step"):
+            with span("step.snapshot"):
+                prev_snapshot = self.w_current.values.copy()
+            cache = getattr(self, "_transient_form_cache", None)
+            if self._cached_form_eligible() and cache is not None:
+                with self.timers.phase("form_cache_refresh"):
+                    F, Dirichlet_bcs = cache
+                    self._refresh_cached_form(F[0] if isinstance(F, tuple) else F)
+            else:
+                with self.timers.phase("form"):
+                    F, Dirichlet_bcs = self.generate_form(
+                        self.current_step,
+                        self.trial_function,
+                        self.test_function,
+                        self.w_current,
+                        self.w_current,
+                    )
+                # cache only once the step-1 structure exists (dynamics forms
+                # gain the inertia term at time_iter_ >= 1)
+                if self._cached_form_eligible() and (
+                    self.current_step >= 1 or self._FORM_CACHEABLE_AT_STEP0
+                ):
+                    self._transient_form_cache = (F, Dirichlet_bcs)
+            self.w_current = self.solve_form(F, self.w_current, Dirichlet_bcs)
+            with span("step.rotate"):
+                self.w_pp.assign(self.w_prev)
+                self.w_prev.values[:] = prev_snapshot
+            with span("step.finite_check"):
+                finite = np.isfinite(self.w_current.values).all()
+            if not finite:
+                raise SolverError(
+                    f"{self.__class__.__name__}: solve produced non-finite "
+                    f"values at step {self.current_step}"
                 )
-            # cache only once the step-1 structure exists (dynamics forms
-            # gain the inertia term at time_iter_ >= 1)
-            if self._cached_form_eligible() and (
-                self.current_step >= 1 or self._FORM_CACHEABLE_AT_STEP0
-            ):
-                self._transient_form_cache = (F, Dirichlet_bcs)
-        self.w_current = self.solve_form(F, self.w_current, Dirichlet_bcs)
-        self.w_pp.assign(self.w_prev)
-        self.w_prev.values[:] = prev_snapshot
-        if not np.isfinite(self.w_current.values).all():
-            raise SolverError(
-                f"{self.__class__.__name__}: solve produced non-finite values "
-                f"at step {self.current_step}"
-            )
-        self.result = self.w_current
+            self.result = self.w_current
 
     def solve_transient(self):
         """The time loop: one ``solve_current_step`` a step until
@@ -828,29 +835,32 @@ class SolverBase:
                 "spmv='bell' (block-ELL) maps to the CSR matvec in "
                 "fenicssolver_tpu_torch"
             )
-        rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
         if n <= DENSE_LIMIT:
+            rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
             with self.timers.phase("dense_solve"):
                 Ac = assembly.constrain_csr(A, free)
                 self.last_iterations = "direct"
                 self.last_krylov = "direct"
                 self.last_preconditioner = None
                 return self._copy_periodic(dense_solve(Ac, rhs))
-        op = assembly.constrained_operator(A.matvec, free)
-        diag = free * A.diagonal() + (1.0 - free)
-        M = krylov.jacobi_preconditioner(diag)
-        self.last_preconditioner = "jacobi"
-        if sp.get("preconditioner") == "gmg":
-            G = self._gmg_preconditioner(free, spd)
-            if G is not None:
-                M, self.last_preconditioner = G, "gmg"
-        elif sp.get("preconditioner") == "amg":
-            try:
-                with self.timers.phase("amg_setup"):
-                    M = self._amg_preconditioner(A, free)
-                self.last_preconditioner = "amg"
-            except Exception as e:  # a degenerate set-up
-                self.logger.warning("AMG setup failed (%s); Jacobi fallback", e)
+        with span("krylov.setup"):
+            rhs = assembly.constrained_rhs(A.matvec, b, free, ubc)
+            op = assembly.constrained_operator(A.matvec, free)
+            diag = free * A.diagonal() + (1.0 - free)
+            M = krylov.jacobi_preconditioner(diag)
+            self.last_preconditioner = "jacobi"
+            if sp.get("preconditioner") == "gmg":
+                G = self._gmg_preconditioner(free, spd)
+                if G is not None:
+                    M, self.last_preconditioner = G, "gmg"
+            elif sp.get("preconditioner") == "amg":
+                try:
+                    with self.timers.phase("amg_setup"):
+                        M = self._amg_preconditioner(A, free)
+                    self.last_preconditioner = "amg"
+                except Exception as e:  # a degenerate set-up
+                    self.logger.warning("AMG setup failed (%s); Jacobi "
+                                        "fallback", e)
         tol = sp.get("relative_tolerance", 1e-8)
         maxiter = sp.get("maximum_iterations", 2000)
         with self.timers.phase("krylov"):
@@ -904,6 +914,7 @@ class SolverBase:
             # the same mask tensor again (a cached transient form hands it in
             # each step): no copy to the host to compare contents
             return _gmg.preconditioner(cache[1])
+        count("host_sync")
         free_np = free.cpu().numpy() > 0.5
         # key on the MASK CONTENT, not its count: two Dirichlet layouts with
         # equal constrained-dof counts must not share a hierarchy
@@ -954,10 +965,23 @@ class SolverBase:
             return self._solve_element_sharded(form, u, dirichlet, sp)
         with self.timers.phase("assembly"):
             A, b = self._linear_system(form)
-        x0 = torch.as_tensor(u.values, dtype=self.dtype, device=self.device)
-        x = self.solve_static(A, b, dirichlet, x0=x0, spd=spd)
-        u.values = x.cpu().numpy().astype(np.float64)
+        x = self.solve_static(A, b, dirichlet, x0=self._upload(u), spd=spd)
+        self._download(x, u)
         return u
+
+    def _upload(self, u):
+        """``u``'s values on the device (a pageable upload, which waits for
+        the stream)."""
+        with span("step.to_device"):
+            count("host_sync")
+            return torch.as_tensor(u.values, dtype=self.dtype,
+                                   device=self.device)
+
+    def _download(self, x, u):
+        """``u.values`` = ``x`` on the host in float64."""
+        with span("step.to_host"):
+            count("host_sync")
+            u.values = x.cpu().numpy().astype(np.float64)
 
     def _solve_element_sharded(self, form, u, dirichlet, sp):
         """``distributed = "element"`` (reference ``:1153-1207``): the

@@ -9,7 +9,8 @@ on the CPU in f64:
   quadrature points against the JAX package's to 1e-14, and a P1 mass
   integral over it;
 - ``utils/timers.maybe_profile``: nothing without ``FST_PROFILE_DIR``, a
-  Chrome trace with it."""
+  Chrome trace with it, and through ``main.main`` the program's spans in
+  that trace."""
 
 import json
 import os
@@ -100,6 +101,27 @@ def test_maybe_profile_writes_a_chrome_trace(tmp_path, monkeypatch):
     trace = json.loads((tmp_path / "prof" / "solve.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("cumsum" in n for n in names)
+
+
+def test_main_under_fst_profile_dir_writes_the_programs_spans(tmp_path, monkeypatch):
+    import fenicssolver_tpu_torch.solvers.solver_base as solver_base
+    from fenicssolver_tpu_torch.main import main
+    from fenicssolver_tpu_torch.utils import timers
+    from tests.test_torch_tracing import heat_settings
+
+    monkeypatch.setattr(solver_base, "DENSE_LIMIT", 100)  # the Krylov route
+    monkeypatch.setenv("FST_PROFILE_DIR", str(tmp_path / "prof"))
+    solver = main(heat_settings(), device="cpu")
+    assert solver.steps_taken == 3 and isinstance(solver.last_iterations, int)
+    trace = json.loads((tmp_path / "prof" / "TestHT.json").read_text())
+    ranges = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    assert len(ranges["step"]) == 3 and len(ranges["krylov.cg"]) == 3
+    for a, b in ranges["krylov.cg"]:  # each solve inside a step
+        assert any(s <= a and b <= e for s, e in ranges["step"])
+    assert len([s for s in timers.records().spans if s.name == "step"]) == 3
 
 
 @pytest.mark.parametrize("ext", [".hdf5", ".xdmf"])
