@@ -10,6 +10,11 @@ residual kernels over cell/facet batches:
 * Jacobian  J(u): ``torch.func.jacfwd`` of the kernel per element, vmapped,
   summed into a static CSR pattern
 * linear problems: A = J(0), b = -R(0)  (forms are affine in u)
+* history operator: where the terms' aux hold gathers of a history
+  vector h (a time step's lagged solution) and the form is affine in h,
+  b(h) = b0 + B h, with B = -dR/dh on the pattern of A and b0 = -R(0) at
+  h = 0 (``assemble_history_operator``): a time loop on a fixed form then
+  takes one sparse product a step in place of the element kernels
 * functionals: ``assemble_functional``, the sum of a scalar kernel over
   a cell or facet batch (a drag, a flux, an energy)
 
@@ -235,13 +240,14 @@ def _chunk_bounds(term):
 
 def _term_aux(term, aux_update):
     """The term's aux with the entries of ``aux_update`` whose keys it has
-    put in their place (shapes must match the term's own)."""
+    put in their place (shapes must match the term's own; a 0-d tensor
+    stands for that value in every entry, without a copy of that size)."""
     if aux_update is None or term.aux is None:
         return term.aux
     out = dict(term.aux)
     for k, v in aux_update.items():
         if k in out:
-            out[k] = v
+            out[k] = v.expand_as(out[k]) if v.dim() == 0 else v
     return out
 
 
@@ -344,6 +350,54 @@ def assemble_linear_system(form, dtype=None):
     A = assemble_jacobian(form, u0)
     b = -assemble_residual(form, u0)
     return A, b
+
+
+def assemble_history_operator(form, keys, dtype=None):
+    """(B, b0) of an affine ``form`` whose terms' aux hold, under ``keys``,
+    gathers of one history vector h at their dofs (``aux[key] =
+    h[ctx.cell_dofs]``, as a time loop refreshes them) and which is affine
+    in h too: b(h) = -R(0) = b0 + B h.
+
+    B = -dR/dh, a ``CSRMatrix`` on ``form.pattern``: the sum over the terms
+    whose aux holds a key of the element Jacobians -d r_e / d h_e, where
+    h_e stands in every key the term holds (``torch.func.jacfwd`` under
+    ``vmap``, at u = 0 and h = 0), summed into ``term.pos`` by the term's
+    own ``OrderedScatter``s, so that it repeats bit for bit as A does.
+    Each of the term's chunks is differentiated in two halves: their
+    forward-mode intermediates stay under those of A's pass.  b0 = -R(0)
+    with every history entry zero.  Whether the form really is affine in
+    h is the caller's to check (compare ``b0 + B h`` with ``-R(0)``)."""
+    from .. import config
+
+    dtype = dtype or config.default_float()
+    device = form.pattern.indptr.device
+    u0 = torch.zeros(form.space.ndof, dtype=dtype, device=device)
+    zero = {k: torch.zeros((), dtype=dtype, device=device) for k in keys}
+    data = torch.zeros(form.pattern.nnz, dtype=dtype, device=device)
+    for term in form.cell_terms + form.facet_terms:
+        held = [k for k in keys if term.aux is not None and k in term.aux]
+        if not held:
+            continue
+
+        def elem(ue, geom, aux_e, kernel=term.kernel, held=held):
+            def r(h_e):
+                return kernel(ue, geom, {**aux_e, **dict.fromkeys(held, h_e)})
+
+            return torch.func.jacfwd(r)(torch.zeros_like(aux_e[held[0]]))
+
+        fn = torch.func.vmap(elem, in_dims=_vmap_dims(term.ctx, term.aux))
+        half = max(1, _chunk_size(term) // 2)
+        for (_, _, ctx, aux), (_, into_pos) in zip(_chunks(term, zero),
+                                                   _scatters(term)):
+            parts = []
+            for s in range(0, ctx.cell_dofs.shape[0], half):
+                c = type(ctx)(*(a[s : s + half] for a in ctx))
+                a = tree_map(lambda t: t[s : s + half], aux)
+                parts.append(fn(u0[c.cell_dofs], c, a))
+            into_pos.add_(data, torch.cat(parts))
+            del parts
+    b0 = -assemble_residual(form, u0, aux_update=zero)
+    return CSRMatrix(pattern=form.pattern, data=data.neg_()), b0
 
 
 def assemble_functional(kernel, ctx, aux=None, u=None):

@@ -42,8 +42,9 @@ Deviations from the reference's time loop: a saved step carries the time
 its field belongs to (the end of the step; the reference's loop writes the
 step's start time); a solver whose form has the same terms at step 0 as
 later (``_FORM_CACHEABLE_AT_STEP0``) caches its transient form from step 0;
-and on a cached form the operator is kept between steps, only the
-right-hand side being assembled again.
+and on a cached form the operator is kept between steps, the right-hand
+side coming from a history operator assembled once beside it
+(``_linear_system``).
 """
 
 from __future__ import annotations
@@ -445,7 +446,9 @@ class SolverBase:
         the CSR pattern) and refreshes only the history aux tensors.  Opt-in,
         valid when the form is step-invariant: fixed dt (no ``time_series``),
         no mesh motion, time-constant boundary and source values (the user
-        asserts the last; the first two are checked)."""
+        asserts the last; the first two are checked).  On such a form a
+        linear problem keeps A and takes b from the history operator (see
+        ``_linear_system``), which rests on the same invariance."""
         if not self._solver_params().get("cache_transient_form"):
             return False
         ts = self.transient_settings
@@ -457,7 +460,8 @@ class SolverBase:
         """Swap the lagged-solution aux of every term for a gather of the
         last computed solution, in place, and bump ``form.aux_version``.
         Nothing else of the form changes, which ``_history_refreshes``
-        records for ``_linear_system``."""
+        records for ``_linear_system``; the uploaded vector is kept
+        (``_history_lag``) for the history operator's product."""
         with span("step.to_device"):
             count("host_sync")  # a pageable upload waits for the stream
             lag = torch.as_tensor(self.w_current.values, dtype=self.dtype,
@@ -470,6 +474,7 @@ class SolverBase:
                     term.aux[key] = lag[term.ctx.cell_dofs]
         form.aux_version += 1
         self._history_refreshes = getattr(self, "_history_refreshes", 0) + 1
+        self._history_lag = (form, form.aux_version, lag)
 
     def solve_current_step(self):
         # The lagged state of this step is the last computed solution, i.e.
@@ -938,7 +943,21 @@ class SolverBase:
         swaps only the lagged solution, which enters b alone.  A kept A is
         used only for the cached form object itself, and only while every
         bump of its ``aux_version`` since A was assembled came from
-        ``_refresh_cached_form``; anything else assembles both again."""
+        ``_refresh_cached_form``; anything else assembles both again, and
+        drops the history operator with A.
+
+        The history operator: b depends on the step only through the
+        lagged solution h that the refresh gathers into the terms' aux
+        under the keys of ``_HISTORY_AUX``, so on a form affine in h,
+        b = b0 + B h with B = -dR/dh (the pattern of A) and b0 = -R(0) at
+        h = 0.  At the first kept step of a form whose terms hold such a
+        key, (B, b0) is assembled once (``assembly.assemble_history_operator``)
+        and b is computed both ways; where ``max|b0 + B h - b| <= 1e-12
+        max|b|`` every kept step after takes ``b0 + B h`` (counted as
+        ``history_operator``), else the operator is dropped until A is
+        assembled again and b is assembled per element as before (counted
+        once as ``history_operator_fallback``).  A step whose h is zero
+        checks nothing and assembles b per element."""
         cache = getattr(self, "_transient_form_cache", None)
         cached = cache is not None and (
             cache[0][0] if isinstance(cache[0], tuple) else cache[0]) is form
@@ -947,13 +966,55 @@ class SolverBase:
         if (cached and kept is not None and kept[0] is form
                 and form.aux_version - kept[2] == refreshes - kept[3]):
             self.timers.counts["operator_kept"] += 1
-            zero = torch.zeros(form.space.ndof, dtype=self.dtype,
-                               device=form.pattern.indptr.device)
-            return kept[1], -assembly.assemble_residual(form, zero)
+            return kept[1], self._kept_rhs(form)
         A, b = assembly.assemble_linear_system(form, dtype=self.dtype)
         self._kept_operator = (
             (form, A, form.aux_version, refreshes) if cached else None)
+        self._history_operator = None
         return A, b
+
+    def _kept_rhs(self, form):
+        """b of a step on a kept A: ``b0 + B h`` by the history operator
+        where the form has one that passed its check, else -R(0) (see
+        ``_linear_system``)."""
+        lag = getattr(self, "_history_lag", None)
+        h = lag[2] if lag is not None and lag[0] is form and \
+            lag[1] == form.aux_version else None
+        op = getattr(self, "_history_operator", None)
+        if op is None and h is not None:
+            terms = form.cell_terms + form.facet_terms
+            keys = [k for k in self._HISTORY_AUX
+                    if any(t.aux is not None and k in t.aux for t in terms)]
+            if keys:
+                op = self._history_operator = (
+                    *assembly.assemble_history_operator(form, keys, self.dtype),
+                    False)
+        if not op or h is None:
+            return self._element_rhs(form)
+        B, b0, checked = op
+        b = b0 + B.matvec(h)
+        if not checked:
+            ref = self._element_rhs(form)
+            count("host_sync")
+            gap, scale, size = torch.stack(
+                [(b - ref).abs().max(), ref.abs().max(), h.abs().max()]).tolist()
+            if size == 0:  # b0 + B 0 = b0 = -R(0) at any B: nothing checked
+                return ref
+            if not gap <= 1e-12 * scale:  # not affine in h (or not finite)
+                self._history_operator = False
+                self.timers.counts["history_operator_fallback"] += 1
+                count("history_operator_fallback")
+                return ref
+            self._history_operator = (B, b0, True)
+        self.timers.counts["history_operator"] += 1
+        count("history_operator")
+        return b
+
+    def _element_rhs(self, form):
+        """-R(0) by the element kernels."""
+        zero = torch.zeros(form.space.ndof, dtype=self.dtype,
+                           device=form.pattern.indptr.device)
+        return -assembly.assemble_residual(form, zero)
 
     def solve_linear_problem(self, form, u, dirichlet, spd=True):
         sp = self._solver_params()

@@ -294,6 +294,10 @@ def test_kept_operator_steps_equal_rebuilt_steps(kept_runs):
     assert ks.timers.counts["form_cache_refresh"] == 4
     assert ks.timers.counts["operator_kept"] == 4
     assert rs.timers.counts["operator_kept"] == 0
+    # b by the history operator on every kept step
+    assert ks.timers.counts["history_operator"] == 4
+    assert rs.timers.counts["history_operator"] == 0
+    assert ks.timers.counts["history_operator_fallback"] == 0
 
 
 def test_kept_operator_is_dropped_when_the_form_is_touched(kept_runs):
@@ -301,6 +305,8 @@ def test_kept_operator_is_dropped_when_the_form_is_touched(kept_runs):
     next step assemble A again (and keep that one after)."""
     (touched, ts), (kept, _) = kept_runs["touched"], kept_runs["kept"]
     assert ts.timers.counts["operator_kept"] == 3  # steps 1, 2 and 4
+    # the history operator is dropped with A and built again at step 4
+    assert ts.timers.counts["history_operator"] == 3
     for (a, ia), (b, ib) in zip(touched, kept):
         assert ia == ib and _rel(a, b) < 1e-12
 

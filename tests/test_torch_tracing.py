@@ -123,10 +123,14 @@ def test_the_heat_steps_spans_and_counts(krylov_route):
         }
         under = [c for c in rec.counts if c.span is not None and by_id[c.span].root == st.id]
         # 3 phases' 2 edges, the uploads, CG's norm of b and one norm a
-        # check (iterations + 1), the solution's copy to the host
+        # check (iterations + 1), the solution's copy to the host, and at
+        # the first kept step the history operator's check
         syncs = sum(c.n for c in under if c.name == "host_sync")
+        checks = 1 if k == 1 else 0
         assert iterations[k] > 0
-        assert syncs == 6 + uploads + (iterations[k] + 2) + 1
+        assert syncs == 6 + uploads + (iterations[k] + 2) + 1 + checks
+        # b by the history operator on each kept step
+        assert sum(c.n for c in under if c.name == "history_operator") == min(k, 1)
     assert all(c.span is not None for c in rec.counts)
     _beside_their_annotations(_heat_run, rec.spans, prof)
 
@@ -137,6 +141,8 @@ def test_the_phase_timers_still_count_each_phase(krylov_route):
     assert solver.timers.counts["form"] == 1
     assert solver.timers.counts["form_cache_refresh"] == 2
     assert solver.timers.counts["operator_kept"] == 2
+    assert solver.timers.counts["history_operator"] == 2
+    assert solver.timers.counts["history_operator_fallback"] == 0
     assert solver.timers.counts["assembly"] == solver.timers.counts["krylov"] == 3
 
 
